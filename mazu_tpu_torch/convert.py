@@ -1,0 +1,28 @@
+"""Carry index state across from NumPy array dicts.
+
+``arrays_from_numpy`` turns a ``device_arrays()`` dict — from this port's
+builders or from ``mazu_tpu``'s — into the port's dict of tensors with the
+same keys and layouts: u64/u32 arrays become int64/int32 bit patterns and
+Meta records become the port's Meta.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ._words import from_numpy
+from .pytree import as_meta
+
+
+def arrays_from_numpy(host: dict, device) -> dict:
+    out = {}
+    for key, v in host.items():
+        if isinstance(v, dict):
+            out[key] = arrays_from_numpy(v, device)
+        elif isinstance(v, np.ndarray):
+            out[key] = from_numpy(v, device)
+        elif hasattr(v, "kv"):
+            out[key] = as_meta(v)
+        else:
+            raise TypeError(f"{key}: cannot carry {type(v).__name__} across")
+    return out

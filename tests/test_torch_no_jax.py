@@ -1,0 +1,77 @@
+"""The port runs where there is no JAX: every module imports, and a tiny
+index answers a query, with ``jax`` blocked from importing."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import mazu_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, sys
+sys.modules["jax"] = None  # any "import jax" now raises ImportError
+mods = sys.argv[1:]
+for name in mods:
+    importlib.import_module(name)
+
+import numpy as np, torch
+from mazu_tpu_torch import synth
+from mazu_tpu_torch.convert import arrays_from_numpy
+from mazu_tpu_torch.index.modindex import QueryIndex, get_ref_pos_compact
+from mazu_tpu_torch.index.pipeline import OneGraphIndexQuery
+
+index = synth.build_index(5 * synth.PIECE)
+qi = QueryIndex(arrays_from_numpy(index.device_arrays(), "cpu"))
+q = torch.from_numpy(synth.sample_queries(index.k2u.unitigs, 512, seed=1).view(np.int64))
+out = get_ref_pos_compact(qi.arrays(), q, qi.max_occs, merge=True, m2=512)
+assert not bool(out["over_budget"]) and (out["mt"] > 0).any()
+chk, worst = OneGraphIndexQuery(qi, 512, n_chunks=2, m2=512).checksum_pass_rolled(q)
+assert chk > 0
+leaked = sorted(m for m in sys.modules if m == "mazu_tpu" or m.startswith("mazu_tpu."))
+assert not leaked, leaked
+print("OK", len(mods))
+"""
+
+
+def _modules():
+    names = [mazu_tpu_torch.__name__]
+    for info in pkgutil.walk_packages(mazu_tpu_torch.__path__, mazu_tpu_torch.__name__ + "."):
+        names.append(info.name)
+    return names
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_port_imports_and_queries_without_jax():
+    mods = _modules()
+    assert "mazu_tpu_torch.ops.mono2_probe" in mods and "mazu_tpu_torch.synth" in mods
+    res = subprocess.run(
+        [sys.executable, "-c", _PROBE, *mods], capture_output=True, text=True,
+        timeout=300, cwd=ROOT, env=_env(),
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == f"OK {len(mods)}"
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without a card the smoke script fails before any result, and not
+    for want of JAX."""
+    code = (
+        "import runpy, sys; sys.modules['jax'] = None; sys.argv = ['chip_smoke.py']; "
+        "runpy.run_path('chip_smoke.py', run_name='__main__')"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=ROOT, env=_env(),
+    )
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert '"ok"' not in res.stdout

@@ -1,0 +1,105 @@
+"""Shared inputs for the ``test_torch_*`` files: the same index built by
+``mazu_tpu`` (the reference) and by ``mazu_tpu_torch`` (the port), and
+helpers to compare their outputs exactly."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def mono2_recipe():
+    """The recipe of ``tests/test_pallas_query.py::mono2_dict``: 24 random
+    120-base unitigs, k=21, each its own reference (one occurrence)."""
+    rng = np.random.default_rng(7)
+    seqs = ["".join(rng.choice(list("ACGT"), 120)) for _ in range(24)]
+    n = len(seqs)
+    occ = (
+        np.arange(n, dtype=np.int64),
+        np.arange(n, dtype=np.int64),
+        np.zeros(n, dtype=np.int64),
+        np.ones(n, dtype=np.int64),
+    )
+    return seqs, 21, occ, np.full(n, 120, dtype=np.int64)
+
+
+def toy_recipe(idx=None):
+    """The unitigs and occurrences of ``__graft_entry__._toy_index`` (six
+    unitigs with 3 mixed-orientation occurrences), read back from it."""
+    if idx is None:
+        import __graft_entry__ as g
+
+        idx = g._toy_index()
+    us = idx.k2u.unitigs
+    n = us.n_unitigs
+    seqs = [us.unitig_seq_str(i) for i in range(n)]
+    uid, ref, pos, o = [], [], [], []
+    for u in range(n):
+        r, p, oo = idx.u2pos.occs(u)
+        uid += [u] * len(r)
+        ref += list(r)
+        pos += list(p)
+        o += list(oo)
+    occ = tuple(np.array(a, dtype=np.int64) for a in (uid, ref, pos, o))
+    return seqs, us.k, occ, us.unitig_len(np.arange(n)).astype(np.int64)
+
+
+def build_pair(recipe):
+    """(mazu_tpu ModIndex, mazu_tpu_torch ModIndex) of one recipe, both
+    with a mono2 KCDict at load 0.25 over a piscem occurrence table."""
+    from mazu_tpu.containers.refseq import RefSeqCollection as MRefs
+    from mazu_tpu.containers.unitig_set import UnitigSet as MUnitigs
+    from mazu_tpu.index.modindex import ModIndex as MModIndex
+    from mazu_tpu.index.spt import SPT as MSPT
+    from mazu_tpu.kphf.kcdict import KCDict as MKCDict
+
+    from mazu_tpu_torch.containers.refseq import RefSeqCollection
+    from mazu_tpu_torch.containers.unitig_set import UnitigSet
+    from mazu_tpu_torch.index.modindex import ModIndex
+    from mazu_tpu_torch.index.spt import SPT
+    from mazu_tpu_torch.kphf.kcdict import KCDict
+
+    seqs, k, occ, ref_lens = recipe
+    names = [f"r{i}" for i in range(len(ref_lens))]
+
+    mus = MUnitigs.from_seqs(seqs, k)
+    mu2 = MSPT(mus, names, *occ, ref_lens).piscem_table()
+    mkc = MKCDict.from_unitig_set(mus, occ_table=mu2, scheme="mono2", load=0.25)
+    ref = MModIndex(mkc, mu2, MRefs.from_lens(ref_lens, names), index_type="t")
+
+    pus = UnitigSet.from_seqs(seqs, k)
+    pu2 = SPT(pus, names, *occ, ref_lens).piscem_table()
+    pkc = KCDict.from_unitig_set(pus, pu2, load=0.25)
+    port = ModIndex(pkc, pu2, RefSeqCollection.from_lens(ref_lens, names), index_type="t")
+    return ref, port
+
+
+def queries(unitigs, n: int, seed: int, miss: float = 0.1) -> np.ndarray:
+    """uint64 words: uniform draws from the index's k-mers, half reverse-
+    complemented, a ``miss`` share replaced by random 62-bit words."""
+    from mazu_tpu.kmer import revcomp
+
+    rng = np.random.default_rng(seed)
+    kms = unitigs.get_kmer_u64(unitigs.kmer_start_positions())
+    work = kms[rng.integers(0, len(kms), n)]
+    flip = rng.random(n) < 0.5
+    work[flip] = revcomp(work[flip], unitigs.k)
+    m = rng.random(n) < miss
+    work[m] = rng.integers(0, 1 << 62, int(m.sum()), dtype=np.uint64)
+    return work
+
+
+def tensor(words: np.ndarray) -> torch.Tensor:
+    """uint64 NumPy words -> int64 bit-pattern tensor on the CPU."""
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int64))
+
+
+def assert_same(got: torch.Tensor, want, what: str = ""):
+    """Exact equality of a port tensor with a reference array: same shape,
+    same dtype (u64/u32 read back from their bit patterns), same values."""
+    want = np.asarray(want)
+    g = got.detach().cpu().numpy()
+    if want.dtype.kind == "u" and want.itemsize == g.itemsize and g.dtype.kind == "i":
+        g = g.view(want.dtype)
+    assert g.dtype == want.dtype, f"{what}: dtype {g.dtype} != {want.dtype}"
+    np.testing.assert_array_equal(g, want, err_msg=what)
