@@ -1,21 +1,36 @@
-"""Run the port's main path once on one CUDA card and check it.
+"""Run the port's main paths once on one CUDA card and check them.
 
-    python3 chip_smoke.py [--mbp 50]
+    python3 chip_smoke.py [--mbp 50] [--cap-mbp 300]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. card check (fails without CUDA) and the card's name and power limit;
-2. build of the mono2 probe kernel from ``mazu_tpu_torch/csrc``;
+2. build of both kernels from ``mazu_tpu_torch/csrc``, one nvcc each, run
+   together (phase 6 prints the second kernel's report);
 3. the synthetic mono2-occ32 KCDict index (random genome, k=31, 10 kb
    unitigs, every 16th unitig with 3 occurrences, load 0.25), moved to the
    card;
-4. the kernel against its plain torch version on the card: ragged and
-   adversarial small batches, then 2^20 queries (uniform over the index,
-   half reverse-complemented, 5% foreign); all nine fields bit-identical;
-   both timed;
-5. the main path: ``OneGraphIndexQuery.checksum_pass_rolled`` over 16
-   rolled chunks of that batch, checked against the port's plain path on
-   CPU tensors for chunk 0, and timed over 3 passes.
+4. the mono2 kernel (K1) against its plain torch version on the card:
+   ragged and adversarial small batches, then 2^20 queries (uniform over
+   the index, half reverse-complemented, 5% foreign); all nine fields
+   bit-identical; both timed;
+5. the mono2 main path: ``OneGraphIndexQuery.checksum_pass_rolled`` over
+   16 rolled chunks of that batch, checked against the port's plain path
+   on CPU tensors for chunk 0, and timed over 3 passes;
+6. the bpos probe kernel's (K2) ptxas report;
+7. the synthetic capacity index: an SSHash direct engine (w=15, skew 64,
+   load 0.5) over a random genome with a planted skew bucket, its
+   minimizer scan on the card; grouped16 bounds, packed positions, bpos
+   rows and useqrec window records;
+8. K2 against its plain torch version on the card, all nine fields
+   bit-identical: N=1, N=257 with a foreign word and a skew lane, probe
+   limits 1-3, then 2^20 queries; both timed;
+9. the capacity path: ``OneGraphIndexQuery.checksum_pass_rolled`` over 8
+   rolled chunks of 2^20 queries at probe limit 2, middle phase 4; the
+   port's plain path on CPU tensors gives chunk 0's oracle, which must hit
+   every sampled lane at its sampled unitig and offset; timed over 3
+   passes, then one profiled pass: device busy share and the kernels that
+   take the time.
 
 The last two lines are the kernels' JSON record and the result JSON.
 Imports nothing of JAX.
@@ -31,16 +46,24 @@ import time
 import numpy as np
 import torch
 
+from mazu_tpu_torch._words import mask32
 from mazu_tpu_torch.convert import arrays_from_numpy
-from mazu_tpu_torch.index.modindex import QueryIndex, get_ref_pos_compact, get_ref_pos_padded
+from mazu_tpu_torch.index.modindex import (
+    QueryIndex, get_ref_pos_compact, get_ref_pos_padded, merge_compact_k2u,
+)
 from mazu_tpu_torch.index.pipeline import OneGraphIndexQuery
-from mazu_tpu_torch.kmer import mask2k, revcomp_np
+from mazu_tpu_torch.kmer import canonical_minimizer_batch, mask2k, revcomp_np
+from mazu_tpu_torch.kphf.boophf32 import fold_hash32
 from mazu_tpu_torch.kphf.kcdict import kcdict_k2u
-from mazu_tpu_torch.ops import mono2_probe
+from mazu_tpu_torch.kphf.sshash import sshash_k2u
+from mazu_tpu_torch.ops import bpos_probe, mono2_probe
+from mazu_tpu_torch.ops.cuda_build import compile_all
 from mazu_tpu_torch import synth
 
 BATCH = 1 << 20
 CH = 16
+CAP_CH = 8  # rolled chunks per capacity pass (bench.py:366)
+PLIM, PLIM2 = 2, 4  # capacity probe limits: main phase, middle phase
 FIELDS = ("unitig_id", "unitig_len", "pos", "occ_cnt", "mt", "occ_word", "occ_word2",
           "use_skew", "unresolved")
 
@@ -62,11 +85,12 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare_k2u(d: dict, fw: torch.Tensor, what: str) -> int:
-    """Kernel vs plain version on the same card tensors; every field must
-    be bit-identical. Returns the max absolute difference (0)."""
-    got = mono2_probe.mono2_k2u(d, fw)
-    want = kcdict_k2u(d, fw, mode="main")
+def compare_k2u(d: dict, fw: torch.Tensor, what: str, kernel=None, plain=None) -> int:
+    """Kernel vs plain version on the same card tensors (by default K1 and
+    ``kcdict_k2u``); every field must be bit-identical. Returns the max
+    absolute difference (0)."""
+    got = (kernel or mono2_probe.mono2_k2u)(d, fw)
+    want = (plain or (lambda d_, f_: kcdict_k2u(d_, f_, mode="main")))(d, fw)
     err = 0
     for key in FIELDS:
         g, w = got[key], want[key]
@@ -86,29 +110,44 @@ def slot1_key(table: np.ndarray) -> int:
     return int(row[7]) | ((int(row[8]) & 0x7FFFFFFF) << 32)
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mbp", type=float, default=50.0, help="genome size in Mbp")
-    args = ap.parse_args()
-
-    # 1. card
+def card() -> tuple[torch.device, str]:
+    """The CUDA device, and its name and power limit as nvidia-smi gives
+    them; exits without a card."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on the card")
-    dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    return torch.device("cuda", 0), smi
 
-    # 2. kernel build
+
+def ptxas_lines(report: str):
+    return [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
+
+
+def fit(c) -> int:
+    """A capacity covering ``c`` lanes, rounded up (bench.py:377)."""
+    return max(1024, -(-(int(c) + 256) // 1024) * 1024)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--mbp", type=float, default=50.0, help="mono2 genome size in Mbp")
+    ap.add_argument("--cap-mbp", type=float, default=300.0, help="capacity genome size in Mbp")
+    args = ap.parse_args()
+
+    # 1. card
+    dev, smi = card()
+
+    # 2. kernel builds, one nvcc per source, together
     t0 = time.perf_counter()
-    lib, ptxas = mono2_probe.compile_library()
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    (lib, ptxas), (lib2, ptxas2) = compile_all([mono2_probe.SOURCE, bpos_probe.SOURCE])
+    log(f"[build] {lib.name} and {lib2.name} in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_lines(ptxas):
+        log(f"[build] {line}")
 
     # 3. index
     t0 = time.perf_counter()
@@ -199,7 +238,7 @@ def main():
     log(f"[main] {iters} x {CH} x {BATCH} queries in {dt:.4f} s: {BATCH * CH * iters / dt:.1f} "
         f"queries/s; overflow share {n_ovf / BATCH:.4f} ({smi})")
 
-    log(json.dumps({"kernels": [{
+    k1 = {
         "name": "mono2_probe",
         "route": "cuda",
         "source": "mazu_tpu_torch/csrc/mono2_probe.cu",
@@ -208,10 +247,188 @@ def main():
         "max_abs_err": max_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
-    }]}))
+    }
+    del og, gpu_index, d, fw, r
+    torch.cuda.empty_cache()
+
+    # 6. K2 build report
+    log(f"[k2 build] {lib2.name}")
+    for line in ptxas_lines(ptxas2):
+        log(f"[k2 build] {line}")
+
+    k2 = capacity(args, dev, smi)
+    log(json.dumps({"kernels": [k1, k2]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
+
+
+def n_occs_of(k2u: dict, fw: torch.Tensor) -> torch.Tensor:
+    """Occurrence count of each query's minimizer bucket (its bpos row)."""
+    m = k2u["meta"]
+    mm = canonical_minimizer_batch(fw, m.k, m.w, m.seed)[0]
+    return mask32(k2u["bpos"][fold_hash32(mm) & (m.direct_t - 1), 3])
+
+
+def capacity(args, dev, smi) -> dict:
+    """Phases 7-9; returns K2's record for the kernels line."""
+    # 7. the capacity index
+    t0 = time.perf_counter()
+    index = synth.build_capacity_index(int(args.cap_mbp * 1e6), seed=0, device=dev, chunk=1 << 24)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = index.device_arrays(**synth.CAPACITY_LAYOUT)
+    t_arrays = time.perf_counter() - t0
+    cpu_index = QueryIndex(arrays_from_numpy(host, "cpu"))
+    t0 = time.perf_counter()
+    gpu_index = QueryIndex(arrays_from_numpy(host, "cpu")).to(dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    us = index.k2u.unitigs
+    d = gpu_index.arrays()
+    k2u = d["k2u"]
+    m = k2u["meta"]
+    log(f"[cap index] {us.total_len} bases, {us.n_unitigs} unitigs, {us.n_kmers} k-mers; "
+        f"T={m.direct_t} buckets, probe_bound={m.probe_bound}, max bucket {index.k2u.max_bucket()}, "
+        f"{index.k2u.n_kmers_in_skew_index} skew k-mers ({m.skew_kind}, skew_t={m.skew_t}); "
+        f"max_occs={gpu_index.max_occs}")
+    log(f"[cap index] host build {t_build:.1f} s (minimizer scan on the card), arrays "
+        f"{t_arrays:.1f} s, to card {t_card:.1f} s; {gpu_index.nbytes()} bytes on the card "
+        f"(bpos {k2u['bpos'].numel() * 4}, useqrec {k2u['us']['useqrec'].numel() * 8})")
+
+    # 8. K2 against its plain version
+    work, uid, upos = synth.sample_capacity_queries(us, BATCH, seed=1)
+    fw = torch.from_numpy(work.view(np.int64)).to(dev)
+
+    def k2(plim):
+        return (lambda d_, f_: bpos_probe.bpos_usrec_k2u(d_, f_, plim),
+                lambda d_, f_: sshash_k2u(d_, f_, mode="main", probe_limit=plim))
+
+    want = sshash_k2u(k2u, fw, mode="main", probe_limit=PLIM)
+    skew_lane = int(torch.nonzero(want["use_skew"])[0])
+    small = work[:257].copy()
+    small[0] = work[skew_lane]
+    small[1] = np.random.default_rng(5).integers(1 << 63, 1 << 64, dtype=np.uint64)
+    small[2] = mask2k(index.k)
+    for plim in (1, 2, 3):
+        for words in (small[:1], small):
+            compare_k2u(k2u, torch.from_numpy(words.view(np.int64)).to(dev),
+                        f"plim={plim} N={len(words)}", *k2(plim))
+        max_err = compare_k2u(k2u, fw, f"plim={plim} N={BATCH}", *k2(plim))
+    log("[k2] N=1, N=257 (a skew lane, a foreign word, all-T) and 2^20 at probe limits 1-3: "
+        "bit-identical on all nine fields")
+    n_skew = int(want["use_skew"].sum())
+    n_unres = int(want["unresolved"].sum())
+    # unresolved lanes whose bucket has no row past the probed depth are
+    # there only for the mt == 3 sentinel (a lower bound of its count)
+    n_mt3 = int((want["unresolved"] & (n_occs_of(k2u, fw) <= PLIM)).sum())
+    log(f"[k2] N={BATCH} at probe limit {PLIM}: {n_skew} skew lanes, {n_unres} unresolved, "
+        f">= {n_mt3} by the mt==3 sentinel, {int((want['mt'] > 0).sum())} hits")
+    if min(n_skew, n_unres, n_mt3) == 0:
+        raise AssertionError("the capacity batch lacks skew, unresolved or sentinel lanes")
+    kern, plain = k2(PLIM)
+    k2_ms = cuda_ms(lambda: kern(k2u, fw), 20)
+    k2_plain_ms = cuda_ms(lambda: plain(k2u, fw), 5)
+    log(f"[k2] N={BATCH}: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms ({smi})")
+    del want
+
+    # 9. the capacity main path
+    t0 = time.perf_counter()
+    cpu = cpu_index.arrays()
+    work_cpu = torch.from_numpy(work.view(np.int64))
+    rM = sshash_k2u(cpu["k2u"], work_cpu, mode="main", probe_limit=PLIM2)
+    m2c = fit(int((rM["use_skew"] | rM["unresolved"]).sum()) * 1.3)
+    kw = dict(probe_limit=PLIM, m2b=max(8192, BATCH // 8), defer_valid=True, probe_limit2=PLIM2,
+              m2c=m2c)
+    out0 = get_ref_pos_compact(cpu, work_cpu, cpu_index.max_occs, merge=False,
+                               m2=max(8192, BATCH // 8), **kw)
+    if bool(out0["over_budget"]):
+        raise AssertionError("CPU oracle over budget")
+    host_chk = int(OneGraphIndexQuery.checksum(out0))
+    merged = merge_compact_k2u(out0)
+    if not bool((merged["mt"] > 0).all()):
+        raise AssertionError(f"CPU oracle missed {int((merged['mt'] == 0).sum())} sampled lanes")
+    if not (np.array_equal(merged["unitig_id"].numpy(), uid)
+            and np.array_equal(merged["pos"].numpy(), upos)):
+        raise AssertionError("CPU oracle disagrees with the sampled unitigs and offsets")
+    n_a, n_b = int(out0["n_ovf"]), int(out0["n_ovf_b"])
+    real_b = out0["lanes_b"][out0["slot_real_b"]]
+    rB = sshash_k2u(cpu["k2u"], work_cpu[real_b], mode="main", probe_limit=PLIM2)
+    n_c = int((rB["use_skew"] | rB["unresolved"]).sum())
+    M2, M2B = fit(n_a * 1.3), fit(n_b * 1.15)
+    log(f"[cap main] CPU oracle {time.perf_counter() - t0:.1f} s: chunk checksum {host_chk}; "
+        f"every lane hit at its sampled unitig and offset; type-A {n_a}, type-B {n_b}, residue "
+        f"{n_c} of {BATCH} -> m2={M2}, m2b={M2B}, m2c={m2c}")
+
+    # merged query on the card against the exact padded query on the CPU
+    got = get_ref_pos_compact(d, fw[:4096], gpu_index.max_occs, merge=True, m2=4096,
+                              **dict(kw, m2b=4096, m2c=4096))
+    want = get_ref_pos_padded(cpu, work_cpu[:4096], cpu_index.max_occs)
+    for key in ("unitig_id", "unitig_len", "pos", "mt", "n_occs", "valid",
+                "ref_id", "ref_pos", "orient"):
+        g, w = got[key].cpu(), want[key]
+        if g.dim() == 2:
+            g, w = torch.where(want["valid"], g, 0), torch.where(want["valid"], w, 0)
+        if not torch.equal(g, w):
+            raise AssertionError(f"merged capacity query on the card differs from padded CPU in {key}")
+    log("[cap main] merged capacity query on 4096 lanes equals the padded CPU query")
+
+    res_ms = cuda_ms(lambda: get_ref_pos_padded(d, fw[:m2c], gpu_index.max_occs), 5)
+    log(f"[cap main] residue phase alone (full mode, static loop to probe_bound={m.probe_bound}) "
+        f"on {m2c} lanes: {res_ms:.3f} ms ({smi})")
+
+    og = OneGraphIndexQuery(gpu_index, BATCH, n_chunks=CAP_CH, m2=M2, m2b=M2B, **{
+        kk: kw[kk] for kk in ("probe_limit", "defer_valid", "probe_limit2", "m2c")})
+    bpos_probe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    chk, worst = og.checksum_pass_rolled(fw)
+    first_s = time.perf_counter() - t0
+    launches = bpos_probe.LAUNCHES
+    if launches == 0:
+        raise AssertionError("the capacity path never launched the bpos probe kernel")
+    if chk != CAP_CH * host_chk:
+        raise AssertionError(f"device checksum {chk} vs {CAP_CH} x {host_chk}")
+    log(f"[cap main] first pass {first_s:.3f} s: checksum {chk} == {CAP_CH} x oracle, worst "
+        f"(type-A, type-B) {worst} within (m2, m2b), bpos_probe launches {launches}")
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        chk, _ = og.checksum_pass_rolled(fw)
+        if chk != CAP_CH * host_chk:
+            raise AssertionError(f"timed pass checksum {chk} != {CAP_CH} x {host_chk}")
+    dt = time.perf_counter() - t0
+    log(f"[cap main] {iters} x {CAP_CH} x {BATCH} queries in {dt:.4f} s: "
+        f"{BATCH * CAP_CH * iters / dt:.1f} queries/s ({smi})")
+    profile_pass(og, fw, dt / iters)
+    return {
+        "name": "bpos_probe",
+        "route": "cuda",
+        "source": "mazu_tpu_torch/csrc/bpos_probe.cu",
+        "replaces": "mazu_tpu/ops/pallas_capacity.py:266",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+    }
+
+
+def profile_pass(og, fw, pass_s: float):
+    """One profiled capacity pass: device busy share, kernel launches, and
+    the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        og.checksum_pass_rolled(fw)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.self_device_time_total for e in events)
+    n_kernels = sum(e.count for e in events)
+    log(f"[profile] profiled pass {wall * 1e3:.1f} ms (unprofiled {pass_s * 1e3:.1f} ms); device "
+        f"busy {busy_us / 1e3:.2f} ms = {100 * busy_us / (pass_s * 1e6):.1f}% of an unprofiled "
+        f"pass; {n_kernels} device kernels")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
-"""Fixed-width packed integer vector (host; counterpart of
+"""Fixed-width packed integer vector (counterpart of
 ``mazu_tpu.bits.intvector``): ``len`` integers of ``width`` <= 58 bits
 packed LSB-first into uint64 words, with at least two words of padding
-past the data."""
+past the data. ``iv_get`` is the device read."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .._words import read_window as read_window_t
 from .seqvector import read_window
 
 U64 = np.uint64
@@ -41,10 +43,13 @@ class IntVector:
         off = (bit_pos & 63).astype(U64)
         words = np.zeros(nw + 1, dtype=np.uint64)
         v = values & U64((1 << width) - 1)
-        np.bitwise_or.at(words, wi, v << off)
+        # word indices never decrease, so each word's share is one OR-reduce
+        # over a run of elements
+        first = np.flatnonzero(np.concatenate([[True], wi[1:] != wi[:-1]]))
+        words[wi[first]] = np.bitwise_or.reduceat(v << off, first)
         # an element that crosses a word boundary spills into the next word
         hi = np.where(off == 0, U64(0), v >> ((U64(64) - off) & U64(63)))
-        np.bitwise_or.at(words, wi + 1, hi)
+        words[wi[first] + 1] |= np.bitwise_or.reduceat(hi, first)
         return cls(words[:nw], n, width)
 
     def get(self, i) -> np.ndarray:
@@ -61,3 +66,10 @@ class IntVector:
         from ..pytree import meta
 
         return {"words": self.words, "meta": meta(width=self.width, length=self.length)}
+
+
+def iv_get(iv: dict, i: torch.Tensor) -> torch.Tensor:
+    """Element(s) ``i`` of a packed IntVector (device arrays): one
+    ``width``-bit window read at bit ``i * width``."""
+    width = int(iv["meta"].width)
+    return read_window_t(iv["words"], i * width, width)

@@ -5,7 +5,9 @@ LSB-first uint64 word stream with one zero guard word."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .._words import read_window as read_window_t
 from ..kmer import seq_to_codes
 
 U64 = np.uint64
@@ -56,3 +58,9 @@ class SeqVector:
         from ..pytree import meta
 
         return {"words": self.words, "meta": meta(length=self.length)}
+
+
+def sv_get_kmer(words: torch.Tensor, pos: torch.Tensor, k: int) -> torch.Tensor:
+    """k-mer word(s) at base position(s) ``pos`` of a SeqVector's words
+    (device form of ``SeqVector.get_kmer_u64``)."""
+    return read_window_t(words, pos * 2, 2 * int(k))

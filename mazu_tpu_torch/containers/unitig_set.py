@@ -1,15 +1,18 @@
-"""UnitigSet: concatenated 2-bit unitigs (host; counterpart of
-``mazu_tpu.containers.unitig_set:24-110``).
+"""UnitigSet: concatenated 2-bit unitigs (counterpart of
+``mazu_tpu.containers.unitig_set``).
 
-``useq`` is the packed concatenation and ``accum`` the int64 prefix of
-unitig lengths. The query path needs no boundary bitvector: position ->
-unitig id is a binary search over ``accum``.
+``useq`` is the packed concatenation, ``accum`` the int64 prefix of unitig
+lengths, and ``bv`` the boundary bitvector with a 1 on the last base of
+each unitig. On the host, position -> unitig id is a binary search over
+``accum``; the device functions (``us_*``) rank the boundary bitvector.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..bits.bitvector import BitVector, bv_rank, bv_read_window, rank_in_word
 from ..bits.seqvector import SeqVector
 from ..pytree import meta
 
@@ -19,6 +22,7 @@ class UnitigSet:
         self.k = int(k)
         self.useq = useq
         self.accum = np.asarray(accum, dtype=np.int64)
+        self.bv = BitVector.from_set_positions(self.accum[1:] - 1, int(self.accum[-1]))
 
     @classmethod
     def from_seqs(cls, seqs: list[str], k: int) -> "UnitigSet":
@@ -49,6 +53,13 @@ class UnitigSet:
     def get_kmer_u64(self, pos) -> np.ndarray:
         return self.useq.get_kmer_u64(pos, self.k)
 
+    def is_valid_useq_pos(self, pos) -> np.ndarray:
+        """No unitig boundary inside the k-mer window at ``pos``."""
+        pos = np.asarray(pos, dtype=np.int64)
+        in_range = pos <= self.total_len - self.k
+        w = self.bv.read_window(np.clip(pos, 0, self.total_len - self.k), self.k - 1)
+        return in_range & (w == 0)
+
     def kmer_start_positions(self) -> np.ndarray:
         """Global useq positions of all valid k-mers, in unitig order."""
         starts = self.accum[:-1]
@@ -57,9 +68,48 @@ class UnitigSet:
         within = np.arange(offsets[-1], dtype=np.int64) - np.repeat(offsets[:-1], counts)
         return np.repeat(starts, counts) + within
 
-    def device_arrays(self) -> dict:
-        return {
+    def device_arrays(self, paired: bool = False) -> dict:
+        """``paired=True`` adds the pair-packed views the capacity probes
+        read with one gather each: ``useq.words2[i] = (words[i],
+        words[i+1])``, ``bv.wb2[i] = (words[i], blocks[i])`` and
+        ``accum2[u] = (start, end)``."""
+        d = {
             "useq": self.useq.device_arrays(),
+            "bv": self.bv.device_arrays(),
             "accum": self.accum,
-            "meta": meta(k=self.k, n_unitigs=self.n_unitigs, total_len=self.total_len),
+            "meta": meta(k=self.k, n_unitigs=self.n_unitigs, total_len=self.total_len,
+                         paired=paired),
         }
+        if paired:
+            w = self.useq.words
+            d["useq"]["words2"] = np.stack([w, np.concatenate([w[1:], np.zeros(1, np.uint64)])],
+                                           axis=1)
+            d["bv"]["wb2"] = np.stack([self.bv.words, self.bv.blocks.astype(np.uint64)], axis=1)
+            d["accum2"] = np.stack([self.accum[:-1], self.accum[1:]], axis=1)
+        return d
+
+
+def us_rank(us: dict, pos: torch.Tensor) -> torch.Tensor:
+    """Unitig id of useq position(s) ``pos``: the boundary ones before it.
+    The paired layout reads the word and its block count in one row."""
+    if "wb2" in us["bv"]:
+        pair = us["bv"]["wb2"][pos >> 6]
+        return rank_in_word(pair[..., 0], pair[..., 1], pos)
+    return bv_rank(us["bv"], pos)
+
+
+def us_extent(us: dict, uid: torch.Tensor):
+    """(start, end) of unitig(s) ``uid``."""
+    if "accum2" in us:
+        pair = us["accum2"][uid]
+        return pair[..., 0], pair[..., 1]
+    return us["accum"][uid], us["accum"][uid + 1]
+
+
+def us_is_valid_pos(us: dict, pos: torch.Tensor) -> torch.Tensor:
+    """A k-mer fits at ``pos``: in range, and no unitig boundary among its
+    first k-1 bases."""
+    m = us["meta"]
+    last = max(0, m.total_len - m.k)
+    in_range = (pos >= 0) & (pos <= m.total_len - m.k)
+    return in_range & (bv_read_window(us["bv"], torch.clamp(pos, 0, last), m.k - 1) == 0)

@@ -1,21 +1,24 @@
 """ModIndex and its batched query (counterpart of
-``mazu_tpu.index.modindex``), for the KCDict mono2-occ32 K2U.
+``mazu_tpu.index.modindex``), for the KCDict mono2-occ32 and the
+direct-engine SSHash K2Us.
 
     k-mer words [N] -> K2U probe -> occurrence words -> projection
     -> reference positions
 
 ``get_ref_pos_padded`` is the exact one-phase query. ``get_ref_pos_compact``
-is the main path: the probe kernel plus a zero-gather projection for lanes
-whose unitig has at most two occurrences, then a compacted phase 2 that
-runs the padded query on the remaining lanes only.
+is the main path: a shallow probe (a kernel on CUDA) plus a zero-gather
+projection for lanes whose unitig has at most two occurrences, then
+compacted phases that resolve the remaining lanes exactly.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import MATCH_IDENTITY
-from ..ops.compact import flagged_lanes
+from ..ops.bpos_probe import bpos_usrec_k2u
+from ..ops.compact import flagged_lanes, flagged_lanes2
 from ..ops.mono2_probe import mono2_k2u
 from ..pytree import meta
 from .twophase import _project_fused
@@ -25,14 +28,78 @@ _K2U_FIELDS = ("unitig_id", "unitig_len", "pos", "mt")
 _MERGE_FIELDS = _K2U_FIELDS + ("n_occs", "ref_id", "ref_pos", "orient", "valid")
 
 
-def k2u_batch(d: dict, fw: torch.Tensor) -> dict:
-    """Full (exact) K2U for the index's dictionary."""
-    from ..kphf.kcdict import kcdict_k2u
+def build_uproj(u2pos, unitigs) -> np.ndarray:
+    """Per-unitig projection record, u64 rows ``[ustart, ulen,
+    cnt | occ_start << 32, occ_word1, occ_word2]``: the unitig's extent,
+    its occurrence bounds and its first two encoded occurrences."""
+    cwords = u2pos.ctable.to_array()
+    off = np.asarray(u2pos.offsets, dtype=np.int64)
+    accum = np.asarray(unitigs.accum, dtype=np.int64)
+    n = len(accum) - 1
+    if len(off) != n + 1:
+        raise ValueError("offsets and unitig count disagree")
+    if off[-1] >= (1 << 32):
+        raise ValueError("occ_start rides in 32 bits")
+    cnt = off[1:] - off[:-1]
+    hi = max(len(cwords) - 1, 0)
+    first = np.asarray(cwords[np.clip(off[:-1], 0, hi)], dtype=np.uint64)
+    second = np.asarray(cwords[np.clip(off[:-1] + 1, 0, hi)], dtype=np.uint64) * (cnt >= 2)
+    rows = np.empty((n, 5), dtype=np.uint64)
+    rows[:, 0] = accum[:-1].astype(np.uint64)
+    rows[:, 1] = (accum[1:] - accum[:-1]).astype(np.uint64)
+    rows[:, 2] = cnt.astype(np.uint64) | (off[:-1].astype(np.uint64) << np.uint64(32))
+    rows[:, 3] = first * (cnt >= 1)
+    rows[:, 4] = second
+    return rows
 
+
+def build_useqrec(u2pos, unitigs) -> np.ndarray:
+    """Per-32-base window record, u64 rows ``[w_i, w_i+1, w_i+2,
+    ustart | ulen << 40, uid | cnt << 32, occ_word1, occ_word2]`` (56 B),
+    keyed by useq word index i. One row holds a 96-base candidate window
+    and, for the unitig that contains base 32 i, its extent, id, occurrence
+    count and first two occurrence words."""
+    up = build_uproj(u2pos, unitigs)
+    words = np.asarray(unitigs.useq.words, dtype=np.uint64)
+    accum = np.asarray(unitigs.accum, dtype=np.int64)
+    nw = len(words)
+    base = np.arange(nw, dtype=np.int64) * 32
+    uid = np.clip(np.searchsorted(accum, base, side="right") - 1, 0, len(accum) - 2)
+    ustart, ulen = up[uid, 0], up[uid, 1]
+    if int(ustart.max(initial=0)) >= 1 << 40:
+        raise ValueError("ustart rides in 40 bits")
+    if int(ulen.max(initial=0)) >= 1 << 24:
+        raise ValueError("ulen rides in 24 bits")
+    if len(accum) - 1 >= 1 << 32:
+        raise ValueError("uid rides in 32 bits")
+    wp = np.concatenate([words, np.zeros(2, dtype=np.uint64)])
+    rec = np.empty((nw, 7), dtype=np.uint64)
+    rec[:, 0] = wp[:nw]
+    rec[:, 1] = wp[1 : nw + 1]
+    rec[:, 2] = wp[2 : nw + 2]
+    rec[:, 3] = ustart | (ulen << np.uint64(40))
+    rec[:, 4] = uid.astype(np.uint64) | ((up[uid, 2] & np.uint64(0xFFFFFFFF)) << np.uint64(32))
+    rec[:, 5] = up[uid, 3]
+    rec[:, 6] = up[uid, 4]
+    return rec
+
+
+def k2u_batch(d: dict, fw: torch.Tensor, probe_start: int = 0) -> dict:
+    """Full (exact) K2U for the index's dictionary. ``probe_start``
+    (SSHash only) skips candidate rows [0, probe_start): see
+    ``sshash_k2u``."""
     kind = d["k2u"]["meta"].kind
-    if kind != "kcdict":
-        raise ValueError(f"the port has no {kind!r} K2U yet")
-    return kcdict_k2u(d["k2u"], fw)
+    if kind == "kcdict":
+        from ..kphf.kcdict import kcdict_k2u
+
+        if probe_start:
+            raise ValueError("probe_start is an SSHash-only contract")
+        return kcdict_k2u(d["k2u"], fw)
+    if kind == "sshash":
+        from ..kphf.sshash import sshash_k2u
+
+        return sshash_k2u(d["k2u"], fw, probe_start=probe_start)
+    raise ValueError(f"the port has no {kind!r} K2U yet")
 
 
 def _occ_projection_wide(d: dict, r: dict, max_occs: int) -> dict:
@@ -59,12 +126,12 @@ def _occ_projection_wide(d: dict, r: dict, max_occs: int) -> dict:
     }
 
 
-def get_ref_pos_padded(d: dict, fw: torch.Tensor, max_occs: int) -> dict:
+def get_ref_pos_padded(d: dict, fw: torch.Tensor, max_occs: int, probe_start: int = 0) -> dict:
     """Exact query with occurrence lists padded to ``max_occs``.
 
     Returns the K2U fields [N] plus ref_id, ref_pos (int64), orient (int32,
     1 = forward) and valid (bool), each [N, max_occs], and n_occs [N]."""
-    r = k2u_batch(d, fw)
+    r = k2u_batch(d, fw, probe_start=probe_start)
     return {**r, **_occ_projection_wide(d, r, max_occs)}
 
 
@@ -75,33 +142,107 @@ def _pad_cols(x: torch.Tensor, w: int) -> torch.Tensor:
     return torch.cat([x, z], dim=1)
 
 
-def _merge_compact(p: dict, out2: dict, lanes, slot_real, max_occs: int) -> dict:
-    """Main-phase results padded to full width with the compacted phase-2
-    block scattered back over its lanes; fake slots go to a dummy row."""
+def _merge_compact(p: dict, pieces, max_occs: int) -> dict:
+    """Main-phase results padded to full width, with each compacted block
+    of ``pieces`` ((block, lanes, slot_real) triples) scattered back over
+    its lanes; fake slots go to a dummy row."""
     N = p["mt"].shape[0]
     w = max(max_occs, p["ref_id"].shape[1])
-    dest = torch.where(slot_real, lanes, N)
-    full = {}
-    for kk in _MERGE_FIELDS:
-        base = _pad_cols(p[kk], w) if p[kk].dim() == 2 else p[kk]
-        v = out2[kk]
-        base = torch.cat([base, torch.zeros_like(base[:1])])
-        base[dest] = _pad_cols(v, w) if v.dim() == 2 else v
-        full[kk] = base[:N]
+    full = {kk: _pad_cols(p[kk], w) if p[kk].dim() == 2 else p[kk] for kk in _MERGE_FIELDS}
+    for out2, lanes, slot_real in pieces:
+        dest = torch.where(slot_real, lanes, N)
+        for kk in _MERGE_FIELDS:
+            v = out2[kk]
+            base = torch.cat([full[kk], torch.zeros_like(full[kk][:1])])
+            base[dest] = _pad_cols(v, w) if v.dim() == 2 else v
+            full[kk] = base[:N]
     return full
 
 
 def merge_compact_k2u(out: dict) -> dict:
     """Per-lane unitig_id, pos and mt of a ``merge=False`` compact result:
-    main-phase values with the phase-2 lanes scattered back over them."""
+    main-phase values with the compacted lanes (``phase2``, and
+    ``phase2b`` when the heavy phase is type-split) scattered back."""
     cols = {kk: out["main"][kk] for kk in ("unitig_id", "pos", "mt")}
     n = cols["mt"].shape[0]
-    safe = torch.where(out["slot_real"], out["lanes"], n)  # fakes -> dummy row
-    for kk in cols:
-        ext = torch.cat([cols[kk], cols[kk][:1]])
-        ext[safe] = out["phase2"][kk]
-        cols[kk] = ext[:n]
+    blocks = [("phase2", "lanes", "slot_real")]
+    if "phase2b" in out:
+        blocks.append(("phase2b", "lanes_b", "slot_real_b"))
+    for pk, lk, sk in blocks:
+        safe = torch.where(out[sk], out[lk], n)  # fakes -> dummy row
+        for kk in cols:
+            ext = torch.cat([cols[kk], cols[kk][:1]])
+            ext[safe] = out[pk][kk]
+            cols[kk] = ext[:n]
     return cols
+
+
+def _compact_split(d, fw, r, p, overflow, m_a, m_b, max_occs, merge, probe_start=0,
+                   probe_limit2=None, m_c=None):
+    """Type-split heavy phase. Type-A lanes (resolved by the main probe,
+    but their unitig has more than two occurrences) need only the wide
+    occurrence fetch. Type-B lanes (a skew bucket, rows past the probed
+    depth, or a record that failed its extent check) re-run the K2U.
+
+    ``probe_limit2`` inserts a middle phase: type-B lanes first re-probe
+    to depth ``probe_limit2`` with the window records, and only the
+    residue (skew lanes, deeper buckets, failed extents; at most ``m_c``
+    lanes) pays the full-depth padded query."""
+    from ..kphf.sshash import sshash_k2u
+
+    type_b = r["use_skew"] | r["unresolved"]
+    type_a = overflow & ~type_b
+    lanes_a, n_a, lanes_b, n_b = flagged_lanes2(type_a, type_b, m_a, m_b)
+    over_budget = (n_a > m_a) | (n_b > m_b)
+    rA = {kk: r[kk][lanes_a] for kk in _K2U_FIELDS}
+    outA = {**rA, **_occ_projection_wide(d, rA, max_occs)}
+    dev = fw.device
+    sa = torch.arange(m_a, device=dev) < torch.clamp(n_a, max=m_a)
+    sb = torch.arange(m_b, device=dev) < torch.clamp(n_b, max=m_b)
+    n_c = None
+    if probe_limit2 is None:
+        outB = get_ref_pos_padded(d, fw[lanes_b], max_occs, probe_start=probe_start)
+    else:
+        fwB = fw[lanes_b]
+        rM = sshash_k2u(d["k2u"], fwB, mode="main", probe_limit=int(probe_limit2),
+                        probe_start=probe_start)
+        outB = {**{kk: rM[kk] for kk in _K2U_FIELDS}, **_occ_projection_wide(d, rM, max_occs)}
+        # residue; fake type-B slots must not take m_c capacity
+        type_c = (rM["use_skew"] | rM["unresolved"]) & sb
+        m_c = int(m_c) if m_c else max(64, m_b // 8)
+        lanes_c, n_c = flagged_lanes(type_c, m_c)
+        over_budget = over_budget | (n_c > m_c)
+        # the records' unresolved lanes include failed extent checks on
+        # rows < probe_limit2: the residue re-probes from row 0 then
+        ps2 = (0 if "useqrec" in d["k2u"]["us"]
+               else min(int(probe_limit2), int(d["k2u"]["meta"].probe_bound)))
+        outC = get_ref_pos_padded(d, fwB[lanes_c], max_occs, probe_start=ps2)
+        sc = torch.arange(m_c, device=dev) < torch.clamp(n_c, max=m_c)
+        safe = torch.where(sc, lanes_c, m_b)  # fakes -> dummy row
+        for kk in outB:
+            ext = torch.cat([outB[kk], torch.zeros_like(outB[kk][:1])])
+            ext[safe] = outC[kk]
+            outB[kk] = ext[:m_b]
+    if not merge:
+        out = {
+            "main": {**{kk: r[kk] for kk in _K2U_FIELDS}, **p},
+            "overflow": overflow,
+            "lanes": lanes_a,
+            "slot_real": sa,
+            "phase2": outA,
+            "n_ovf": n_a,
+            "lanes_b": lanes_b,
+            "slot_real_b": sb,
+            "phase2b": outB,
+            "n_ovf_b": n_b,
+            "over_budget": over_budget,
+        }
+        if n_c is not None:
+            out["over_budget_c"] = n_c > m_c
+        return out
+    full = _merge_compact(p, [(outA, lanes_a, sa), (outB, lanes_b, sb)], max_occs)
+    full["over_budget"] = over_budget
+    return full
 
 
 def get_ref_pos_compact(
@@ -110,28 +251,66 @@ def get_ref_pos_compact(
     max_occs: int,
     merge: bool = True,
     m2: int | None = None,
+    probe_limit: int | None = None,
+    m2b: int | None = None,
+    defer_valid: bool = False,
+    probe_limit2: int | None = None,
+    m2c: int | None = None,
 ) -> dict:
-    """Two-phase exact query with an on-device compacted phase 2.
+    """Two-phase exact query with on-device compacted heavy phases.
 
-    Main phase: ``mono2_k2u`` (the probe kernel on CUDA) and the fused
-    projection of the row's two occurrence words. Lanes not found in the
-    main table, or whose unitig has more than two occurrences, are
-    compacted into ``M = m2`` (default ``N // 4``) slots and
-    resolved by ``get_ref_pos_padded``. Results equal
-    ``get_ref_pos_padded``'s unless ``over_budget`` is set: more than M
-    lanes overflowed, and the lanes past M were not resolved.
+    Main phase: the dictionary's shallow probe and the fused projection of
+    the (up to two) occurrence words it carries. On a mono2 KCDict the
+    probe is ``mono2_k2u``; on a direct SSHash with the ``bpos`` rows and
+    ``useqrec`` records it is ``bpos_usrec_k2u`` at depth ``probe_limit``
+    (<= 3), else the plain ``sshash_k2u(mode="main")``. ``defer_valid``
+    changes nothing with the window records (their rows carry the extent
+    check) and is accepted for the reference's signature.
+
+    Lanes the main phase does not settle are compacted into ``M = m2``
+    (default ``N // 4``) slots and resolved by ``get_ref_pos_padded``. With
+    ``m2b`` the heavy phase is type-split (see ``_compact_split``), and
+    ``probe_limit2``/``m2c`` add its middle phase. Results equal
+    ``get_ref_pos_padded``'s unless ``over_budget`` is set: some block got
+    more lanes than its capacity, and the lanes past it were not resolved.
 
     ``merge=False`` returns the pieces (``main``, ``overflow``, ``lanes``,
-    ``slot_real``, ``phase2``, ``n_ovf``, ``over_budget``) without
-    materializing merged [N, max_occs] tensors."""
+    ``slot_real``, ``phase2``, ``n_ovf``, ``over_budget``; with ``m2b`` also
+    ``lanes_b``, ``slot_real_b``, ``phase2b``, ``n_ovf_b``, and with
+    ``probe_limit2`` ``over_budget_c``) without materializing merged
+    [N, max_occs] tensors."""
     N = fw.shape[0]
     M = int(m2) if m2 else max(64, N // 4)
-    r = mono2_k2u(d["k2u"], fw)
+    k2u = d["k2u"]
+    m_ = k2u["meta"]
+    probe_start = 0
+    if m_.kind == "kcdict":
+        r = mono2_k2u(k2u, fw)
+    elif m_.kind == "sshash":
+        from ..kphf.sshash import sshash_k2u
+
+        if ("bpos" in k2u and "useqrec" in k2u["us"] and probe_limit is not None
+                and 0 < probe_limit <= 3):
+            r = bpos_usrec_k2u(k2u, fw, probe_limit)
+        else:
+            r = sshash_k2u(k2u, fw, mode="main", probe_limit=probe_limit,
+                           defer_valid=defer_valid)
+        if probe_limit is not None and not defer_valid and "useqrec" not in k2u["us"]:
+            # the heavy phase's lanes never probed (skew) or probed rows
+            # [0, probe_limit) and missed: its re-probe may start past them
+            probe_start = min(int(probe_limit), int(m_.probe_bound))
+    else:
+        raise ValueError(f"the port has no {m_.kind!r} K2U yet")
     p = _project_fused(d, r)
     overflow = p["overflow"] | r["unresolved"]
+    if m2b is not None:
+        if probe_limit2 is not None and m_.kind != "sshash":
+            raise ValueError("probe_limit2 is an SSHash-only middle phase")
+        return _compact_split(d, fw, r, p, overflow, M, int(m2b), max_occs, merge,
+                              probe_start=probe_start, probe_limit2=probe_limit2, m_c=m2c)
     lanes, n_ovf = flagged_lanes(overflow, M)
     over_budget = n_ovf > M
-    out2 = get_ref_pos_padded(d, fw[lanes], max_occs)
+    out2 = get_ref_pos_padded(d, fw[lanes], max_occs, probe_start=probe_start)
     slot_real = torch.arange(M, device=fw.device) < torch.clamp(n_ovf, max=M)
     if not merge:
         return {
@@ -143,7 +322,7 @@ def get_ref_pos_compact(
             "n_ovf": n_ovf,
             "over_budget": over_budget,
         }
-    full = _merge_compact(p, out2, lanes, slot_real, max_occs)
+    full = _merge_compact(p, [(out2, lanes, slot_real)], max_occs)
     full["over_budget"] = over_budget
     return full
 
@@ -164,15 +343,29 @@ class ModIndex:
     def max_occs(self) -> int:
         return self.u2pos.max_occs()
 
-    def device_arrays(self) -> dict:
-        """NumPy arrays in the reference's ``device_arrays(fused=True)``
-        layout (KCDict rows already carry the fused occurrence words)."""
-        return {
-            "k2u": self.k2u.device_arrays(),
+    def device_arrays(self, pos_kind: str | None = None, prefix_kind: str | None = None,
+                      bucket_inline: bool = False, useqrec: bool = False) -> dict:
+        """NumPy arrays in the reference's layout. A KCDict takes no knobs
+        (its rows already carry the fused occurrence words: the reference's
+        ``fused=True``). ``pos_kind``, ``prefix_kind`` and ``bucket_inline``
+        are SSHash layout knobs; ``useqrec`` adds the window records
+        (``build_useqrec``) to the SSHash unitig set."""
+        if pos_kind is not None or prefix_kind is not None or bucket_inline:
+            k2u = self.k2u.device_arrays(prefix_kind=prefix_kind, pos_kind=pos_kind,
+                                         bucket_inline=bucket_inline)
+        else:
+            k2u = self.k2u.device_arrays()
+        d = {
+            "k2u": k2u,
             "u2pos": self.u2pos.device_arrays(),
             "refs": self.refs.device_arrays(),
             "meta": meta(k=self.k, index_type=self.index_type),
         }
+        if useqrec:
+            if not hasattr(self.k2u, "pos"):
+                raise ValueError("useqrec needs an SSHash K2U")
+            d["k2u"]["us"]["useqrec"] = build_useqrec(self.u2pos, self.k2u.unitigs)
+        return d
 
 
 class _Buf:

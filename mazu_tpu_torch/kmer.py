@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._words import srl, ule
+from ._words import M32, srl, ule
+from .kphf.boophf32 import mix32
 
 _M2 = 0x3333333333333333
 _M4 = 0x0F0F0F0F0F0F0F0F
@@ -62,6 +63,47 @@ def canonicalize(x: torch.Tensor, k: int):
     rc = revcomp(x, k)
     is_fw = ule(x, rc)
     return torch.where(is_fw, x, rc), is_fw, rc
+
+
+def word_equivalency(fw: torch.Tensor, rc: torch.Tensor, target: torch.Tensor, k: int) -> torch.Tensor:
+    """Match type (uint8) of queries (fw, rc) against target words: 1 when
+    fw equals the target's low 2k bits, else 2 when rc does, else 0."""
+    t = target & mask2k(k)
+    return torch.where(fw == t, 1, torch.where(rc == t, 2, 0)).to(torch.uint8)
+
+
+def canonical_minimizer_batch(words: torch.Tensor, k: int, w: int, seed: int = 0,
+                              ordering: str = "mix32"):
+    """Canonical minimizer of each k-mer word (``mazu_tpu.kmer:182-249``).
+
+    Over the k-w+1 w-mer windows of c = canonical(word), the minimizer
+    minimizes mix32(low 32 bits of the window ^ seed), an unsigned u32
+    compare done on masked int64, strict, so the leftmost window wins ties.
+    ``offset`` is the window's position in the queried orientation: j if
+    c is the forward word, else k - w - j. Only the ``mix32`` ordering
+    (the direct engine's) is ported.
+
+    Returns (minimizer int64, offset int32, is_fw bool, canon int64)."""
+    if ordering != "mix32":
+        raise ValueError(f"the port has no {ordering!r} minimizer ordering yet")
+    k, w = int(k), int(w)
+    canon, is_fw, _ = canonicalize(words, k)
+    mw = mask2k(w)
+    seed32 = int(seed) & M32
+    best_val = best_score = best_j = None
+    for j in range(k - w + 1):
+        mv = srl(canon, 2 * j) & mw
+        sc = mix32((mv & M32) ^ seed32)
+        if best_val is None:
+            best_val, best_score = mv, sc
+            best_j = torch.zeros(sc.shape, dtype=torch.int32, device=sc.device)
+        else:
+            better = sc < best_score
+            best_val = torch.where(better, mv, best_val)
+            best_j = torch.where(better, j, best_j)
+            best_score = torch.where(better, sc, best_score)
+    offset = torch.where(is_fw, best_j, (k - w) - best_j).to(torch.int32)
+    return best_val, offset, is_fw, canon
 
 
 def reverse_groups_np(x: np.ndarray) -> np.ndarray:

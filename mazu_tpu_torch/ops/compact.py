@@ -26,3 +26,12 @@ def flagged_lanes(flags: torch.Tensor, m: int):
     lanes = torch.zeros(m + 1, dtype=torch.int64, device=dev)
     lanes.scatter_(0, dest, torch.arange(n, dtype=torch.int64, device=dev))
     return lanes[:m], f.sum()
+
+
+def flagged_lanes2(flags_a: torch.Tensor, flags_b: torch.Tensor, m_a: int, m_b: int):
+    """The first ``m_a`` set ``flags_a`` lanes and the first ``m_b`` set
+    ``flags_b`` lanes: two independent compactions, no host sync. Returns
+    (lanes_a, n_a, lanes_b, n_b); the counts are true even over budget."""
+    lanes_a, n_a = flagged_lanes(flags_a, m_a)
+    lanes_b, n_b = flagged_lanes(flags_b, m_b)
+    return lanes_a, n_a, lanes_b, n_b

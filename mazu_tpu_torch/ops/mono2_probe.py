@@ -5,29 +5,22 @@ wrapper (counterpart of ``mazu_tpu.ops.pallas_query``).
 mode="main")``, which is its plain torch version. CPU tensors take the
 plain version; CUDA tensors launch ``csrc/mono2_probe.cu`` or raise.
 
-The kernel is compiled with ``nvcc`` for sm_90a into ``build/`` beside the
-package on first use (named by a hash of its source) and loaded with
+The kernel is compiled on first use (``cuda_build``) and loaded with
 ``ctypes``. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ..kphf.kcdict import SW, kcdict_k2u
+from .cuda_build import CSRC, compile_library
 
 LAUNCHES = 0
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "mono2_probe.cu"
-BUILD_DIR = _PKG / "build"
+SOURCE = CSRC / "mono2_probe.cu"
 _FN = None
 
 # (key, dtype) of the outputs, in the order the C function takes them
@@ -44,31 +37,10 @@ _OUTPUTS = (
 )
 
 
-def compile_library() -> tuple[Path, str]:
-    """Build the kernel's shared library unless this source's build exists.
-    Returns (library path, compiler output)."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libmono2_probe_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE),
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, res.stderr
-
-
 def _kernel():
     global _FN
     if _FN is None:
-        path, _ = compile_library()
+        path, _ = compile_library(SOURCE)
         fn = ctypes.CDLL(str(path)).mono2_probe
         p = ctypes.c_void_p
         fn.argtypes = [p, p, ctypes.c_uint32, ctypes.c_int, ctypes.c_int64] + [p] * 10

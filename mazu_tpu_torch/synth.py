@@ -1,12 +1,20 @@
-"""Synthetic index and queries from a seed (host; counterpart of
-``bench.py::build_synthetic``).
+"""Synthetic indexes and queries from a seed (host; counterpart of
+``bench.py::build_synthetic`` and ``bench.py::_emit_capacity_tier``).
 
 A random genome is cut into 10 kb unitigs, each its own reference. Every
 16th unitig also occurs twice more, in mixed orientation, on other
-references, so it has 3 occurrences: more than the 2 a mono2 row carries,
-and queries on it take the padded phase 2. Occurrence positions lie inside
-the reference lengths, so the packed occurrence words stay below 2^32 and
-the dictionary keeps its occ32 layout.
+references, so it has 3 occurrences: more than the 2 a mono2 row (or a
+window record) carries, and queries on it take a compacted phase.
+Occurrence positions lie inside the reference lengths, so the packed
+occurrence words stay below 2^32 and a KCDict keeps its occ32 layout.
+
+Two indexes: ``build_index``, the mono2-occ32 KCDict of slice 1, and
+``build_capacity_index``, the SSHash direct engine of the capacity tier
+(w=15, skew 64, load 0.5, as the reference's 300 Mbp capacity build). A
+random genome has no bucket deeper than the skew threshold, so the
+capacity genome plants one w-mer that the mix32 ordering ranks low at
+``HEAVY_SITES`` places: its bucket is a skew bucket, as repeats make them
+in real genomes.
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ from .containers.unitig_set import UnitigSet
 from .index.modindex import ModIndex
 from .index.spt import SPT
 from .kmer import revcomp_np
+from .kphf.boophf32 import mix32_np
 from .kphf.kcdict import KCDict
+from .kphf.sshash import SSHash
 
 K = 31
 PIECE = 10_000  # unitig (and reference) length
@@ -28,11 +38,36 @@ LOAD = 0.25  # keys per slot of the mono2 bucket table
 RC_SHARE = 0.5  # queries reverse-complemented
 FOREIGN_SHARE = 0.05  # queries replaced by random 62-bit words
 
+# the capacity tier: the reference's 300 Mbp direct-engine build settings
+CAP_W = 15
+CAP_SKEW = 64
+CAP_LOAD = 0.5
+HEAVY_SITES = 4096  # places of the planted w-mer: one bucket far past CAP_SKEW
+CAPACITY_LAYOUT = dict(prefix_kind="grouped16", pos_kind="packed", bucket_inline=True,
+                       useqrec=True)
 
-def build_synthetic(n_bases: int, seed: int = 0):
-    """(UnitigSet, RefSeqCollection, PiscemUnitigTable) of a random genome."""
+
+def _plant(codes: np.ndarray, rng, w: int, sites: int) -> None:
+    """Write one w-mer, the lowest-ranked of 2^16 random ones under the
+    mix32 ordering, at ``sites`` random places (in place). The places lie
+    at least 4w bases apart, so no k-mer (k < 3w) spans parts of two, and
+    the k-mers around them stay distinct."""
+    cand = rng.integers(0, 1 << (2 * w), 1 << 16, dtype=np.uint64)
+    wmer = int(cand[np.argmin(mix32_np(cand.astype(np.uint32)))])
+    bases = np.array([(wmer >> (2 * j)) & 3 for j in range(w)], dtype=np.uint8)
+    at = rng.choice(len(codes) // (4 * w), sites, replace=False) * (4 * w)
+    codes[at[:, None] + np.arange(w)] = bases
+
+
+def build_synthetic(n_bases: int, seed: int = 0, heavy_sites: int = 0, w: int = CAP_W):
+    """(UnitigSet, RefSeqCollection, PiscemUnitigTable) of a random genome,
+    with one low-ranked w-mer planted at ``heavy_sites`` places."""
     rng = np.random.default_rng(seed)
-    sv = SeqVector.from_codes(rng.integers(0, 4, n_bases, dtype=np.uint8))
+    codes = rng.integers(0, 4, n_bases, dtype=np.uint8)
+    if heavy_sites:
+        _plant(codes, rng, w, heavy_sites)
+    sv = SeqVector.from_codes(codes)
+    del codes
     n = n_bases // PIECE
     if n < 3:
         raise ValueError(f"need at least 3 unitigs of {PIECE} bases")
@@ -58,6 +93,31 @@ def build_index(n_bases: int, seed: int = 0) -> ModIndex:
     unitigs, refs, u2pos = build_synthetic(n_bases, seed)
     k2u = KCDict.from_unitig_set(unitigs, u2pos, load=LOAD)
     return ModIndex(k2u, u2pos, refs, index_type="Piscem-synth")
+
+
+def build_capacity_index(n_bases: int, seed: int = 0, device="cpu", chunk: int = 1 << 22,
+                         heavy_sites: int = HEAVY_SITES) -> ModIndex:
+    """The direct-engine SSHash index over ``build_synthetic`` with a planted
+    skew bucket; its minimizer scan runs on ``device``. Its query arrays
+    are ``index.device_arrays(**CAPACITY_LAYOUT)``."""
+    unitigs, refs, u2pos = build_synthetic(n_bases, seed, heavy_sites=heavy_sites)
+    k2u = SSHash.from_unitig_set(unitigs, w=CAP_W, skew_param=CAP_SKEW, bucket_load=CAP_LOAD,
+                                 chunk=chunk, device=device)
+    return ModIndex(k2u, u2pos, refs, index_type="Piscem-synth")
+
+
+def sample_capacity_queries(unitigs: UnitigSet, n: int, seed: int):
+    """(words, uid, upos): uniform (unitig, offset) draws, half reverse-
+    complemented, no foreign words, so each lane's true unitig and offset
+    are known. The sampler of ``bench.py:368-374``."""
+    rng = np.random.default_rng(seed)
+    k = unitigs.k
+    upos = rng.integers(0, PIECE - k + 1, n)
+    uid = rng.integers(0, unitigs.n_unitigs, n)
+    words = unitigs.get_kmer_u64(unitigs.accum[uid] + upos)
+    flip = rng.random(n) < RC_SHARE
+    words[flip] = revcomp_np(words[flip], k)
+    return words, uid, upos
 
 
 def sample_queries(unitigs: UnitigSet, n: int, seed: int) -> np.ndarray:

@@ -1,5 +1,6 @@
-"""The port runs where there is no JAX: every module imports, and a tiny
-index answers a query, with ``jax`` blocked from importing."""
+"""The port runs where there is no JAX: every module imports, and tiny
+indexes (the mono2 KCDict and the SSHash capacity tier) answer queries,
+with ``jax`` blocked from importing."""
 
 import os
 import pkgutil
@@ -31,6 +32,15 @@ out = get_ref_pos_compact(qi.arrays(), q, qi.max_occs, merge=True, m2=512)
 assert not bool(out["over_budget"]) and (out["mt"] > 0).any()
 chk, worst = OneGraphIndexQuery(qi, 512, n_chunks=2, m2=512).checksum_pass_rolled(q)
 assert chk > 0
+
+cap = synth.build_capacity_index(8 * synth.PIECE, heavy_sites=128)
+cq = QueryIndex(arrays_from_numpy(cap.device_arrays(**synth.CAPACITY_LAYOUT), "cpu"))
+words, uid, upos = synth.sample_capacity_queries(cap.k2u.unitigs, 512, seed=1)
+out = get_ref_pos_compact(cq.arrays(), torch.from_numpy(words.view(np.int64)), cq.max_occs,
+                          merge=True, m2=512, probe_limit=2, m2b=512, defer_valid=True,
+                          probe_limit2=4, m2c=512)
+assert not bool(out["over_budget"]) and bool((out["mt"] > 0).all())
+assert (out["unitig_id"].numpy() == uid).all() and (out["pos"].numpy() == upos).all()
 leaked = sorted(m for m in sys.modules if m == "mazu_tpu" or m.startswith("mazu_tpu."))
 assert not leaked, leaked
 print("OK", len(mods))
@@ -53,6 +63,7 @@ def _env():
 def test_port_imports_and_queries_without_jax():
     mods = _modules()
     assert "mazu_tpu_torch.ops.mono2_probe" in mods and "mazu_tpu_torch.synth" in mods
+    assert "mazu_tpu_torch.ops.bpos_probe" in mods and "mazu_tpu_torch.kphf.sshash" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, *mods], capture_output=True, text=True,
         timeout=300, cwd=ROOT, env=_env(),

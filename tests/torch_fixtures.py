@@ -74,6 +74,65 @@ def build_pair(recipe):
     return ref, port
 
 
+def build_capacity_pair(recipe, w: int = 15, skew: int = 8):
+    """(mazu_tpu ModIndex, mazu_tpu_torch ModIndex) of one recipe, both
+    with a direct-engine SSHash (load 0.5, skew threshold ``skew``) over a
+    piscem occurrence table: the capacity tier's dictionary."""
+    from mazu_tpu.containers.refseq import RefSeqCollection as MRefs
+    from mazu_tpu.containers.unitig_set import UnitigSet as MUnitigs
+    from mazu_tpu.index.modindex import ModIndex as MModIndex
+    from mazu_tpu.index.spt import SPT as MSPT
+    from mazu_tpu.kphf.sshash import SSHash as MSSHash
+
+    from mazu_tpu_torch.containers.refseq import RefSeqCollection
+    from mazu_tpu_torch.containers.unitig_set import UnitigSet
+    from mazu_tpu_torch.index.modindex import ModIndex
+    from mazu_tpu_torch.index.spt import SPT
+    from mazu_tpu_torch.kphf.sshash import SSHash
+
+    seqs, k, occ, ref_lens = recipe
+    names = [f"r{i}" for i in range(len(ref_lens))]
+
+    mus = MUnitigs.from_seqs(seqs, k)
+    mu2 = MSPT(mus, names, *occ, ref_lens).piscem_table()
+    mss = MSSHash.from_unitig_set(mus, w, skew_param=skew, engine="direct", bucket_load=0.5)
+    ref = MModIndex(mss, mu2, MRefs.from_lens(ref_lens, names), index_type="t")
+
+    pus = UnitigSet.from_seqs(seqs, k)
+    pu2 = SPT(pus, names, *occ, ref_lens).piscem_table()
+    pss = SSHash.from_unitig_set(pus, w, skew_param=skew, bucket_load=0.5)
+    port = ModIndex(pss, pu2, RefSeqCollection.from_lens(ref_lens, names), index_type="t")
+    return ref, port
+
+
+def capacity_queries(unitigs, n: int, seed: int, miss: float = 0.1) -> np.ndarray:
+    """``queries`` with foreign words drawn from all 64 bits, so some have
+    bit 63 set."""
+    rng = np.random.default_rng(seed + 1)
+    work = queries(unitigs, n, seed, miss=0.0)
+    m = rng.random(n) < miss
+    work[m] = rng.integers(0, 1 << 64, int(m.sum()), dtype=np.uint64)
+    return work
+
+
+def same_tree(got, want, path: str = ""):
+    """A port array dict (NumPy, or tensors) equals the reference's: the
+    same keys, Meta records and bytes."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), f"{path}: keys differ: {set(got) ^ set(want)}"
+        for key in want:
+            same_tree(got[key], want[key], f"{path}/{key}")
+    elif hasattr(want, "kv"):
+        assert got.kv == want.kv, f"{path}: meta {got.kv} != {want.kv}"
+    else:
+        g = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+        w = np.asarray(want)
+        if g.dtype != w.dtype and g.dtype.itemsize == w.dtype.itemsize:
+            g = g.view(w.dtype)
+        assert g.dtype == w.dtype and g.shape == w.shape, f"{path}: {g.dtype}{g.shape} != {w.dtype}{w.shape}"
+        assert g.tobytes() == w.tobytes(), f"{path}: bytes differ"
+
+
 def queries(unitigs, n: int, seed: int, miss: float = 0.1) -> np.ndarray:
     """uint64 words: uniform draws from the index's k-mers, half reverse-
     complemented, a ``miss`` share replaced by random 62-bit words."""
