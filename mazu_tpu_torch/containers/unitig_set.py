@@ -12,8 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._words import srl_var
 from ..bits.bitvector import BitVector, bv_rank, bv_read_window, rank_in_word
-from ..bits.seqvector import SeqVector
+from ..bits.seqvector import SeqVector, sv_get_kmer
+from ..kmer import mask2k
 from ..pytree import meta
 
 
@@ -113,3 +115,36 @@ def us_is_valid_pos(us: dict, pos: torch.Tensor) -> torch.Tensor:
     last = max(0, m.total_len - m.k)
     in_range = (pos >= 0) & (pos <= m.total_len - m.k)
     return in_range & (bv_read_window(us["bv"], torch.clamp(pos, 0, last), m.k - 1) == 0)
+
+
+def us_get_kmer(us: dict, pos: torch.Tensor) -> torch.Tensor:
+    """k-mer word(s) at useq position(s) ``pos``; the paired layout reads
+    both words in one ``words2`` row."""
+    k = us["meta"].k
+    if "words2" not in us["useq"]:
+        return sv_get_kmer(us["useq"]["words"], pos, k)
+    bit = pos * 2
+    off = bit & 63
+    pair = us["useq"]["words2"][bit >> 6]
+    hi = torch.where(off == 0, 0, pair[..., 1] << ((64 - off) & 63))
+    return (srl_var(pair[..., 0], off) | hi) & mask2k(k)
+
+
+def us_validate_rank(us: dict, pos: torch.Tensor):
+    """``us_is_valid_pos`` and ``us_rank`` from one ``wb2`` row and the
+    next: validity reads the (k-1)-bit boundary window at ``pos`` (at most
+    two words), the rank reads the word's block count and its bits below
+    ``pos``. Returns ``(valid, uid)``; ``uid`` is the rank of the position
+    clipped into [0, total_len - k]. Needs the paired layout."""
+    m = us["meta"]
+    in_range = (pos >= 0) & (pos <= m.total_len - m.k)
+    p = torch.clamp(pos, 0, max(0, m.total_len - m.k))
+    wi = p >> 6
+    off = p & 63
+    wb2 = us["bv"]["wb2"]
+    pair0 = wb2[wi]
+    word0, word1 = pair0[..., 0], wb2[torch.clamp(wi + 1, 0, wb2.shape[0] - 1)][..., 0]
+    uid = rank_in_word(word0, pair0[..., 1], p)
+    hi = torch.where(off == 0, 0, word1 << ((64 - off) & 63))
+    win = (srl_var(word0, off) | hi) & ((1 << (m.k - 1)) - 1)
+    return in_range & (win == 0), uid

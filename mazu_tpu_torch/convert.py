@@ -3,15 +3,18 @@
 ``arrays_from_numpy`` turns a ``device_arrays()`` dict — from this port's
 builders or from ``mazu_tpu``'s — into the port's dict of tensors with the
 same keys and layouts: u64/u32 arrays become int64/int32 bit patterns and
-Meta records become the port's Meta.
+Meta records (and dataclass records such as the reference's BooPHF32 meta)
+become the port's Meta.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from ._words import from_numpy
-from .pytree import as_meta
+from .pytree import as_meta, meta
 
 
 def arrays_from_numpy(host: dict, device) -> dict:
@@ -23,6 +26,8 @@ def arrays_from_numpy(host: dict, device) -> dict:
             out[key] = from_numpy(v, device)
         elif hasattr(v, "kv"):
             out[key] = as_meta(v)
+        elif dataclasses.is_dataclass(v):
+            out[key] = meta(**{f.name: getattr(v, f.name) for f in dataclasses.fields(v)})
         else:
             raise TypeError(f"{key}: cannot carry {type(v).__name__} across")
     return out

@@ -1,6 +1,6 @@
 """ModIndex and its batched query (counterpart of
-``mazu_tpu.index.modindex``), for the KCDict mono2-occ32 and the
-direct-engine SSHash K2Us.
+``mazu_tpu.index.modindex``), for the KCDict mono2-occ32 and the SSHash
+(direct and fast32 engines) K2Us.
 
     k-mer words [N] -> K2U probe -> occurrence words -> projection
     -> reference positions
@@ -18,6 +18,7 @@ import torch
 
 from .. import MATCH_IDENTITY
 from ..ops.bpos_probe import bpos_usrec_k2u
+from ..ops.capacity_probe import capacity_k2u
 from ..ops.compact import flagged_lanes, flagged_lanes2
 from ..ops.mono2_probe import mono2_k2u
 from ..pytree import meta
@@ -103,13 +104,19 @@ def k2u_batch(d: dict, fw: torch.Tensor, probe_start: int = 0) -> dict:
 
 
 def _occ_projection_wide(d: dict, r: dict, max_occs: int) -> dict:
-    """Padded projection of up to ``max_occs`` occurrences per lane, with
-    occurrence bounds from the offsets table (reference ``index.rs:193-216``)."""
+    """Padded projection of up to ``max_occs`` occurrences per lane
+    (reference ``index.rs:193-216``). The occurrence bounds are the K2U's
+    ``occ_start``/``occ_cnt`` where it gives them (the uproj records), else
+    they come from the offsets table."""
     u2 = d["u2pos"]
     hit = r["mt"] > 0
-    uid = torch.where(hit, r["unitig_id"], 0)
-    start = u2["offsets"][uid]
-    cnt = torch.where(hit, u2["offsets"][uid + 1] - start, 0)
+    if "occ_start" in r:
+        start = r["occ_start"]
+        cnt = torch.where(hit, r["occ_cnt"], 0)
+    else:
+        uid = torch.where(hit, r["unitig_id"], 0)
+        start = u2["offsets"][uid]
+        cnt = torch.where(hit, u2["offsets"][uid + 1] - start, 0)
     j = torch.arange(max_occs, dtype=start.dtype, device=start.device)
     ref_id, occ_pos, occ_o = fetch_occ_block(u2, start, max_occs)
     k = d["meta"].k
@@ -181,8 +188,10 @@ def _compact_split(d, fw, r, p, overflow, m_a, m_b, max_occs, merge, probe_start
                    probe_limit2=None, m_c=None):
     """Type-split heavy phase. Type-A lanes (resolved by the main probe,
     but their unitig has more than two occurrences) need only the wide
-    occurrence fetch. Type-B lanes (a skew bucket, rows past the probed
-    depth, or a record that failed its extent check) re-run the K2U.
+    occurrence fetch, from the main probe's occurrence bounds where it gave
+    them. Type-B lanes (a skew bucket, rows past the probed depth, a record
+    or a deferred winner that failed validation, or a lane the truncated
+    MPHF chain did not place) re-run the K2U.
 
     ``probe_limit2`` inserts a middle phase: type-B lanes first re-probe
     to depth ``probe_limit2`` with the window records, and only the
@@ -194,8 +203,9 @@ def _compact_split(d, fw, r, p, overflow, m_a, m_b, max_occs, merge, probe_start
     type_a = overflow & ~type_b
     lanes_a, n_a, lanes_b, n_b = flagged_lanes2(type_a, type_b, m_a, m_b)
     over_budget = (n_a > m_a) | (n_b > m_b)
-    rA = {kk: r[kk][lanes_a] for kk in _K2U_FIELDS}
-    outA = {**rA, **_occ_projection_wide(d, rA, max_occs)}
+    rA = {kk: r[kk][lanes_a] for kk in _K2U_FIELDS + (
+        ("occ_start", "occ_cnt") if "occ_start" in r else ())}
+    outA = {**{kk: rA[kk] for kk in _K2U_FIELDS}, **_occ_projection_wide(d, rA, max_occs)}
     dev = fw.device
     sa = torch.arange(m_a, device=dev) < torch.clamp(n_a, max=m_a)
     sb = torch.arange(m_b, device=dev) < torch.clamp(n_b, max=m_b)
@@ -254,6 +264,7 @@ def get_ref_pos_compact(
     probe_limit: int | None = None,
     m2b: int | None = None,
     defer_valid: bool = False,
+    mphf_level_limit: int | None = None,
     probe_limit2: int | None = None,
     m2c: int | None = None,
 ) -> dict:
@@ -261,11 +272,16 @@ def get_ref_pos_compact(
 
     Main phase: the dictionary's shallow probe and the fused projection of
     the (up to two) occurrence words it carries. On a mono2 KCDict the
-    probe is ``mono2_k2u``; on a direct SSHash with the ``bpos`` rows and
-    ``useqrec`` records it is ``bpos_usrec_k2u`` at depth ``probe_limit``
-    (<= 3), else the plain ``sshash_k2u(mode="main")``. ``defer_valid``
-    changes nothing with the window records (their rows carry the extent
-    check) and is accepted for the reference's signature.
+    probe is ``mono2_k2u``. On an SSHash it is ``sshash_k2u(mode="main")``
+    at depth ``probe_limit``, run by a kernel where one fits:
+    ``bpos_usrec_k2u`` on a direct SSHash with the ``bpos`` rows and
+    ``useqrec`` records (``probe_limit`` <= 3; ``defer_valid`` changes
+    nothing there, the records carry the extent check), and
+    ``capacity_k2u`` with ``defer_valid`` on the paired layout without
+    records, the capacity tier's deferred-validation probe
+    (``mphf_level_limit`` truncates a fast32 MPHF chain there). The main
+    projection needs the occurrence fields that the records or the
+    ``uproj`` records give.
 
     Lanes the main phase does not settle are compacted into ``M = m2``
     (default ``N // 4``) slots and resolved by ``get_ref_pos_padded``. With
@@ -289,16 +305,26 @@ def get_ref_pos_compact(
     elif m_.kind == "sshash":
         from ..kphf.sshash import sshash_k2u
 
-        if ("bpos" in k2u and "useqrec" in k2u["us"] and probe_limit is not None
+        us = k2u["us"]
+        if (m_.direct_t and "bpos" in k2u and "useqrec" in us and probe_limit is not None
                 and 0 < probe_limit <= 3):
             r = bpos_usrec_k2u(k2u, fw, probe_limit)
+        elif (probe_limit is not None and defer_valid and "useqrec" not in us
+              and "words2" in us["useq"] and "wb2" in us["bv"]):
+            r = capacity_k2u(k2u, fw, probe_limit, mphf_level_limit=mphf_level_limit)
         else:
             r = sshash_k2u(k2u, fw, mode="main", probe_limit=probe_limit,
-                           defer_valid=defer_valid)
-        if probe_limit is not None and not defer_valid and "useqrec" not in k2u["us"]:
+                           defer_valid=defer_valid, mphf_level_limit=mphf_level_limit)
+        if (probe_limit is not None and not defer_valid and mphf_level_limit is None
+                and "useqrec" not in us):
             # the heavy phase's lanes never probed (skew) or probed rows
-            # [0, probe_limit) and missed: its re-probe may start past them
+            # [0, probe_limit) and missed: its re-probe may start past them.
+            # A failed deferred winner or an unplaced MPHF lane is no such
+            # proof, and neither is a record's failed extent check.
             probe_start = min(int(probe_limit), int(m_.probe_bound))
+        if "occ_cnt" not in r:
+            raise ValueError("the port has no main-phase projection from the offsets table "
+                             "(_project_offsets) yet: give the SSHash arrays uproj records")
     else:
         raise ValueError(f"the port has no {m_.kind!r} K2U yet")
     p = _project_fused(d, r)
@@ -344,11 +370,13 @@ class ModIndex:
         return self.u2pos.max_occs()
 
     def device_arrays(self, pos_kind: str | None = None, prefix_kind: str | None = None,
-                      bucket_inline: bool = False, useqrec: bool = False) -> dict:
+                      bucket_inline: bool = False, uproj: bool = False,
+                      useqrec: bool = False) -> dict:
         """NumPy arrays in the reference's layout. A KCDict takes no knobs
         (its rows already carry the fused occurrence words: the reference's
         ``fused=True``). ``pos_kind``, ``prefix_kind`` and ``bucket_inline``
-        are SSHash layout knobs; ``useqrec`` adds the window records
+        are SSHash layout knobs; ``uproj`` adds the per-unitig projection
+        records (``build_uproj``) and ``useqrec`` the window records
         (``build_useqrec``) to the SSHash unitig set."""
         if pos_kind is not None or prefix_kind is not None or bucket_inline:
             k2u = self.k2u.device_arrays(prefix_kind=prefix_kind, pos_kind=pos_kind,
@@ -361,9 +389,11 @@ class ModIndex:
             "refs": self.refs.device_arrays(),
             "meta": meta(k=self.k, index_type=self.index_type),
         }
+        if (uproj or useqrec) and not hasattr(self.k2u, "pos"):
+            raise ValueError("uproj and useqrec records need an SSHash K2U")
+        if uproj:
+            d["k2u"]["us"]["uproj"] = build_uproj(self.u2pos, self.k2u.unitigs)
         if useqrec:
-            if not hasattr(self.k2u, "pos"):
-                raise ValueError("useqrec needs an SSHash K2U")
             d["k2u"]["us"]["useqrec"] = build_useqrec(self.u2pos, self.k2u.unitigs)
         return d
 

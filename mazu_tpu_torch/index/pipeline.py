@@ -21,9 +21,9 @@ class OneGraphIndexQuery:
     ``m2b``, or the middle phase's residue ``m2c``): then the pass raises,
     since the lanes past it went unresolved.
 
-    ``probe_limit``, ``m2b``, ``defer_valid``, ``probe_limit2`` and ``m2c``
-    are passed to ``get_ref_pos_compact`` (the SSHash capacity settings);
-    a mono2 KCDict ignores ``probe_limit``."""
+    ``probe_limit``, ``m2b``, ``defer_valid``, ``mphf_level_limit``,
+    ``probe_limit2`` and ``m2c`` are passed to ``get_ref_pos_compact`` (the
+    SSHash capacity settings); a mono2 KCDict ignores ``probe_limit``."""
 
     def __init__(
         self,
@@ -34,6 +34,7 @@ class OneGraphIndexQuery:
         probe_limit: int | None = 2,
         m2b: int | None = None,
         defer_valid: bool = False,
+        mphf_level_limit: int | None = None,
         probe_limit2: int | None = None,
         m2c: int | None = None,
     ):
@@ -44,7 +45,8 @@ class OneGraphIndexQuery:
         self.max_occs = index.max_occs
         self.query_kw = dict(
             merge=False, m2=self.M2, probe_limit=probe_limit, m2b=self.M2B,
-            defer_valid=bool(defer_valid), probe_limit2=probe_limit2,
+            defer_valid=bool(defer_valid), mphf_level_limit=mphf_level_limit,
+            probe_limit2=probe_limit2,
             m2c=int(m2c) if m2c else None,
         )
 

@@ -1,21 +1,32 @@
-"""SSHash with the direct engine (counterpart of ``mazu_tpu.kphf.sshash``).
+"""SSHash with the direct and fast32 engines (counterpart of
+``mazu_tpu.kphf.sshash``).
 
 A minimizer-bucketed k-mer dictionary. Each k-mer's canonical minimizer
-(mix32 ordering, ``kmer.canonical_minimizer_batch``) selects a bucket
-``fold_hash32(mm) & (T-1)`` of a power-of-two table; the bucket lists the
-useq positions of its minimizer occurrences, and a query verifies the
-candidate k-mers at ``mm_pos - offset`` and ``mm_pos - (k - w - offset)``.
-Buckets deeper than ``skew_param`` go to a skew table keyed by the
-canonical k-mer itself (two-choice cuckoo rows, or bounded buckets).
+(mix32 ordering, ``kmer.canonical_minimizer_batch``) selects a bucket that
+lists the useq positions of its minimizer occurrences, and a query
+verifies the candidate k-mers at ``mm_pos - offset`` and
+``mm_pos - (k - w - offset)``. Two engines address the buckets:
+
+- direct: ``fold_hash32(mm) & (T-1)`` into a power-of-two table, shared
+  by colliding minimizers; buckets deeper than ``skew_param`` go to a skew
+  table keyed by the canonical k-mer (two-choice cuckoo rows, or bounded
+  buckets);
+- fast32: one bucket per minimizer, numbered by a BooPHF32 over the
+  minimizer set; minimizers with more than ``skew_param`` occurrences send
+  their k-mers to a second BooPHF32 (``skew_mphf``) and its positions
+  (``skew_pos``).
 
 The build is NumPy (byte-identical to the reference's) except the
-minimizer scan, which runs ``canonical_minimizer_batch`` on the given
-device in chunks. The ported device layout is the capacity tier's:
-packed positions (IntVector), grouped16 bucket bounds, the ``bpos``
-bucket-inline rows and the unitig set's paired arrays, with the
-``useqrec`` window records that ``index.modindex.build_useqrec`` adds.
+minimizer scan, and for fast32 the MPHF lookup of every minimizer, which
+run on the given device in chunks. The ported device layout is the
+capacity tier's: packed positions (IntVector), grouped16 bucket bounds and
+the unitig set's paired arrays, with the direct engine's ``bpos`` rows and
+``useqrec`` window records, or the per-unitig ``uproj`` records
+(``index.modindex.build_uproj``) for the deferred-validation probe.
 ``sshash_k2u`` is the plain torch query; on the main path
-``ops.bpos_probe.bpos_usrec_k2u`` runs its bpos main probe as a kernel.
+``ops.bpos_probe.bpos_usrec_k2u`` (direct, useqrec) and
+``ops.capacity_probe.capacity_k2u`` (deferred validation) run its main
+probe as kernels.
 """
 
 from __future__ import annotations
@@ -23,13 +34,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._words import from_numpy, mask32, srl, srl_var
+from .._words import M32, from_numpy, mask32, srl, srl_var
 from ..bits.intvector import IntVector, iv_get
 from ..bits.seqvector import sv_get_kmer
-from ..containers.unitig_set import us_extent, us_is_valid_pos, us_rank
+from ..containers.unitig_set import (
+    us_extent, us_get_kmer, us_is_valid_pos, us_rank, us_validate_rank,
+)
 from ..kmer import canonical_minimizer_batch, mask2k, revcomp, revcomp_np, word_equivalency
 from ..pytree import meta
-from .boophf32 import fold_hash32, fold_hash32_np, fold_hash32b, fold_hash32b_np, mix32_np
+from .boophf32 import (
+    BooPHF32, boophf32_lookup, fold_hash32, fold_hash32_np, fold_hash32b, fold_hash32b_np,
+    mix32_np,
+)
 
 U64 = np.uint64
 U32 = np.uint32
@@ -61,21 +77,26 @@ def _dedup_stream(mm: np.ndarray, pos: np.ndarray, mask: np.ndarray) -> np.ndarr
 
 
 class SSHash:
-    """Host-side direct-engine SSHash (``SSHash.from_unitig_set`` with
-    ``engine="direct"`` in the reference)."""
+    """Host-side SSHash (``SSHash.from_unitig_set`` with ``engine="direct"``
+    or ``engine="fast32"`` in the reference). ``direct_T`` is 0 for fast32,
+    whose buckets are numbered by ``mphf``."""
 
-    def __init__(self, unitigs, w, pos, skew_param, seed, direct_T, skew_direct,
-                 sparse_prefix, max_bucket):
+    def __init__(self, unitigs, w, pos, skew_param, seed, max_bucket, direct_T=0,
+                 skew_direct=None, sparse_prefix=None, mphf=None, prefix=None,
+                 skew_mphf=None, skew_pos=None):
         self.unitigs = unitigs
         self.w = int(w)
         self.pos = pos  # IntVector of minimizer positions, grouped by bucket
-        self.skew_param = int(skew_param)
+        self.skew_param = None if skew_param is None else int(skew_param)  # None: no skew index
         self.seed = int(seed)
         self.direct_T = int(direct_T)
         self.skew_direct = skew_direct
         self._sparse_prefix = sparse_prefix  # (occupied bucket ids, inclusive totals)
         self._max_bucket = int(max_bucket)
-        self._prefix = None
+        self._prefix = prefix  # int64[T+1], built from _sparse_prefix when None
+        self.mphf = mphf
+        self.skew_mphf = skew_mphf
+        self.skew_pos = skew_pos
 
     @property
     def k(self) -> int:
@@ -122,20 +143,22 @@ class SSHash:
 
     @classmethod
     def from_unitig_set(cls, unitigs, w: int, skew_param: int | None = 64, seed: int = 0,
-                        chunk: int = 1 << 20, engine: str = "direct",
+                        gamma: float = 1.7, chunk: int = 1 << 20, engine: str = "direct",
                         bucket_load: float = 0.5, skew_bound_target: int = 4,
                         device="cpu") -> "SSHash":
-        """Build with the direct engine: the minimizer -> bucket map is
+        """Build with the direct engine (the minimizer -> bucket map is
         ``fold_hash32(mm) & (T-1)``, T the power of two near
         ``n_minimizers / bucket_load``; minimizers that collide share a
-        bucket and verification rejects the foreign positions. The k-mers
+        bucket and verification rejects the foreign positions; the k-mers
         around the occurrences of buckets deeper than ``skew_param`` go to
-        the skew table."""
+        the skew table) or the fast32 engine (``_from_unitig_set_fast32``)."""
+        if w > unitigs.k:
+            raise ValueError(f"w={w} > k={unitigs.k}")
+        if engine == "fast32":
+            return cls._from_unitig_set_fast32(unitigs, w, skew_param, seed, gamma, chunk, device)
         if engine != "direct":
             raise ValueError(f"the port has no {engine!r} SSHash engine yet")
         k = unitigs.k
-        if w > k:
-            raise ValueError(f"w={w} > k={k}")
         skew_param = 8 if skew_param is None else int(skew_param)
         mm_set, mm_occs, ranges_start, mps = cls._collect_minimizer_occs(
             unitigs, w, seed, chunk, device
@@ -195,7 +218,60 @@ class SSHash:
                 }
         return cls(
             unitigs, w, IntVector.from_array(pos_direct.astype(np.uint64)), skew_param, seed,
-            T, skew_direct, (ub, cum), int(seg.max()) if len(seg) else 0,
+            int(seg.max()) if len(seg) else 0, direct_T=T, skew_direct=skew_direct,
+            sparse_prefix=(ub, cum),
+        )
+
+    @classmethod
+    def _from_unitig_set_fast32(cls, unitigs, w, skew_param, seed, gamma, chunk, device):
+        """The fast32 engine: a BooPHF32 numbers the minimizers, bucket h
+        holds the occurrences of the minimizer with value h, and buckets lie
+        in that order. The k-mers around the occurrences of minimizers with
+        more than ``skew_param`` of them go to a second BooPHF32 and its
+        positions; with none, that MPHF holds the one key 0 (the reference
+        builds it so)."""
+        k = unitigs.k
+        mm_set, mm_occs, ranges_start, mps = cls._collect_minimizer_occs(
+            unitigs, w, seed, chunk, device
+        )
+        mphf = BooPHF32.build(mm_set, gamma=gamma)
+        h = mphf.lookup(mm_set, device=device).astype(np.int64)
+        if (h < 0).any():
+            raise RuntimeError("the minimizer MPHF misses one of its own keys")
+        n_occs_by_h = np.zeros(len(mm_set), dtype=np.int64)
+        n_occs_by_h[h] = mm_occs
+        prefix = np.zeros(len(mm_set) + 1, dtype=np.int64)
+        np.cumsum(n_occs_by_h, out=prefix[1:])
+        # each minimizer's run of the value-sorted stream lands at its bucket
+        posv = np.zeros(len(mps), dtype=np.uint64)
+        posv[np.repeat(prefix[h] - ranges_start, mm_occs) + np.arange(len(mps))] = mps.astype(
+            np.uint64
+        )
+        del n_occs_by_h, h
+
+        skew_mphf = skew_pos = None
+        if skew_param is not None:
+            heavy = np.flatnonzero(mm_occs > skew_param)
+            if len(heavy):
+                mm_positions = mps[expand_ranges(ranges_start[heavy], mm_occs[heavy])]
+                span = k - w + 1
+                starts = np.maximum(mm_positions - (k - w), 0)
+                cand = (starts[:, None] + np.arange(span)[None, :]).reshape(-1)
+                cand = cand[unitigs.is_valid_useq_pos(cand)]
+                words = unitigs.get_kmer_u64(cand)
+                cwords = np.minimum(words, revcomp_np(words, k))
+                cw_sorted, first_idx = np.unique(cwords, return_index=True)
+                skew_mphf = BooPHF32.build(cw_sorted, gamma=gamma)
+                sp = np.zeros(len(cw_sorted), dtype=np.uint64)
+                sp[skew_mphf.lookup(cw_sorted, device=device)] = cand[first_idx].astype(np.uint64)
+                skew_pos = IntVector.from_array(sp)
+            else:
+                skew_mphf = BooPHF32.build(np.zeros(1, dtype=np.uint64), gamma=gamma)
+                skew_pos = IntVector.from_array(np.zeros(1, dtype=np.uint64))
+        return cls(
+            unitigs, w, IntVector.from_array(posv), skew_param, seed,
+            int(mm_occs.max()) if len(mm_occs) else 0, mphf=mphf, prefix=prefix,
+            skew_mphf=skew_mphf, skew_pos=skew_pos,
         )
 
     @staticmethod
@@ -250,11 +326,15 @@ class SSHash:
 
     def probe_bound(self) -> int:
         """Static bound of the candidate probe loop."""
+        if self.skew_param is None:
+            return self.max_bucket()
         return min(self.skew_param, self.max_bucket())
 
     @property
     def n_kmers_in_skew_index(self) -> int:
-        return 0 if self.skew_direct is None else int((self.skew_direct["pos"] >= 0).sum())
+        if self.skew_direct is not None:
+            return int((self.skew_direct["pos"] >= 0).sum())
+        return 0 if self.skew_pos is None else len(self.skew_pos)
 
     def device_arrays(self, prefix_kind: str | None = None, pos_kind: str | None = None,
                       bucket_inline: bool = False) -> dict:
@@ -262,8 +342,9 @@ class SSHash:
         ``prefix_kind="grouped16"`` (an int64 base per 1024-bucket group and
         a u16 in-group delta per bucket), and with ``bucket_inline`` the
         ``bpos`` u32[T, 4] rows (first three positions of the bucket, then
-        its count). Skew rows are u32[., 8]: pos, uid, start, end and the
-        two useq words that hold the k-mer."""
+        its count). The direct engine's skew rows are u32[., 8]: pos, uid,
+        start, end and the two useq words that hold the k-mer; fast32 adds
+        its ``mphf``, ``skew_mphf`` and ``skew_pos``."""
         if pos_kind != "packed":
             raise ValueError(f"the port has no {pos_kind!r} SSHash position layout yet")
         if prefix_kind != "grouped16":
@@ -273,12 +354,18 @@ class SSHash:
             "us": us.device_arrays(paired=True),
             "meta": meta(
                 kind="sshash", k=self.k, w=self.w, seed=self.seed, hash32=True,
-                ordering="mix32", direct_t=self.direct_T, skew_param=self.skew_param,
+                ordering="mix32", direct_t=self.direct_T,
+                skew_param=-1 if self.skew_param is None else self.skew_param,
                 probe_bound=max(1, self.probe_bound()), prefix_kind=prefix_kind,
                 pos_kind=pos_kind,
             ),
             "pos": self.pos.device_arrays(),
         }
+        if self.mphf is not None:
+            d["mphf"] = self.mphf.device_arrays()
+        if self.skew_mphf is not None:
+            d["skew_mphf"] = self.skew_mphf.device_arrays()
+            d["skew_pos"] = self.skew_pos.device_arrays()
         p = self.occs_prefix_sum
         base = np.ascontiguousarray(p[::1024]).astype(np.int64)
         delta = p - base[np.arange(len(p), dtype=np.int64) >> 10]
@@ -401,44 +488,67 @@ def _take(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(v, 1, idx[:, None])[:, 0]
 
 
+def mphf_lookup(d: dict, keys: torch.Tensor, level_limit: int | None = None):
+    """Values of ``keys`` under a minimizer or skew MPHF (BooPHF32 only);
+    with ``level_limit``, ``(values, unresolved)`` (see
+    ``boophf32.boophf32_lookup``)."""
+    if getattr(d["meta"], "kind", None) != "boophf32":
+        raise ValueError("the port's MPHF lookup covers BooPHF32; the 64-bit BooPHF is not "
+                         "ported yet")
+    return boophf32_lookup(d, keys, level_limit=level_limit)
+
+
 def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int | None = None,
-               probe_start: int = 0, defer_valid: bool = False) -> dict:
-    """Batched SSHash K2U on the direct-engine capacity layout (plain torch;
-    ``mazu_tpu.kphf.sshash.sshash_k2u``).
+               probe_start: int = 0, defer_valid: bool = False,
+               mphf_level_limit: int | None = None) -> dict:
+    """Batched SSHash K2U on the capacity layout (packed positions, grouped16
+    bounds, paired unitig-set arrays), direct or fast32 engine (plain
+    torch; ``mazu_tpu.kphf.sshash.sshash_k2u``).
 
     ``fw``: int64 bit patterns of forward k-mer words. Returns int64
     unitig_id, unitig_len, pos and uint8 mt (0 miss, 1 identity, 2 twin).
+    A lane's bucket is ``fold_hash32(mm) & (T-1)`` (direct) or the MPHF
+    value of its minimizer (fast32; a lane the MPHF rejects has no
+    occurrences).
 
     ``mode="full"`` is exact for every key: each bucket's rows up to the
     static ``probe_bound`` (lanes mask rows past their count, so no bound
     comes back to the host; rows go in blocks of up to ``ROW_BUDGET``
     lane-rows, and the first hit in row order wins), each candidate
-    checked with ``us_is_valid_pos``, the winner mapped to its unitig by
-    rank, and heavy buckets resolved through the skew table.
-    ``probe_start`` skips rows [0, probe_start) for every lane (the caller
-    guarantees they were probed and missed).
+    checked with ``us_is_valid_pos``, the winner mapped to its unitig, and
+    heavy buckets resolved through the skew table. ``probe_start`` skips
+    rows [0, probe_start) for every lane (the caller guarantees they were
+    probed and missed). With the unitig set's ``uproj`` records the winner's
+    unitig record also gives occ_word, occ_word2, occ_cnt and occ_start.
 
-    ``mode="main"`` (needs the ``useqrec`` records) probes the first
-    ``min(probe_bound, probe_limit)`` rows of each bucket; with ``bpos`` and
-    ``probe_limit <= 3`` the bucket's count and positions come from one
-    bpos row. Each probe reads one window record, which carries the
-    candidate's words and its unitig's extent, id and first two occurrence
-    words. Adds bool ``use_skew`` (a heavy bucket) and ``unresolved`` (rows
-    past the probed depth, or a candidate that spelled the query but
-    failed the record's extent check: the reference's mt == 3 sentinel),
-    and occ_word, occ_word2 (int64 bit patterns) and occ_cnt.
-    ``defer_valid`` is accepted there and changes nothing: the records
-    check extents inside the probe."""
+    ``mode="main"`` probes the first ``min(probe_bound, probe_limit)`` rows
+    of each bucket and adds bool ``use_skew`` (a heavy bucket) and
+    ``unresolved`` (rows past the probed depth, and the cases below), which
+    the caller's compacted phases settle. Two probes:
+
+    - with the ``useqrec`` window records (and, at ``probe_limit <= 3``,
+      the ``bpos`` rows): one record per row carries the candidate's words
+      and its unitig's extent, id and first two occurrence words. A
+      candidate that spelled the query but failed the record's extent check
+      (the reference's mt == 3 sentinel) leaves its lane unresolved. Adds
+      occ_word, occ_word2 and occ_cnt.
+    - otherwise one ``words2`` row pair per row. ``defer_valid`` drops the
+      in-loop ``us_is_valid_pos`` and validates only the winner, with its
+      rank (``us_validate_rank``): a failed winner clears the lane's hit and
+      leaves it unresolved, and its ``pos`` keeps the winner's useq
+      position. ``mphf_level_limit`` (fast32) runs the truncated MPHF
+      chain: lanes it cannot place are unresolved and have no occurrences.
+      With ``uproj``, adds occ_word, occ_word2, occ_cnt and occ_start.
+
+    Unresolved lanes of the records, of ``defer_valid`` or of
+    ``mphf_level_limit`` must be re-probed from row 0."""
     m = d["meta"]
     us = d["us"]
-    if not m.direct_t or m.pos_kind != "packed" or m.prefix_kind != "grouped16":
-        raise ValueError("the port's SSHash query covers the direct engine with packed "
-                         "positions and grouped16 bounds")
+    if m.pos_kind != "packed" or m.prefix_kind != "grouped16":
+        raise ValueError("the port's SSHash query covers packed positions with grouped16 bounds")
     usrec = mode == "main" and probe_start == 0 and "useqrec" in us
-    if mode == "main" and not usrec:
-        raise ValueError("the port's main-mode SSHash probe needs the useqrec records")
-    if defer_valid and not usrec:
-        raise ValueError("the port has no deferred validation yet")
+    if defer_valid and mode != "main":
+        raise ValueError("defer_valid is a main-mode contract: its caller re-probes failed lanes")
     k, w = m.k, m.w
     rc = revcomp(fw, k)
     mm, offset, _is_fw, canon = canonical_minimizer_batch(fw, k, w, m.seed, ordering=m.ordering)
@@ -448,7 +558,17 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
         "bpos" in d and mode == "main" and probe_start == 0 and probe_limit is not None
         and 0 < probe_limit <= d["bpos"].shape[1] - 1
     )
-    hc = fold_hash32(mm) & (m.direct_t - 1)
+    mphf_unres = dead = None
+    if m.direct_t:
+        hc = fold_hash32(mm) & (m.direct_t - 1)
+    else:
+        if mode == "main" and mphf_level_limit is not None:
+            h, mphf_unres = mphf_lookup(d["mphf"], mm, level_limit=mphf_level_limit)
+        else:
+            h = mphf_lookup(d["mphf"], mm)
+        h = h.to(torch.int64)
+        dead = h < 0
+        hc = torch.clamp(h, min=0)
     if use_bpos:
         brow = mask32(d["bpos"][hc])
         n_occs = brow[:, 3]
@@ -456,6 +576,8 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
     else:
         ps, pe = _prefix_pair(d, hc)
         n_occs = pe - ps
+    if dead is not None:
+        n_occs = torch.where(dead, 0, n_occs)
     if m.skew_param >= 0:
         use_skew = n_occs > m.skew_param
     else:
@@ -509,6 +631,8 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
             if usrec:
                 ok = (km_pos_c >= ustart) & (km_pos_c + k <= ustart + ulen)
                 cands.append((match & ok, match & ~ok, km_pos_c - ustart, mt))
+            elif defer_valid:
+                cands.append((match, None, km_pos_c, mt))
             else:
                 cands.append((match & us_is_valid_pos(us, km_pos_c), None, km_pos_c, mt))
 
@@ -530,23 +654,69 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
             out[key] = torch.where(take, v, out[key])
         found = found | any_hit
 
+    unresolved = ~found & ~use_skew & (n_occs > bound)
+    if mphf_unres is not None:
+        unresolved = unresolved | mphf_unres
     if usrec:
         # a candidate spelled the query but its record's extent check
         # failed, and no later candidate hit: phase 2 must re-probe it
-        maybe = ~found & sentinel
         return {
             **{key: out[key] for key in ("unitig_id", "unitig_len", "pos", "mt")},
             "use_skew": use_skew,
-            "unresolved": (~found & ~use_skew & (n_occs > bound)) | maybe,
+            "unresolved": unresolved | (~found & sentinel),
             "occ_word": out["occ_word"],
             "occ_word2": out["occ_word2"],
             "occ_cnt": out["occ_cnt"],
         }
-    uid, ulen, upos, _ = _map_hit(d, torch.where(found, out["pos"], 0))
-    state = (torch.where(found, uid, z), torch.where(found, ulen, z),
-             torch.where(found, upos, out["pos"]), out["mt"])
-    uid, ulen, pos, mt = skew_resolve(d, fw, rc, canon, use_skew, state)
-    return {"unitig_id": uid, "unitig_len": ulen, "pos": pos, "mt": mt}
+    pos, mt = out["pos"], out["mt"]
+    uid_r = None
+    if defer_valid:
+        # the winner spelled the query; a boundary inside its window makes
+        # it no hit, and it may have hidden a later true one: re-probe
+        posw = torch.where(found, pos, 0)
+        if "wb2" in us["bv"]:
+            vok, uid_r = us_validate_rank(us, posw)
+        else:
+            vok = us_is_valid_pos(us, posw)
+        unresolved = unresolved | (found & ~vok)
+        found = found & vok
+        mt = torch.where(found, mt, 0)
+    posw = torch.where(found, pos, 0)
+    uproj = us.get("uproj")
+    occ = {}
+    if uproj is not None:
+        uid = torch.clamp(us_rank(us, posw) if uid_r is None else uid_r, 0, uproj.shape[0] - 1)
+        row = uproj[uid]
+        ulen = row[:, 1]
+        pos = torch.where(found, pos - row[:, 0], pos)
+        if mode == "main":
+            oc = torch.where(found, row[:, 2], z)
+            occ = {"occ_word": torch.where(found, row[:, 3], z),
+                   "occ_word2": torch.where(found, row[:, 4], z),
+                   "occ_cnt": oc & M32, "occ_start": oc >> 32}
+    else:
+        if uid_r is None:
+            uid, ulen, upos, _ = _map_hit(d, posw)
+        else:
+            uid = torch.clamp(uid_r, 0, max(us["meta"].n_unitigs - 1, 0))
+            start, end = us_extent(us, uid)
+            ulen, upos = end - start, posw - start
+        pos = torch.where(found, upos, pos)
+    uid, ulen = torch.where(found, uid, z), torch.where(found, ulen, z)
+    if mode == "main":
+        return {"unitig_id": uid, "unitig_len": ulen, "pos": pos, "mt": mt,
+                "use_skew": use_skew, "unresolved": unresolved, **occ}
+    uid, ulen, pos, mt = skew_resolve(d, fw, rc, canon, use_skew, (uid, ulen, pos, mt))
+    res = {"unitig_id": uid, "unitig_len": ulen, "pos": pos, "mt": mt}
+    if uproj is not None:
+        # one record over the final unitig, skew lanes included
+        hit = mt > 0
+        rowf = uproj[torch.clamp(uid, 0, uproj.shape[0] - 1)]
+        res.update(occ_word=torch.where(hit, rowf[:, 3], z),
+                   occ_word2=torch.where(hit, rowf[:, 4], z),
+                   occ_cnt=torch.where(hit, rowf[:, 2] & M32, z),
+                   occ_start=torch.where(hit, srl(rowf[:, 2], 32), z))
+    return res
 
 
 def _skew_row(d, rows, fw, rc, k):
@@ -562,33 +732,45 @@ def _skew_row(d, rows, fw, rc, k):
 
 
 def skew_resolve(d: dict, fw, rc, canon, use_skew, state):
-    """Resolve heavy-bucket lanes through the skew table: two-choice rows
-    (``skew_kind="cuckoo"``) or bounded buckets (``skew_prefix2``).
-    ``state`` is (uid, ulen, pos, mt); lanes not in ``use_skew`` pass
-    through."""
+    """Resolve heavy-bucket lanes through the skew table: the direct
+    engine's two-choice rows (``skew_kind="cuckoo"``) or bounded buckets
+    (``skew_prefix2``), or fast32's ``skew_mphf`` over the canonical k-mer,
+    whose value indexes ``skew_pos``. ``state`` is (uid, ulen, pos, mt);
+    lanes not in ``use_skew`` pass through."""
     m = d["meta"]
     k = m.k
     uid, ulen, pos, mt = state
-    if "skew_inline" not in d:
-        return state
-    srows = d["skew_inline"]
-    sfound = torch.zeros_like(use_skew)
-    if m.skew_kind == "cuckoo":
-        t2m = m.skew_t - 1
-        slots = (fold_hash32(canon) & t2m, fold_hash32b(canon, m.skew_salt) & t2m)
-        probes = [(srows[s], (srows[s][:, 1] != -1)) for s in slots]
-    else:
-        b2 = fold_hash32(canon) & (m.skew_t - 1)
-        spair = d["skew_prefix2"][b2].to(torch.int64)
-        s2, c2 = spair[:, 0], spair[:, 1] - spair[:, 0]
-        last = max(srows.shape[0] - 1, 0)
-        probes = [(srows[torch.clamp(s2 + j, 0, last)], j < c2) for j in range(m.skew_bound)]
-    for rows, ok in probes:
-        r_uid, r_ulen, r_pos, r_mt = _skew_row(d, rows, fw, rc, k)
-        hit = use_skew & ~sfound & ok & (r_mt > 0)
+    if "skew_inline" in d:
+        srows = d["skew_inline"]
+        if m.skew_kind == "cuckoo":
+            t2m = m.skew_t - 1
+            slots = (fold_hash32(canon) & t2m, fold_hash32b(canon, m.skew_salt) & t2m)
+            probes = [(srows[s], (srows[s][:, 1] != -1)) for s in slots]
+        else:
+            b2 = fold_hash32(canon) & (m.skew_t - 1)
+            spair = d["skew_prefix2"][b2].to(torch.int64)
+            s2, c2 = spair[:, 0], spair[:, 1] - spair[:, 0]
+            last = max(srows.shape[0] - 1, 0)
+            probes = [(srows[torch.clamp(s2 + j, 0, last)], j < c2) for j in range(m.skew_bound)]
+        sfound = torch.zeros_like(use_skew)
+        for rows, ok in probes:
+            r_uid, r_ulen, r_pos, r_mt = _skew_row(d, rows, fw, rc, k)
+            hit = use_skew & ~sfound & ok & (r_mt > 0)
+            uid = torch.where(hit, r_uid, uid)
+            ulen = torch.where(hit, r_ulen, ulen)
+            pos = torch.where(hit, r_pos, pos)
+            mt = torch.where(hit, r_mt, mt)
+            sfound = sfound | hit
+    elif "skew_mphf" in d:
+        h2 = mphf_lookup(d["skew_mphf"], canon).to(torch.int64)
+        n_skew = d["skew_pos"]["meta"].length
+        sp = iv_get(d["skew_pos"], torch.clamp(h2, 0, max(n_skew - 1, 0)))
+        sp = torch.clamp(sp, 0, max(d["us"]["meta"].total_len - k, 0))
+        r_mt = word_equivalency(fw, rc, us_get_kmer(d["us"], sp), k)
+        r_uid, r_ulen, r_pos, end_ok = _map_hit(d, sp)
+        hit = use_skew & (h2 >= 0) & (r_mt > 0) & end_ok
         uid = torch.where(hit, r_uid, uid)
         ulen = torch.where(hit, r_ulen, ulen)
         pos = torch.where(hit, r_pos, pos)
         mt = torch.where(hit, r_mt, mt)
-        sfound = sfound | hit
     return uid, ulen, pos, mt

@@ -8,11 +8,13 @@ window record) carries, and queries on it take a compacted phase.
 Occurrence positions lie inside the reference lengths, so the packed
 occurrence words stay below 2^32 and a KCDict keeps its occ32 layout.
 
-Two indexes: ``build_index``, the mono2-occ32 KCDict of slice 1, and
+Three indexes: ``build_index``, the mono2-occ32 KCDict of the speed tier;
 ``build_capacity_index``, the SSHash direct engine of the capacity tier
-(w=15, skew 64, load 0.5, as the reference's 300 Mbp capacity build). A
-random genome has no bucket deeper than the skew threshold, so the
-capacity genome plants one w-mer that the mix32 ordering ranks low at
+(w=15, skew 64, load 0.5, as the reference's 300 Mbp capacity build); and
+``build_mphf_index``, the SSHash fast32 engine of the MPHF capacity tier
+(w=19, skew 64, gamma 1.7, as the reference's human-scale build). A random
+genome has no bucket deeper than the skew threshold, so the capacity
+genomes plant one w-mer that the mix32 ordering ranks low at
 ``HEAVY_SITES`` places: its bucket is a skew bucket, as repeats make them
 in real genomes.
 """
@@ -43,29 +45,52 @@ CAP_W = 15
 CAP_SKEW = 64
 CAP_LOAD = 0.5
 HEAVY_SITES = 4096  # places of the planted w-mer: one bucket far past CAP_SKEW
+TAG = 6  # bases of each site tag (4^6 = HEAVY_SITES numbers)
 CAPACITY_LAYOUT = dict(prefix_kind="grouped16", pos_kind="packed", bucket_inline=True,
                        useqrec=True)
 
+# the MPHF capacity tier: the reference's fast32 engine at human scale
+# (w=19, skew 64, gamma 1.7), queried with deferred validation and a
+# truncated MPHF chain
+MPHF_W = 19
+MPHF_GAMMA = 1.7
+MPHF_LAYOUT = dict(prefix_kind="grouped16", pos_kind="packed", uproj=True)
+MPHF_QUERY = dict(probe_limit=2, defer_valid=True, mphf_level_limit=4, probe_limit2=4)
 
-def _plant(codes: np.ndarray, rng, w: int, sites: int) -> None:
+
+def _plant(codes: np.ndarray, rng, w: int, sites: int, tag: bool = False) -> None:
     """Write one w-mer, the lowest-ranked of 2^16 random ones under the
     mix32 ordering, at ``sites`` random places (in place). The places lie
-    at least 4w bases apart, so no k-mer (k < 3w) spans parts of two, and
-    the k-mers around them stay distinct."""
+    at least 4w bases apart, so no k-mer (k < 3w) spans parts of two.
+
+    The k-mers that hold the w-mer differ only in their k - w flank bases,
+    so at w=19 (12 flank bases) thousands of sites repeat some of them.
+    ``tag`` writes the site's number in base 4 into the 6 bases on each side
+    of the w-mer: every k-mer that overlaps it then holds a whole tag (for
+    k - w >= 11), and the k-mers around the sites stay distinct."""
     cand = rng.integers(0, 1 << (2 * w), 1 << 16, dtype=np.uint64)
     wmer = int(cand[np.argmin(mix32_np(cand.astype(np.uint32)))])
     bases = np.array([(wmer >> (2 * j)) & 3 for j in range(w)], dtype=np.uint8)
     at = rng.choice(len(codes) // (4 * w), sites, replace=False) * (4 * w)
+    if tag:
+        if sites > 4**TAG or 4 * w < w + 2 * TAG:
+            raise ValueError(f"{sites} sites do not fit {TAG}-base tags")
+        at = at + TAG
+        digits = (np.arange(sites)[:, None] >> (2 * np.arange(TAG))) & 3
+        codes[at[:, None] - TAG + np.arange(TAG)] = digits
+        codes[at[:, None] + w + np.arange(TAG)] = digits
     codes[at[:, None] + np.arange(w)] = bases
 
 
-def build_synthetic(n_bases: int, seed: int = 0, heavy_sites: int = 0, w: int = CAP_W):
+def build_synthetic(n_bases: int, seed: int = 0, heavy_sites: int = 0, w: int = CAP_W,
+                    tag_sites: bool = False):
     """(UnitigSet, RefSeqCollection, PiscemUnitigTable) of a random genome,
-    with one low-ranked w-mer planted at ``heavy_sites`` places."""
+    with one low-ranked w-mer planted at ``heavy_sites`` places (tagged
+    with their numbers with ``tag_sites``; see ``_plant``)."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, n_bases, dtype=np.uint8)
     if heavy_sites:
-        _plant(codes, rng, w, heavy_sites)
+        _plant(codes, rng, w, heavy_sites, tag=tag_sites)
     sv = SeqVector.from_codes(codes)
     del codes
     n = n_bases // PIECE
@@ -106,6 +131,20 @@ def build_capacity_index(n_bases: int, seed: int = 0, device="cpu", chunk: int =
     return ModIndex(k2u, u2pos, refs, index_type="Piscem-synth")
 
 
+def build_mphf_index(n_bases: int, seed: int = 0, device="cpu", chunk: int = 1 << 22,
+                     heavy_sites: int = HEAVY_SITES) -> ModIndex:
+    """The fast32 SSHash index over ``build_synthetic`` with a planted,
+    tagged 19-mer: one minimizer with about ``heavy_sites`` occurrences, a
+    skew minimizer. Its minimizer scan and the MPHF lookup of every minimizer
+    run on ``device``. Its query arrays are
+    ``index.device_arrays(**MPHF_LAYOUT)``."""
+    unitigs, refs, u2pos = build_synthetic(n_bases, seed, heavy_sites=heavy_sites, w=MPHF_W,
+                                           tag_sites=True)
+    k2u = SSHash.from_unitig_set(unitigs, w=MPHF_W, skew_param=CAP_SKEW, gamma=MPHF_GAMMA,
+                                 engine="fast32", chunk=chunk, device=device)
+    return ModIndex(k2u, u2pos, refs, index_type="Piscem-synth")
+
+
 def sample_capacity_queries(unitigs: UnitigSet, n: int, seed: int):
     """(words, uid, upos): uniform (unitig, offset) draws, half reverse-
     complemented, no foreign words, so each lane's true unitig and offset
@@ -118,6 +157,20 @@ def sample_capacity_queries(unitigs: UnitigSet, n: int, seed: int):
     flip = rng.random(n) < RC_SHARE
     words[flip] = revcomp_np(words[flip], k)
     return words, uid, upos
+
+
+def sample_boundary_queries(unitigs: UnitigSet, n: int, seed: int) -> np.ndarray:
+    """uint64 k-mer words read across a unitig boundary (one of the last
+    k-1 start positions of a unitig), half reverse-complemented: the useq
+    spells them but no unitig holds them, so a probe that validates only
+    its winner finds them and then rejects them."""
+    rng = np.random.default_rng(seed)
+    k = unitigs.k
+    ends = np.asarray(unitigs.accum[1:-1], dtype=np.int64)
+    words = unitigs.get_kmer_u64(ends[rng.integers(0, len(ends), n)] - rng.integers(1, k, n))
+    flip = rng.random(n) < RC_SHARE
+    words[flip] = revcomp_np(words[flip], k)
+    return words
 
 
 def sample_queries(unitigs: UnitigSet, n: int, seed: int) -> np.ndarray:

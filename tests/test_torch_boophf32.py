@@ -1,0 +1,123 @@
+"""The port's BooPHF32 against mazu_tpu's, with tolerance 0: the chain
+state fold and step on random u64 keys (bit 63 set on half), the level
+build's device arrays byte for byte (a one-key table, tables with and
+without final-hash keys), the host lookup, and the torch lookup, full and
+with a level limit, on members and non-members."""
+
+import numpy as np
+import pytest
+import torch
+
+import mazu_tpu.kphf.boophf32 as mb
+import mazu_tpu_torch.kphf.boophf32 as pb
+from mazu_tpu_torch.convert import arrays_from_numpy
+from mazu_tpu_torch.kphf.sshash import mphf_lookup
+
+from torch_fixtures import assert_same, same_tree, tensor
+
+
+def _keys(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    x[: n // 2] >>= np.uint64(1)  # half below 2^63, half (about) with bit 63 set
+    return x
+
+
+def test_key_fold32_and_chain_next():
+    x = _keys(20_000, 1)
+    x[:3] = [0, (1 << 64) - 1, 1 << 63]
+    w0, w1 = mb.key_fold32(x)
+    g0, g1 = pb.key_fold32(tensor(x))
+    assert_same(g0, w0.astype(np.int64), "s0")
+    assert_same(g1, w1.astype(np.int64), "s1")
+    n0, n1 = pb.key_fold32_np(x)
+    np.testing.assert_array_equal(n0, w0)
+    np.testing.assert_array_equal(n1, w1)
+    for step in range(4):
+        wh, w0, w1 = mb.chain_next(w0, w1)
+        gh, g0, g1 = pb.chain_next(g0, g1)
+        for g, w, what in ((gh, wh, "h"), (g0, w0, "s0"), (g1, w1, "s1")):
+            assert_same(g, w.astype(np.int64), f"step {step} {what}")
+    ph, p0, p1 = pb.chain_next_np(*pb.key_fold32_np(x))
+    wh, w0, w1 = mb.chain_next(*mb.key_fold32(x))
+    for g, w in ((ph, wh), (p0, w0), (p1, w1)):
+        np.testing.assert_array_equal(g, w)
+
+
+CASES = {
+    # (n keys, max_levels): a one-key table, a table the levels place
+    # whole, and one whose keys left after two levels go to the final table
+    "one_key": (1, 12),
+    "levels_only": (3000, 12),
+    "final_table": (3000, 2),
+}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def tables(request):
+    n, max_levels = CASES[request.param]
+    keys = np.unique(_keys(n, 7 + n))
+    ref = mb.BooPHF32.build(keys, gamma=1.7, max_levels=max_levels)
+    port = pb.BooPHF32.build(keys, gamma=1.7, max_levels=max_levels)
+    return request.param, keys, ref, port
+
+
+def test_build_device_arrays(tables):
+    name, keys, ref, port = tables
+    want = ref.device_arrays()
+    same_tree(port.device_arrays(), want, name)
+    assert port.n_elem == ref.n_elem == len(keys)
+    assert port.last_bitset_rank == ref.last_bitset_rank
+    if name == "final_table":
+        assert len(ref.fh_keys) > 0
+    else:
+        assert len(ref.fh_keys) == 0 and int(want["fh_keys"][0]) == (1 << 64) - 1
+
+
+def test_host_lookup_is_a_bijection(tables):
+    name, keys, ref, port = tables
+    got = port.lookup(keys, chunk=1000)
+    np.testing.assert_array_equal(got, ref.lookup(keys).astype(np.int32))
+    assert sorted(got.tolist()) == list(range(len(keys)))
+
+
+@pytest.mark.parametrize("level_limit", [None, 1, 2, 4])
+def test_lookup(tables, level_limit):
+    """Members and non-members (random keys, bit 63 set on half), through
+    both packages' lookups on the same arrays."""
+    name, keys, ref, port = tables
+    host = ref.device_arrays()
+    probe = np.concatenate([keys, _keys(2000, 99), np.array([0, (1 << 64) - 1], np.uint64)])
+    d = arrays_from_numpy(port.device_arrays(), "cpu")
+    want = mb.boophf32_lookup(host, probe, np, level_limit=level_limit)
+    got = mphf_lookup(d, tensor(probe), level_limit=level_limit)
+    if level_limit is None:
+        assert_same(got, want, "values")
+        assert (got[: len(keys)] >= 0).all()
+    else:
+        assert_same(got[0], want[0], "values")
+        assert_same(got[1], want[1], "unresolved")
+        # a placed key gets its exact value
+        full = mb.boophf32_lookup(host, probe, np)
+        placed = ~np.asarray(want[1])
+        np.testing.assert_array_equal(np.asarray(want[0])[placed], full[placed])
+    # the port reads the reference's arrays too
+    got2 = pb.boophf32_lookup(arrays_from_numpy(host, "cpu"), tensor(probe), level_limit=level_limit)
+    for g, w in zip(got2 if level_limit else (got2,), want if level_limit else (want,)):
+        assert_same(g, w)
+
+
+def test_lookup_takes_no_mrows(tables):
+    _, keys, ref, port = tables
+    with pytest.raises(ValueError, match="the port has no mrows"):
+        port.device_arrays(mrows=True)
+    d = arrays_from_numpy(ref.device_arrays(mrows=True), "cpu")
+    with pytest.raises(ValueError, match="the port has no mrows"):
+        pb.boophf32_lookup(d, tensor(keys))
+
+
+def test_mphf_lookup_refuses_the_64bit_booPHF():
+    from mazu_tpu_torch.pytree import meta
+
+    with pytest.raises(ValueError, match="64-bit BooPHF"):
+        mphf_lookup({"meta": meta(kind="boophf")}, torch.zeros(1, dtype=torch.int64))

@@ -1,6 +1,6 @@
 """The port runs where there is no JAX: every module imports, and tiny
-indexes (the mono2 KCDict and the SSHash capacity tier) answer queries,
-with ``jax`` blocked from importing."""
+indexes (the mono2 KCDict, the SSHash capacity tier and the MPHF capacity
+tier) answer queries, with ``jax`` blocked from importing."""
 
 import os
 import pkgutil
@@ -41,6 +41,14 @@ out = get_ref_pos_compact(cq.arrays(), torch.from_numpy(words.view(np.int64)), c
                           probe_limit2=4, m2c=512)
 assert not bool(out["over_budget"]) and bool((out["mt"] > 0).all())
 assert (out["unitig_id"].numpy() == uid).all() and (out["pos"].numpy() == upos).all()
+
+mp = synth.build_mphf_index(8 * synth.PIECE, heavy_sites=128)
+mq = QueryIndex(arrays_from_numpy(mp.device_arrays(**synth.MPHF_LAYOUT), "cpu"))
+words, uid, upos = synth.sample_capacity_queries(mp.k2u.unitigs, 512, seed=2)
+out = get_ref_pos_compact(mq.arrays(), torch.from_numpy(words.view(np.int64)), mq.max_occs,
+                          merge=True, m2=512, m2b=512, m2c=512, **synth.MPHF_QUERY)
+assert not bool(out["over_budget"]) and bool((out["mt"] > 0).all())
+assert (out["unitig_id"].numpy() == uid).all() and (out["pos"].numpy() == upos).all()
 leaked = sorted(m for m in sys.modules if m == "mazu_tpu" or m.startswith("mazu_tpu."))
 assert not leaked, leaked
 print("OK", len(mods))
@@ -64,6 +72,7 @@ def test_port_imports_and_queries_without_jax():
     mods = _modules()
     assert "mazu_tpu_torch.ops.mono2_probe" in mods and "mazu_tpu_torch.synth" in mods
     assert "mazu_tpu_torch.ops.bpos_probe" in mods and "mazu_tpu_torch.kphf.sshash" in mods
+    assert "mazu_tpu_torch.ops.capacity_probe" in mods and "mazu_tpu_torch.kphf.boophf32" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, *mods], capture_output=True, text=True,
         timeout=300, cwd=ROOT, env=_env(),

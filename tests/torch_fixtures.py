@@ -4,6 +4,8 @@ helpers to compare their outputs exactly."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -105,6 +107,38 @@ def build_capacity_pair(recipe, w: int = 15, skew: int = 8):
     return ref, port
 
 
+def build_mphf_pair(recipe, w: int = 15, skew: int | None = 8):
+    """(mazu_tpu ModIndex, mazu_tpu_torch ModIndex) of one recipe, both
+    with a fast32 SSHash (BooPHF32 minimizer MPHF, gamma 1.7, skew
+    threshold ``skew``) over a piscem occurrence table: the MPHF capacity
+    tier's dictionary."""
+    from mazu_tpu.containers.refseq import RefSeqCollection as MRefs
+    from mazu_tpu.containers.unitig_set import UnitigSet as MUnitigs
+    from mazu_tpu.index.modindex import ModIndex as MModIndex
+    from mazu_tpu.index.spt import SPT as MSPT
+    from mazu_tpu.kphf.sshash import SSHash as MSSHash
+
+    from mazu_tpu_torch.containers.refseq import RefSeqCollection
+    from mazu_tpu_torch.containers.unitig_set import UnitigSet
+    from mazu_tpu_torch.index.modindex import ModIndex
+    from mazu_tpu_torch.index.spt import SPT
+    from mazu_tpu_torch.kphf.sshash import SSHash
+
+    seqs, k, occ, ref_lens = recipe
+    names = [f"r{i}" for i in range(len(ref_lens))]
+
+    mus = MUnitigs.from_seqs(seqs, k)
+    mu2 = MSPT(mus, names, *occ, ref_lens).piscem_table()
+    mss = MSSHash.from_unitig_set(mus, w, skew_param=skew, engine="fast32", gamma=1.7)
+    ref = MModIndex(mss, mu2, MRefs.from_lens(ref_lens, names), index_type="t")
+
+    pus = UnitigSet.from_seqs(seqs, k)
+    pu2 = SPT(pus, names, *occ, ref_lens).piscem_table()
+    pss = SSHash.from_unitig_set(pus, w, skew_param=skew, engine="fast32", gamma=1.7)
+    port = ModIndex(pss, pu2, RefSeqCollection.from_lens(ref_lens, names), index_type="t")
+    return ref, port
+
+
 def capacity_queries(unitigs, n: int, seed: int, miss: float = 0.1) -> np.ndarray:
     """``queries`` with foreign words drawn from all 64 bits, so some have
     bit 63 set."""
@@ -124,6 +158,10 @@ def same_tree(got, want, path: str = ""):
             same_tree(got[key], want[key], f"{path}/{key}")
     elif hasattr(want, "kv"):
         assert got.kv == want.kv, f"{path}: meta {got.kv} != {want.kv}"
+    elif dataclasses.is_dataclass(want):
+        # a dataclass meta record (the reference's BooPHF32Meta): field by field
+        for f in dataclasses.fields(want):
+            assert getattr(got, f.name) == getattr(want, f.name), f"{path}: meta {f.name}"
     else:
         g = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
         w = np.asarray(want)
