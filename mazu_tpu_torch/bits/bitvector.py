@@ -1,5 +1,6 @@
-"""Rank bitvector over uint64 words (counterpart of
-``mazu_tpu.bits.bitvector``): ``rank(i)`` counts the ones in ``[0, i)``.
+"""Rank/select bitvector over uint64 words (counterpart of
+``mazu_tpu.bits.bitvector``): ``rank(i)`` counts the ones in ``[0, i)``,
+``select(r)`` is the position of the r-th one (0-based).
 
 Host layout: ``words`` uint64[nw+1] (at least two words, so a two-word
 window read never runs past the end) and ``blocks`` uint32[nw+1], the
@@ -44,6 +45,14 @@ class BitVector:
         self.n_ones = int(self.blocks[nw])
 
     @classmethod
+    def from_bools(cls, bits: np.ndarray) -> "BitVector":
+        """Bit i set where ``bits[i]``."""
+        bits = np.asarray(bits, dtype=bool)
+        n = len(bits)
+        b = np.concatenate([bits, np.zeros((-n) % 64, dtype=bool)])
+        return cls(np.packbits(b.reshape(-1, 8)[:, ::-1]).view(np.uint64), n)
+
+    @classmethod
     def from_set_positions(cls, positions: np.ndarray, n_bits: int) -> "BitVector":
         positions = np.asarray(positions, dtype=np.int64)
         words = np.zeros((n_bits + 63) // 64, dtype=np.uint64)
@@ -57,6 +66,25 @@ class BitVector:
         off = pos.astype(U64) & U64(63)
         mask = np.where(off == 0, U64(0), ~U64(0) >> ((U64(64) - off) & U64(63)))
         return self.blocks[wi].astype(np.int64) + popcount_np(self.words[wi] & mask).astype(np.int64)
+
+    def select(self, r) -> np.ndarray:
+        """Position of the r-th one (0-based): the word from the block
+        counts, then a bisection inside it."""
+        r = np.asarray(r, dtype=np.int64)
+        wi = np.searchsorted(self.blocks, r, side="right") - 1
+        rem = r - self.blocks[wi].astype(np.int64)
+        word = self.words[wi]
+        pos = wi * 64
+        for shift in (32, 16, 8, 4, 2, 1):
+            c = popcount_np(word & U64((1 << shift) - 1)).astype(np.int64)
+            go = rem >= c
+            rem = np.where(go, rem - c, rem)
+            pos = np.where(go, pos + shift, pos)
+            word = np.where(go, word >> U64(shift), word)
+        return pos
+
+    def count_ones(self) -> int:
+        return self.n_ones
 
     def read_window(self, pos, width: int) -> np.ndarray:
         """Raw ``width``-bit window at bit offset(s) ``pos``."""
@@ -84,6 +112,11 @@ def bv_rank(bv: dict, pos: torch.Tensor) -> torch.Tensor:
     """Ones in [0, pos): one word, one block count and a popcount."""
     wi = pos >> 6
     return rank_in_word(bv["words"][wi], bv["blocks"][wi].to(torch.int64) & 0xFFFFFFFF, pos)
+
+
+def bv_get_bit(bv: dict, pos: torch.Tensor) -> torch.Tensor:
+    """Bit ``pos`` as a bool."""
+    return ((bv["words"][pos >> 6] >> (pos & 63)) & 1) != 0
 
 
 def bv_read_window(bv: dict, pos: torch.Tensor, width: int) -> torch.Tensor:

@@ -49,6 +49,15 @@ class SeqVector:
     def from_str(cls, seq: str | bytes) -> "SeqVector":
         return cls.from_codes(seq_to_codes(seq))
 
+    def get_base(self, pos) -> np.ndarray:
+        """2-bit code(s) of base(s) ``pos``."""
+        pos = np.asarray(pos, dtype=np.int64)
+        return ((self.words[pos >> 5] >> ((pos.astype(U64) & U64(31)) * U64(2))) & U64(3)).astype(
+            np.uint8)
+
+    def __len__(self) -> int:
+        return self.length
+
     def get_kmer_u64(self, pos, k: int) -> np.ndarray:
         """k-mer word(s) at base position(s) ``pos`` (may cross two words)."""
         pos = np.asarray(pos, dtype=np.int64)

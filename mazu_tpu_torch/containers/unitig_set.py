@@ -20,11 +20,13 @@ from ..pytree import meta
 
 
 class UnitigSet:
-    def __init__(self, k: int, useq: SeqVector, accum: np.ndarray):
+    def __init__(self, k: int, useq: SeqVector, accum: np.ndarray, bv: BitVector | None = None):
         self.k = int(k)
         self.useq = useq
         self.accum = np.asarray(accum, dtype=np.int64)
-        self.bv = BitVector.from_set_positions(self.accum[1:] - 1, int(self.accum[-1]))
+        if bv is None:
+            bv = BitVector.from_set_positions(self.accum[1:] - 1, int(self.accum[-1]))
+        self.bv = bv
 
     @classmethod
     def from_seqs(cls, seqs: list[str], k: int) -> "UnitigSet":

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ._words import from_numpy
 from .pytree import as_meta, meta
@@ -31,3 +32,13 @@ def arrays_from_numpy(host: dict, device) -> dict:
         else:
             raise TypeError(f"{key}: cannot carry {type(v).__name__} across")
     return out
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when it is None. Raises when the result
+    is a CUDA device and there is none: a build that was asked for the card
+    does not fall back to the host."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the host")
+    return dev

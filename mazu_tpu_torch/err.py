@@ -1,0 +1,11 @@
+"""Errors of the port (the ones of ``mazu_tpu.err`` it raises)."""
+
+from __future__ import annotations
+
+
+class MazuError(Exception):
+    """Base error."""
+
+
+class TruncatedFile(MazuError, IOError):
+    """Binary file shorter than its declared contents."""

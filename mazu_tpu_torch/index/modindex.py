@@ -1,14 +1,17 @@
 """ModIndex and its batched query (counterpart of
-``mazu_tpu.index.modindex``), for the KCDict mono2-occ32 and the SSHash
-(direct and fast32 engines) K2Us.
+``mazu_tpu.index.modindex``), for the KCDict mono2-occ32, the SSHash
+(direct and fast32 engines) and the pufferfish PFHash and SampledPFHash
+K2Us.
 
     k-mer words [N] -> K2U probe -> occurrence words -> projection
     -> reference positions
 
-``get_ref_pos_padded`` is the exact one-phase query. ``get_ref_pos_compact``
-is the main path: a shallow probe (a kernel on CUDA) plus a zero-gather
-projection for lanes whose unitig has at most two occurrences, then
-compacted phases that resolve the remaining lanes exactly.
+``get_ref_pos_padded`` is the exact one-phase query (the pufferfish
+indexes' path, over a pf1 ``DenseUnitigTable``). ``get_ref_pos_compact``
+is the KCDict and SSHash main path: a shallow probe (a kernel on CUDA)
+plus a zero-gather projection for lanes whose unitig has at most two
+occurrences, then compacted phases that resolve the remaining lanes
+exactly.
 """
 
 from __future__ import annotations
@@ -90,16 +93,24 @@ def k2u_batch(d: dict, fw: torch.Tensor, probe_start: int = 0) -> dict:
     (SSHash only) skips candidate rows [0, probe_start): see
     ``sshash_k2u``."""
     kind = d["k2u"]["meta"].kind
-    if kind == "kcdict":
-        from ..kphf.kcdict import kcdict_k2u
-
-        if probe_start:
-            raise ValueError("probe_start is an SSHash-only contract")
-        return kcdict_k2u(d["k2u"], fw)
     if kind == "sshash":
         from ..kphf.sshash import sshash_k2u
 
         return sshash_k2u(d["k2u"], fw, probe_start=probe_start)
+    if probe_start:
+        raise ValueError("probe_start is an SSHash-only contract")
+    if kind == "kcdict":
+        from ..kphf.kcdict import kcdict_k2u
+
+        return kcdict_k2u(d["k2u"], fw)
+    if kind == "pfhash":
+        from ..kphf.pfhash import pfhash_k2u
+
+        return pfhash_k2u(d["k2u"], fw)
+    if kind == "sampled":
+        from ..kphf.sampled import sampled_k2u
+
+        return sampled_k2u(d["k2u"], fw)
     raise ValueError(f"the port has no {kind!r} K2U yet")
 
 
@@ -356,11 +367,12 @@ def get_ref_pos_compact(
 class ModIndex:
     """Host-side index: K2U dictionary + U2Pos occurrence table + refs."""
 
-    def __init__(self, k2u, u2pos, refs, index_type: str = "Custom"):
+    def __init__(self, k2u, u2pos, refs, index_type: str = "Custom", metadata: dict | None = None):
         self.k2u = k2u
         self.u2pos = u2pos
         self.refs = refs
         self.index_type = index_type
+        self.metadata = metadata or {}
 
     @property
     def k(self) -> int:

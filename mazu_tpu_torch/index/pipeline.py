@@ -1,17 +1,22 @@
-"""OneGraphIndexQuery: the whole-pass checksum driver (counterpart of
-``mazu_tpu.index.pipeline.OneGraphIndexQuery``).
+"""Whole-pass checksum drivers.
 
-A pass runs CH query chunks through ``get_ref_pos_compact(merge=False)``
-and reduces each with ``checksum``. The sum and the worst per-chunk
-counts (overflow, type-B overflow, residue over capacity) stay on the
-device until the pass ends: one host sync per pass.
+``OneGraphIndexQuery`` (counterpart of
+``mazu_tpu.index.pipeline.OneGraphIndexQuery``) runs CH query chunks
+through ``get_ref_pos_compact(merge=False)`` and reduces each with
+``checksum``. The sum and the worst per-chunk counts (overflow, type-B
+overflow, residue over capacity) stay on the device until the pass ends:
+one host sync per pass.
+
+``checksum_padded_rolled`` is the one-phase pass of ``bench.py``'s full
+mode (its lines 625-628): ``get_ref_pos_padded`` per chunk and
+``padded_checksum``, the path of the pufferfish indexes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .modindex import QueryIndex, get_ref_pos_compact
+from .modindex import QueryIndex, get_ref_pos_compact, get_ref_pos_padded
 
 ROLL_STEP = 40009  # chunk i of a rolled pass is roll(work, i * ROLL_STEP)
 
@@ -138,3 +143,23 @@ class OneGraphIndexQuery:
                 raise RuntimeError("phase-2 capacity exceeded")
             tot += int(self.checksum(out))
         return tot
+
+
+def padded_checksum(out: dict) -> torch.Tensor:
+    """int64 sum of ref_pos and ref_id over every padded slot and of
+    unitig_id and pos over every lane of a ``get_ref_pos_padded`` result
+    (``bench.py``'s full-mode checksum)."""
+    return out["ref_pos"].sum() + out["ref_id"].sum() + out["unitig_id"].sum() + out["pos"].sum()
+
+
+def checksum_padded_rolled(index: QueryIndex, work: torch.Tensor, n_chunks: int) -> int:
+    """One pass of ``n_chunks`` chunks ``roll(work, i * ROLL_STEP)`` through
+    ``get_ref_pos_padded`` on the index's device, one host sync at the end.
+    A lane's outputs depend on its word alone, so the pass checksum equals
+    ``n_chunks`` times ``padded_checksum`` of ``work``'s result."""
+    arrays = index.arrays()
+    tot = 0
+    for i in range(int(n_chunks)):
+        out = get_ref_pos_padded(arrays, torch.roll(work, i * ROLL_STEP), index.max_occs)
+        tot = tot + padded_checksum(out)
+    return int(tot)

@@ -1,5 +1,5 @@
 """Spectrum-preserving tiling: reference occurrences of each unitig (host;
-counterpart of ``mazu_tpu.index.spt:28-41,104-112``)."""
+counterpart of ``mazu_tpu.index.spt:28-41,99-112``)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,9 @@ import numpy as np
 
 from ..bits.intvector import IntVector
 from ..containers.unitig_set import UnitigSet
-from .unitig_table import PiscemUnitigTable, encode_piscem, required_num_bits
+from .unitig_table import (
+    DenseUnitigTable, PiscemUnitigTable, encode_pf1, encode_piscem, required_num_bits,
+)
 
 
 class SPT:
@@ -28,6 +30,11 @@ class SPT:
     @property
     def num_refs(self) -> int:
         return len(self.ref_lens)
+
+    def dense_table(self) -> DenseUnitigTable:
+        """pf1-encoded u64 occurrence table (pufferfish's dense index)."""
+        ctable = encode_pf1(self.occ_ref, self.occ_pos, self.occ_o)
+        return DenseUnitigTable(ctable, self.offsets, self.ref_names)
 
     def piscem_table(self) -> PiscemUnitigTable:
         """Minimal-width packed occurrence table."""

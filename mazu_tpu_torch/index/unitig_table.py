@@ -6,8 +6,10 @@ Encodings (same words as the reference package):
 - piscem: ``ref_id << ref_shift | pos << 1 | is_fw`` at minimal widths
 
 ``ctable`` holds the encoded occurrences grouped by unitig and ``offsets``
-the int64 prefix per unitig. The host table and its encoder are NumPy; the
-decoders and ``fetch_occ_block`` are torch on int64 bit patterns.
+the int64 prefix per unitig: ``DenseUnitigTable`` (pf1 words, pufferfish's
+table) or ``PiscemUnitigTable`` (packed). The host tables and encoders are
+NumPy; the decoders and ``fetch_occ_block`` are torch on int64 bit
+patterns.
 """
 
 from __future__ import annotations
@@ -16,10 +18,15 @@ import numpy as np
 import torch
 
 from .._words import M32, mask32, srl
-from ..bits.intvector import IntVector
+from ..bits.intvector import IntVector, iv_get
 from ..pytree import meta
 
 U64 = np.uint64
+
+
+def encode_pf1(ref_id, pos, o) -> np.ndarray:
+    word = np.asarray(pos, dtype=np.uint64) | (np.asarray(o, dtype=np.uint64) << U64(31))
+    return (word << U64(32)) | np.asarray(ref_id, dtype=np.uint64)
 
 
 def required_num_bits(longest_ref: int, num_refs: int) -> tuple[int, int, int]:
@@ -51,6 +58,40 @@ def decode_pf1(word: torch.Tensor):
     return word & M32, posw & 0x7FFFFFFF, (srl(posw, 31) & 1).to(torch.int32)
 
 
+def _pair_rows(words: np.ndarray) -> np.ndarray:
+    """``ctable2[i]`` = (word i, word i+1) as four u32: one row per pair of
+    occurrences on the query path."""
+    c = np.concatenate([np.asarray(words, dtype=np.uint64), np.zeros(1, dtype=np.uint64)])
+    pair = np.ascontiguousarray(np.stack([c[:-1], c[1:]], axis=1))
+    return pair.view(np.uint32).reshape(len(c) - 1, 4)
+
+
+class DenseUnitigTable:
+    """u64 occurrence table in the pf1 encoding (host), as pufferfish
+    indexes store it."""
+
+    def __init__(self, ctable: np.ndarray, offsets: np.ndarray, ref_names=None, ref_exts=None):
+        self.ctable = np.asarray(ctable, dtype=np.uint64)
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.ref_names = ref_names or []
+        self.ref_exts = ref_exts
+
+    @property
+    def n_unitigs(self) -> int:
+        return len(self.offsets) - 1
+
+    def max_occs(self) -> int:
+        return int(np.max(np.diff(self.offsets))) if self.n_unitigs else 0
+
+    def device_arrays(self) -> dict:
+        return {
+            "ctable": self.ctable,
+            "offsets": self.offsets,
+            "meta": meta(enc="pf1", n_occs=len(self.ctable)),
+            "ctable2": _pair_rows(self.ctable),
+        }
+
+
 class PiscemUnitigTable:
     """Packed minimal-width occurrence table (host)."""
 
@@ -69,10 +110,6 @@ class PiscemUnitigTable:
         return int(np.max(np.diff(self.offsets))) if self.n_unitigs else 0
 
     def device_arrays(self) -> dict:
-        # ctable2[i] = (word i, word i+1) as four u32: one row per pair of
-        # occurrences on the query path
-        c = np.concatenate([self.ctable.to_array(), np.zeros(1, dtype=np.uint64)])
-        pair = np.ascontiguousarray(np.stack([c[:-1], c[1:]], axis=1))
         return {
             "ctable": self.ctable.device_arrays(),
             "offsets": self.offsets,
@@ -82,7 +119,7 @@ class PiscemUnitigTable:
                 pos_mask=self.pos_mask,
                 n_occs=len(self.ctable),
             ),
-            "ctable2": pair.view(np.uint32).reshape(len(c) - 1, 4),
+            "ctable2": _pair_rows(self.ctable.to_array()),
         }
 
 
@@ -93,6 +130,16 @@ def decode_words(u2pos: dict, words: torch.Tensor):
         return decode_pf1(words)
     if m.enc == "piscem":
         return decode_piscem(words, m.ref_shift, m.pos_mask)
+    raise ValueError(m.enc)
+
+
+def decode_occs(u2pos: dict, occ_idx: torch.Tensor):
+    """Decode the occurrences at flat table indices ``occ_idx``."""
+    m = u2pos["meta"]
+    if m.enc == "pf1":
+        return decode_pf1(u2pos["ctable"][occ_idx])
+    if m.enc == "piscem":
+        return decode_piscem(iv_get(u2pos["ctable"], occ_idx), m.ref_shift, m.pos_mask)
     raise ValueError(m.enc)
 
 

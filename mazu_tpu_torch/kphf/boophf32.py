@@ -159,11 +159,13 @@ class BooPHF32:
         fh_vals = (np.arange(len(rem)) + offset).astype(np.uint32)
         return cls(n, offset, out_levels, fh_keys, fh_vals, gamma)
 
-    def lookup(self, keys: np.ndarray, device="cpu", chunk: int = LOOKUP_CHUNK) -> np.ndarray:
+    def lookup(self, keys: np.ndarray, device=None, chunk: int = LOOKUP_CHUNK) -> np.ndarray:
         """int32 values of ``keys`` (-1 for a definite miss): the torch
-        ``boophf32_lookup`` on ``device``, ``chunk`` keys at a time."""
-        from ..convert import arrays_from_numpy
+        ``boophf32_lookup`` on ``device`` (the card by default),
+        ``chunk`` keys at a time."""
+        from ..convert import arrays_from_numpy, resolve_device
 
+        device = resolve_device(device)
         d = arrays_from_numpy(self.device_arrays(), device)
         keys = np.ascontiguousarray(keys, dtype=np.uint64).view(np.int64)
         out = np.empty(len(keys), dtype=np.int32)

@@ -42,6 +42,7 @@ from ..containers.unitig_set import (
 )
 from ..kmer import canonical_minimizer_batch, mask2k, revcomp, revcomp_np, word_equivalency
 from ..pytree import meta
+from .boophf import boophf_lookup
 from .boophf32 import (
     BooPHF32, boophf32_lookup, fold_hash32, fold_hash32_np, fold_hash32b, fold_hash32b_np,
     mix32_np,
@@ -145,19 +146,24 @@ class SSHash:
     def from_unitig_set(cls, unitigs, w: int, skew_param: int | None = 64, seed: int = 0,
                         gamma: float = 1.7, chunk: int = 1 << 20, engine: str = "direct",
                         bucket_load: float = 0.5, skew_bound_target: int = 4,
-                        device="cpu") -> "SSHash":
+                        device=None) -> "SSHash":
         """Build with the direct engine (the minimizer -> bucket map is
         ``fold_hash32(mm) & (T-1)``, T the power of two near
         ``n_minimizers / bucket_load``; minimizers that collide share a
         bucket and verification rejects the foreign positions; the k-mers
         around the occurrences of buckets deeper than ``skew_param`` go to
-        the skew table) or the fast32 engine (``_from_unitig_set_fast32``)."""
+        the skew table) or the fast32 engine (``_from_unitig_set_fast32``).
+        The minimizer scan (and fast32's MPHF lookups) run on ``device``,
+        the card by default."""
+        from ..convert import resolve_device
+
         if w > unitigs.k:
             raise ValueError(f"w={w} > k={unitigs.k}")
+        if engine not in ("direct", "fast32"):
+            raise ValueError(f"the port has no {engine!r} SSHash engine yet")
+        device = resolve_device(device)
         if engine == "fast32":
             return cls._from_unitig_set_fast32(unitigs, w, skew_param, seed, gamma, chunk, device)
-        if engine != "direct":
-            raise ValueError(f"the port has no {engine!r} SSHash engine yet")
         k = unitigs.k
         skew_param = 8 if skew_param is None else int(skew_param)
         mm_set, mm_occs, ranges_start, mps = cls._collect_minimizer_occs(
@@ -489,13 +495,21 @@ def _take(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def mphf_lookup(d: dict, keys: torch.Tensor, level_limit: int | None = None):
-    """Values of ``keys`` under a minimizer or skew MPHF (BooPHF32 only);
-    with ``level_limit``, ``(values, unresolved)`` (see
-    ``boophf32.boophf32_lookup``)."""
-    if getattr(d["meta"], "kind", None) != "boophf32":
-        raise ValueError("the port's MPHF lookup covers BooPHF32; the 64-bit BooPHF is not "
-                         "ported yet")
-    return boophf32_lookup(d, keys, level_limit=level_limit)
+    """Values of ``keys`` under an MPHF: BooPHF32 (meta kind ``boophf32``)
+    or the 64-bit BooPHF (kind ``boophf``, or no kind: the reference's
+    meta record carries none). With ``level_limit``, ``(values,
+    unresolved)``: BooPHF32 truncates its chain (see
+    ``boophf32.boophf32_lookup``); the 64-bit chain always runs in full,
+    so nothing is left unresolved."""
+    kind = getattr(d["meta"], "kind", "boophf")
+    if kind == "boophf32":
+        return boophf32_lookup(d, keys, level_limit=level_limit)
+    if kind != "boophf":
+        raise ValueError(f"no MPHF lookup for kind {kind!r}")
+    res = boophf_lookup(d, keys)
+    if level_limit is not None:
+        return res, torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    return res
 
 
 def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int | None = None,

@@ -8,11 +8,13 @@ window record) carries, and queries on it take a compacted phase.
 Occurrence positions lie inside the reference lengths, so the packed
 occurrence words stay below 2^32 and a KCDict keeps its occ32 layout.
 
-Three indexes: ``build_index``, the mono2-occ32 KCDict of the speed tier;
+Five indexes: ``build_index``, the mono2-occ32 KCDict of the speed tier;
 ``build_capacity_index``, the SSHash direct engine of the capacity tier
-(w=15, skew 64, load 0.5, as the reference's 300 Mbp capacity build); and
+(w=15, skew 64, load 0.5, as the reference's 300 Mbp capacity build);
 ``build_mphf_index``, the SSHash fast32 engine of the MPHF capacity tier
-(w=19, skew 64, gamma 1.7, as the reference's human-scale build). A random
+(w=19, skew 64, gamma 1.7, as the reference's human-scale build); and
+``build_pf1_dense_index``/``build_pf1_sparse_index``, pufferfish's dense
+and sparse dictionaries over the speed tier's genome. A random
 genome has no bucket deeper than the skew threshold, so the capacity
 genomes plant one w-mer that the mix32 ordering ranks low at
 ``HEAVY_SITES`` places: its bucket is a skew bucket, as repeats make them
@@ -31,6 +33,8 @@ from .index.spt import SPT
 from .kmer import revcomp_np
 from .kphf.boophf32 import mix32_np
 from .kphf.kcdict import KCDict
+from .kphf.pfhash import PFHash
+from .kphf.sampled import SampledPFHash
 from .kphf.sshash import SSHash
 
 K = 31
@@ -56,6 +60,11 @@ MPHF_W = 19
 MPHF_GAMMA = 1.7
 MPHF_LAYOUT = dict(prefix_kind="grouped16", pos_kind="packed", uproj=True)
 MPHF_QUERY = dict(probe_limit=2, defer_valid=True, mphf_level_limit=4, probe_limit2=4)
+
+# the pufferfish indexes: pufferfish's defaults
+PF1_GAMMA = 1.7
+PF1_SAMPLE = 9
+PF1_EXTENSION = 4
 
 
 def _plant(codes: np.ndarray, rng, w: int, sites: int, tag: bool = False) -> None:
@@ -84,9 +93,16 @@ def _plant(codes: np.ndarray, rng, w: int, sites: int, tag: bool = False) -> Non
 
 def build_synthetic(n_bases: int, seed: int = 0, heavy_sites: int = 0, w: int = CAP_W,
                     tag_sites: bool = False):
-    """(UnitigSet, RefSeqCollection, PiscemUnitigTable) of a random genome,
-    with one low-ranked w-mer planted at ``heavy_sites`` places (tagged
-    with their numbers with ``tag_sites``; see ``_plant``)."""
+    """(UnitigSet, RefSeqCollection, PiscemUnitigTable) of ``synthetic_spt``."""
+    unitigs, refs, spt = synthetic_spt(n_bases, seed, heavy_sites, w, tag_sites)
+    return unitigs, refs, spt.piscem_table()
+
+
+def synthetic_spt(n_bases: int, seed: int = 0, heavy_sites: int = 0, w: int = CAP_W,
+                  tag_sites: bool = False):
+    """(UnitigSet, RefSeqCollection, SPT) of a random genome, with one
+    low-ranked w-mer planted at ``heavy_sites`` places (tagged with their
+    numbers with ``tag_sites``; see ``_plant``)."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, n_bases, dtype=np.uint8)
     if heavy_sites:
@@ -110,20 +126,44 @@ def build_synthetic(n_bases: int, seed: int = 0, heavy_sites: int = 0, w: int = 
         np.concatenate([np.ones(n, dtype=np.int64), j]),
         np.full(n, PIECE, dtype=np.int64),
     )
-    return unitigs, RefSeqCollection(sv, accum, names), spt.piscem_table()
+    return unitigs, RefSeqCollection(sv, accum, names), spt
 
 
-def build_index(n_bases: int, seed: int = 0) -> ModIndex:
-    """The mono2-occ32 KCDict index over ``build_synthetic``."""
-    unitigs, refs, u2pos = build_synthetic(n_bases, seed)
+def build_index(n_bases: int, seed: int = 0, genome=None) -> ModIndex:
+    """The mono2-occ32 KCDict index over ``synthetic_spt`` (or ``genome``,
+    that function's result for these arguments)."""
+    unitigs, refs, spt = genome or synthetic_spt(n_bases, seed)
+    u2pos = spt.piscem_table()
     k2u = KCDict.from_unitig_set(unitigs, u2pos, load=LOAD)
     return ModIndex(k2u, u2pos, refs, index_type="Piscem-synth")
 
 
-def build_capacity_index(n_bases: int, seed: int = 0, device="cpu", chunk: int = 1 << 22,
+def build_pf1_dense_index(n_bases: int, seed: int = 0, device=None, genome=None) -> ModIndex:
+    """Pufferfish's dense index (PFHash: a 64-bit BooPHF over every
+    canonical k-mer, gamma 1.7, and their positions) over the genome of
+    ``build_index``, with the pf1 occurrence table. The MPHF lookup of
+    every k-mer runs on ``device``, the card by default."""
+    unitigs, refs, spt = genome or synthetic_spt(n_bases, seed)
+    k2u = PFHash.from_unitig_set(unitigs, gamma=PF1_GAMMA, device=device)
+    return ModIndex(k2u, spt.dense_table(), refs, index_type="PF1Dense-synth")
+
+
+def build_pf1_sparse_index(n_bases: int, seed: int = 0, device=None, genome=None) -> ModIndex:
+    """Pufferfish's sparse index (SampledPFHash: sample 9, extension 4,
+    gamma 1.7) over the genome of ``build_index``, with the pf1
+    occurrence table; the MPHF lookup runs on ``device``."""
+    unitigs, refs, spt = genome or synthetic_spt(n_bases, seed)
+    k2u = SampledPFHash.from_unitig_set(unitigs, sample_size=PF1_SAMPLE,
+                                        extension_size=PF1_EXTENSION, gamma=PF1_GAMMA,
+                                        device=device)
+    return ModIndex(k2u, spt.dense_table(), refs, index_type="PF1Sparse-synth")
+
+
+def build_capacity_index(n_bases: int, seed: int = 0, device=None, chunk: int = 1 << 22,
                          heavy_sites: int = HEAVY_SITES) -> ModIndex:
     """The direct-engine SSHash index over ``build_synthetic`` with a planted
-    skew bucket; its minimizer scan runs on ``device``. Its query arrays
+    skew bucket; its minimizer scan runs on ``device`` (the card by
+    default). Its query arrays
     are ``index.device_arrays(**CAPACITY_LAYOUT)``."""
     unitigs, refs, u2pos = build_synthetic(n_bases, seed, heavy_sites=heavy_sites)
     k2u = SSHash.from_unitig_set(unitigs, w=CAP_W, skew_param=CAP_SKEW, bucket_load=CAP_LOAD,
@@ -131,12 +171,12 @@ def build_capacity_index(n_bases: int, seed: int = 0, device="cpu", chunk: int =
     return ModIndex(k2u, u2pos, refs, index_type="Piscem-synth")
 
 
-def build_mphf_index(n_bases: int, seed: int = 0, device="cpu", chunk: int = 1 << 22,
+def build_mphf_index(n_bases: int, seed: int = 0, device=None, chunk: int = 1 << 22,
                      heavy_sites: int = HEAVY_SITES) -> ModIndex:
     """The fast32 SSHash index over ``build_synthetic`` with a planted,
     tagged 19-mer: one minimizer with about ``heavy_sites`` occurrences, a
     skew minimizer. Its minimizer scan and the MPHF lookup of every minimizer
-    run on ``device``. Its query arrays are
+    run on ``device`` (the card by default). Its query arrays are
     ``index.device_arrays(**MPHF_LAYOUT)``."""
     unitigs, refs, u2pos = build_synthetic(n_bases, seed, heavy_sites=heavy_sites, w=MPHF_W,
                                            tag_sites=True)
@@ -177,6 +217,13 @@ def sample_queries(unitigs: UnitigSet, n: int, seed: int) -> np.ndarray:
     """uint64 k-mer words: uniform (unitig, offset) samples over the whole
     index, a ``RC_SHARE`` reverse-complemented, and a ``FOREIGN_SHARE``
     replaced by random 62-bit words (misses)."""
+    return sample_queries_truth(unitigs, n, seed)[0]
+
+
+def sample_queries_truth(unitigs: UnitigSet, n: int, seed: int):
+    """(words, uid, offset, foreign): ``sample_queries``'s words with each
+    lane's sampled unitig and offset, and whether it was replaced by a
+    foreign word."""
     rng = np.random.default_rng(seed)
     k = unitigs.k
     uid = rng.integers(0, unitigs.n_unitigs, n)
@@ -186,4 +233,4 @@ def sample_queries(unitigs: UnitigSet, n: int, seed: int) -> np.ndarray:
     words[flip] = revcomp_np(words[flip], k)
     foreign = rng.random(n) < FOREIGN_SHARE
     words[foreign] = rng.integers(0, 1 << 62, int(foreign.sum()), dtype=np.uint64)
-    return words
+    return words, uid, off, foreign

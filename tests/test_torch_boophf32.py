@@ -76,7 +76,7 @@ def test_build_device_arrays(tables):
 
 def test_host_lookup_is_a_bijection(tables):
     name, keys, ref, port = tables
-    got = port.lookup(keys, chunk=1000)
+    got = port.lookup(keys, device="cpu", chunk=1000)
     np.testing.assert_array_equal(got, ref.lookup(keys).astype(np.int32))
     assert sorted(got.tolist()) == list(range(len(keys)))
 
@@ -117,7 +117,19 @@ def test_lookup_takes_no_mrows(tables):
 
 
 def test_mphf_lookup_refuses_the_64bit_booPHF():
+    """``mphf_lookup`` dispatches the 64-bit BooPHF (its chain always runs
+    in full: a level limit leaves nothing unresolved) and refuses only an
+    MPHF kind it does not know."""
+    from mazu_tpu.kphf.boophf import BooPHF as MBooPHF, boophf_lookup as mlookup
     from mazu_tpu_torch.pytree import meta
 
-    with pytest.raises(ValueError, match="64-bit BooPHF"):
-        mphf_lookup({"meta": meta(kind="boophf")}, torch.zeros(1, dtype=torch.int64))
+    keys = np.random.default_rng(4).integers(0, 1 << 64, 300, dtype=np.uint64)
+    host = MBooPHF.build(keys).device_arrays()
+    d = arrays_from_numpy(host, "cpu")
+    want = mlookup(host, keys, np)
+    np.testing.assert_array_equal(mphf_lookup(d, tensor(keys)).numpy(), want)
+    got, unresolved = mphf_lookup(d, tensor(keys), level_limit=2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not bool(unresolved.any())
+    with pytest.raises(ValueError, match="no MPHF lookup"):
+        mphf_lookup({"meta": meta(kind="wyhash")}, torch.zeros(1, dtype=torch.int64))

@@ -146,7 +146,8 @@ def test_onegraph_m2b_exceeded_raises(case):
 
 @pytest.fixture(scope="module")
 def synth_case():
-    index = synth.build_capacity_index(60 * synth.PIECE, seed=0, heavy_sites=512)
+    index = synth.build_capacity_index(60 * synth.PIECE, seed=0, heavy_sites=512,
+                                       device="cpu")
     host = index.device_arrays(**synth.CAPACITY_LAYOUT)
     return index, QueryIndex(arrays_from_numpy(host, "cpu"))
 

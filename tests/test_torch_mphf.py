@@ -354,7 +354,7 @@ def test_onegraph_checksum(case):
 
 @pytest.fixture(scope="module")
 def synth_case():
-    index = synth.build_mphf_index(60 * synth.PIECE, seed=0, heavy_sites=512)
+    index = synth.build_mphf_index(60 * synth.PIECE, seed=0, heavy_sites=512, device="cpu")
     host = index.device_arrays(**synth.MPHF_LAYOUT)
     return index, QueryIndex(arrays_from_numpy(host, "cpu"))
 

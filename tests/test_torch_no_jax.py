@@ -1,6 +1,7 @@
 """The port runs where there is no JAX: every module imports, and tiny
-indexes (the mono2 KCDict, the SSHash capacity tier and the MPHF capacity
-tier) answer queries, with ``jax`` blocked from importing."""
+indexes (the mono2 KCDict, the SSHash capacity tier, the MPHF capacity
+tier and the pufferfish dense and sparse indexes) answer queries and a lab
+kernel's plain version runs, with ``jax`` blocked from importing."""
 
 import os
 import pkgutil
@@ -33,7 +34,7 @@ assert not bool(out["over_budget"]) and (out["mt"] > 0).any()
 chk, worst = OneGraphIndexQuery(qi, 512, n_chunks=2, m2=512).checksum_pass_rolled(q)
 assert chk > 0
 
-cap = synth.build_capacity_index(8 * synth.PIECE, heavy_sites=128)
+cap = synth.build_capacity_index(8 * synth.PIECE, heavy_sites=128, device="cpu")
 cq = QueryIndex(arrays_from_numpy(cap.device_arrays(**synth.CAPACITY_LAYOUT), "cpu"))
 words, uid, upos = synth.sample_capacity_queries(cap.k2u.unitigs, 512, seed=1)
 out = get_ref_pos_compact(cq.arrays(), torch.from_numpy(words.view(np.int64)), cq.max_occs,
@@ -42,13 +43,25 @@ out = get_ref_pos_compact(cq.arrays(), torch.from_numpy(words.view(np.int64)), c
 assert not bool(out["over_budget"]) and bool((out["mt"] > 0).all())
 assert (out["unitig_id"].numpy() == uid).all() and (out["pos"].numpy() == upos).all()
 
-mp = synth.build_mphf_index(8 * synth.PIECE, heavy_sites=128)
+mp = synth.build_mphf_index(8 * synth.PIECE, heavy_sites=128, device="cpu")
 mq = QueryIndex(arrays_from_numpy(mp.device_arrays(**synth.MPHF_LAYOUT), "cpu"))
 words, uid, upos = synth.sample_capacity_queries(mp.k2u.unitigs, 512, seed=2)
 out = get_ref_pos_compact(mq.arrays(), torch.from_numpy(words.view(np.int64)), mq.max_occs,
                           merge=True, m2=512, m2b=512, m2c=512, **synth.MPHF_QUERY)
 assert not bool(out["over_budget"]) and bool((out["mt"] > 0).all())
 assert (out["unitig_id"].numpy() == uid).all() and (out["pos"].numpy() == upos).all()
+
+from mazu_tpu_torch.index.modindex import get_ref_pos_padded
+from mazu_tpu_torch.ops import gather_lab
+genome = synth.synthetic_spt(4 * synth.PIECE)
+words, uid, off, foreign = synth.sample_queries_truth(genome[0], 512, seed=3)
+for build in (synth.build_pf1_dense_index, synth.build_pf1_sparse_index):
+    pq = QueryIndex(arrays_from_numpy(build(0, device="cpu", genome=genome).device_arrays(), "cpu"))
+    out = get_ref_pos_padded(pq.arrays(), torch.from_numpy(words.view(np.int64)), pq.max_occs)
+    assert ((out["mt"] > 0).numpy() == ~foreign).all()
+    assert (out["unitig_id"].numpy()[~foreign] == uid[~foreign]).all()
+idx = torch.arange(64, dtype=torch.int32) % 16
+assert gather_lab.xor_rows(idx, torch.ones(16, 128, dtype=torch.int32)).eq(0).all()
 leaked = sorted(m for m in sys.modules if m == "mazu_tpu" or m.startswith("mazu_tpu."))
 assert not leaked, leaked
 print("OK", len(mods))
@@ -73,6 +86,9 @@ def test_port_imports_and_queries_without_jax():
     assert "mazu_tpu_torch.ops.mono2_probe" in mods and "mazu_tpu_torch.synth" in mods
     assert "mazu_tpu_torch.ops.bpos_probe" in mods and "mazu_tpu_torch.kphf.sshash" in mods
     assert "mazu_tpu_torch.ops.capacity_probe" in mods and "mazu_tpu_torch.kphf.boophf32" in mods
+    for name in ("hashes", "kphf.boophf", "kphf.pfhash", "kphf.sampled", "io.pf1",
+                 "io.pf1_index", "ops.gather_lab", "labs.gather_probe", "labs.dma_lab"):
+        assert f"mazu_tpu_torch.{name}" in mods, name
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, *mods], capture_output=True, text=True,
         timeout=300, cwd=ROOT, env=_env(),

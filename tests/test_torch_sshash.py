@@ -185,4 +185,4 @@ def test_port_layouts_not_ported_raise(pair):
     with pytest.raises(ValueError, match="the port has no"):
         port.k2u.device_arrays(prefix_kind="grouped16", pos_kind="inline")
     with pytest.raises(ValueError, match="the port has no"):
-        psshash.SSHash.from_unitig_set(port.k2u.unitigs, 15, engine="parity")
+        psshash.SSHash.from_unitig_set(port.k2u.unitigs, 15, engine="parity", device="cpu")

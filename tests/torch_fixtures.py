@@ -5,6 +5,9 @@ helpers to compare their outputs exactly."""
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import struct
 
 import numpy as np
 import torch
@@ -102,7 +105,7 @@ def build_capacity_pair(recipe, w: int = 15, skew: int = 8):
 
     pus = UnitigSet.from_seqs(seqs, k)
     pu2 = SPT(pus, names, *occ, ref_lens).piscem_table()
-    pss = SSHash.from_unitig_set(pus, w, skew_param=skew, bucket_load=0.5)
+    pss = SSHash.from_unitig_set(pus, w, skew_param=skew, bucket_load=0.5, device="cpu")
     port = ModIndex(pss, pu2, RefSeqCollection.from_lens(ref_lens, names), index_type="t")
     return ref, port
 
@@ -134,9 +137,49 @@ def build_mphf_pair(recipe, w: int = 15, skew: int | None = 8):
 
     pus = UnitigSet.from_seqs(seqs, k)
     pu2 = SPT(pus, names, *occ, ref_lens).piscem_table()
-    pss = SSHash.from_unitig_set(pus, w, skew_param=skew, engine="fast32", gamma=1.7)
+    pss = SSHash.from_unitig_set(pus, w, skew_param=skew, engine="fast32", gamma=1.7,
+                                 device="cpu")
     port = ModIndex(pss, pu2, RefSeqCollection.from_lens(ref_lens, names), index_type="t")
     return ref, port
+
+
+def build_pf1_pair(recipe):
+    """((mazu_tpu dense, port dense), (mazu_tpu sparse, port sparse))
+    ModIndexes of one recipe: pufferfish's PFHash and SampledPFHash
+    (sample 9, extension 4; both over a 64-bit BooPHF, gamma 1.7) over the
+    pf1-encoded ``DenseUnitigTable``."""
+    from mazu_tpu.containers.refseq import RefSeqCollection as MRefs
+    from mazu_tpu.containers.unitig_set import UnitigSet as MUnitigs
+    from mazu_tpu.index.modindex import ModIndex as MModIndex
+    from mazu_tpu.index.spt import SPT as MSPT
+    from mazu_tpu.kphf.pfhash import PFHash as MPFHash
+    from mazu_tpu.kphf.sampled import SampledPFHash as MSampled
+
+    from mazu_tpu_torch.containers.refseq import RefSeqCollection
+    from mazu_tpu_torch.containers.unitig_set import UnitigSet
+    from mazu_tpu_torch.index.modindex import ModIndex
+    from mazu_tpu_torch.index.spt import SPT
+    from mazu_tpu_torch.kphf.pfhash import PFHash
+    from mazu_tpu_torch.kphf.sampled import SampledPFHash
+
+    seqs, k, occ, ref_lens = recipe
+    names = [f"r{i}" for i in range(len(ref_lens))]
+
+    mus = MUnitigs.from_seqs(seqs, k)
+    mu2 = MSPT(mus, names, *occ, ref_lens).dense_table()
+    mrefs = MRefs.from_lens(ref_lens, names)
+    pus = UnitigSet.from_seqs(seqs, k)
+    pu2 = SPT(pus, names, *occ, ref_lens).dense_table()
+    prefs = RefSeqCollection.from_lens(ref_lens, names)
+    dense = (
+        MModIndex(MPFHash.from_unitig_set(mus), mu2, mrefs, index_type="t"),
+        ModIndex(PFHash.from_unitig_set(pus, device="cpu"), pu2, prefs, index_type="t"),
+    )
+    sparse = (
+        MModIndex(MSampled.from_unitig_set(mus), mu2, mrefs, index_type="t"),
+        ModIndex(SampledPFHash.from_unitig_set(pus, device="cpu"), pu2, prefs, index_type="t"),
+    )
+    return dense, sparse
 
 
 def capacity_queries(unitigs, n: int, seed: int, miss: float = 0.1) -> np.ndarray:
@@ -200,3 +243,73 @@ def assert_same(got: torch.Tensor, want, what: str = ""):
         g = g.view(want.dtype)
     assert g.dtype == want.dtype, f"{what}: dtype {g.dtype} != {want.dtype}"
     np.testing.assert_array_equal(g, want, err_msg=what)
+
+
+# ---------------------------------------------------------------- pf1 files
+
+
+def write_boophf(path, ref, extra_word: bool = True):
+    """A BooPHF (either package's) in pufferfish's BooPHF.hpp layout; C++
+    stores n_bits/64 + 1 words a level, so a spare zero word follows each
+    level's words."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<d", ref.gamma))
+        f.write(struct.pack("<i", len(ref.levels)))
+        f.write(struct.pack("<QQ", ref.last_bitset_rank, ref.n_elem))
+        for n_bits, words, ranks in ref.levels:
+            w = np.concatenate([words, np.zeros(int(extra_word), np.uint64)]).astype("<u8")
+            f.write(struct.pack("<QQ", n_bits, len(w)) + w.tobytes())
+            f.write(struct.pack("<Q", len(ranks)) + np.asarray(ranks, "<u8").tobytes())
+        f.write(struct.pack("<Q", len(ref.fh_keys)))
+        for key, v in zip(ref.fh_keys, ref.fh_vals):
+            f.write(struct.pack("<QQ", int(key), int(v) - ref.last_bitset_rank))
+
+
+def write_compact(path, words, length: int, width: int):
+    """An sdsl compact int vector: static flag, width, length, capacity (in
+    bits), then the packed words."""
+    nw = (length * width + 63) // 64
+    with open(path, "wb") as f:
+        f.write(struct.pack("<QQQQ", 0, width, length, nw * 64))
+        f.write(np.asarray(words[:nw], dtype="<u8").tobytes())
+
+
+def write_pf1_index(dirname, index, ref_lens):
+    """The files a pufferfish dense (PFHash) or sparse (SampledPFHash)
+    index directory holds, from a port-built ModIndex over a
+    ``DenseUnitigTable``."""
+    from mazu_tpu_torch.bits.intvector import IntVector
+
+    k2u, u2 = index.k2u, index.u2pos
+    us = k2u.unitigs
+    p = lambda name: os.path.join(dirname, name)  # noqa: E731
+    sparse = hasattr(k2u, "sampled_vec")
+    info = {"k": us.k, "sampling_type": "sparse" if sparse else "dense"}
+    if sparse:
+        info.update(sample_size=k2u.sample_size, extension_size=k2u.extension_size)
+    with open(p("info.json"), "w") as f:
+        json.dump(info, f)
+    write_compact(p("seq.bin"), us.useq.words, us.useq.length, 2)
+    write_compact(p("rank.bin"), us.bv.words, us.bv.n_bits, 1)
+    write_boophf(p("mphf.bin"), k2u.mphf)
+    ivs = {"ctg_offsets.bin": IntVector.from_array(u2.offsets.astype(np.uint64))}
+    if sparse:
+        ivs.update({"sample_pos.bin": k2u.sampled_pos, "extensionSize.bin": k2u.ext_sizes,
+                    "extension.bin": k2u.ext_bases})
+        for name, bv in (("presence.bin", k2u.sampled_vec), ("canonical.bin", k2u.canonical_vec),
+                         ("direction.bin", k2u.direction_vec)):
+            write_compact(p(name), bv.words, bv.n_bits, 1)
+    else:
+        ivs["pos.bin"] = k2u.pos
+    for name, iv in ivs.items():
+        write_compact(p(name), iv.words, iv.length, iv.width)
+    names = [f"r{i}" for i in range(len(ref_lens))]
+    with open(p("ctable.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(names)))
+        for nm in names:
+            f.write(struct.pack("<Q", len(nm)) + nm.encode())
+        f.write(struct.pack("<Q", len(names)) + np.zeros(len(names), "<u4").tobytes())
+        f.write(struct.pack("<Q", len(u2.ctable)) + u2.ctable.astype("<u8").tobytes())
+    with open(p("refAccumLengths.bin"), "wb") as f:
+        acc = np.cumsum(np.asarray(ref_lens, dtype=np.uint64))
+        f.write(struct.pack("<Q", len(acc)) + acc.astype("<u8").tobytes())
