@@ -14,6 +14,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``mazu_tpu_torch.labs.gather_probe`` and ``dma_lab``) as their main
    path; each kernel timed beside its plain version, its bound and the
    torch call that computes the same (``tbl[idx]``, ``index_select``);
+   then the card's random-read rates from device memory: L1 over a 1 GB
+   table of u32 (2^22 random 4-byte reads: sectors/s) and L5 over a 1 GB
+   table of 512-byte rows (2^18 random rows), both bit-identical to their
+   plain versions;
 4. the synthetic mono2-occ32 KCDict index (random genome, k=31, 10 kb
    unitigs, every 16th unitig with 3 occurrences, load 0.25), moved to the
    card;
@@ -41,7 +45,9 @@ Phases, each printing its own lines; any failure exits non-zero:
     rows and useqrec window records;
 11. K2 against its plain torch version on the card, all nine fields
     bit-identical: N=1, N=257 with a foreign word and a skew lane, probe
-    limits 1-3, then 2^20 queries; both timed;
+    limits 1-3, then 2^20 queries; then the adversarial batches of a tiled
+    kernel (``tile_cases``) at probe limits 1-3; both timed; its DRAM
+    sectors and sector floor;
 12. the capacity path: ``OneGraphIndexQuery.checksum_pass_rolled`` over 8
     rolled chunks of 2^20 queries at probe limit 2, middle phase 4; the
     port's plain path on CPU tensors gives chunk 0's oracle, which must hit
@@ -51,7 +57,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 14. K3 on the direct layout: phase 10's arrays on the card without bpos and
     useqrec, plus the per-unitig ``uproj`` records; against its plain
     torch version, all ten fields bit-identical, at probe limits 1-3 on
-    N=1, N=257 and 2^20; both timed;
+    N=1, N=257, 2^20 and phase 11's adversarial batches; both timed;
 15. the synthetic MPHF index: an SSHash fast32 engine (BooPHF32 minimizer
     MPHF, w=19, skew 64, gamma 1.7) over a random genome with a planted
     skew minimizer, its minimizer scan and MPHF lookup on the card;
@@ -59,7 +65,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 16. K3 against its plain version on the MPHF index, all ten fields
     bit-identical, at MPHF level limits None and 4 and probe limits 1-3:
     N=1, N=257 (a skew lane, a foreign word, all-T, k-mers read across
-    unitig boundaries) and 2^20; both timed, and K3 at other level limits;
+    unitig boundaries) and 2^20; then the adversarial batches, with a tile
+    that the one-level chain cannot place and the lanes that reach the
+    final-hash table, at level limits None, 4, 2 and 1; both timed, its L2 and
+    DRAM sectors and sector floor, and K3 at other level limits;
 17. the MPHF path: ``OneGraphIndexQuery.checksum_pass_rolled`` over 8
     rolled chunks of 2^20 queries at probe limit 2, level limit 4,
     deferred validation, middle phase 4, checked against a CPU oracle as
@@ -72,8 +81,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the bytes it must move (each input read once, only the rows a
 lane reads; each output written once) over 3.35 TB/s, or its integer
-operations over 67 T/s where that is larger. The last two lines are the
-kernels' JSON record and the result JSON. Imports nothing of JAX.
+operations over 67 T/s where that is larger. K2's and K3's
+``sector_floor_ms`` is the DRAM sectors their lanes touch over phase 3's
+random-sector rate. The last two lines are the kernels' JSON record and
+the result JSON. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -99,7 +110,7 @@ from mazu_tpu_torch.kmer import canonical_minimizer_batch, mask2k, revcomp, revc
 from mazu_tpu_torch.kphf.boophf import boophf_lookup
 from mazu_tpu_torch.kphf.boophf32 import chain_next, fold_hash32, key_fold32
 from mazu_tpu_torch.kphf.kcdict import kcdict_k2u
-from mazu_tpu_torch.kphf.sshash import _prefix_pair, mphf_lookup, sshash_k2u
+from mazu_tpu_torch.kphf.sshash import _pos_get, _prefix_pair, mphf_lookup, sshash_k2u
 from mazu_tpu_torch.labs import cuda_ms, dma_lab, gather_probe
 from mazu_tpu_torch.ops import bpos_probe, capacity_probe, gather_lab, mono2_probe
 from mazu_tpu_torch.ops.cuda_build import compile_all
@@ -130,14 +141,31 @@ def bound(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
 
 
 def record(name: str, source: str, replaces: str, launches: int, max_err: int, ms: float,
-           plain_ms: float, bound_ms: tuple[float, str], library_ms=None) -> dict:
-    """One kernel's entry of the kernels line."""
+           plain_ms: float, bound_ms: tuple[float, str], library_ms=None, **extra) -> dict:
+    """One kernel's entry of the kernels line (``extra``: K2's and K3's
+    ``sector_floor_ms``)."""
     return {
         "name": name, "route": "cuda", "source": f"mazu_tpu_torch/csrc/{source}",
         "replaces": replaces, "launches": launches, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
-        "library_ms": library_ms,
+        "library_ms": library_ms, **extra,
     }
+
+
+def distinct(ids: torch.Tensor) -> torch.Tensor:
+    """The distinct ids >= 0 in each row of ``ids`` [N, m] (-1 pads)."""
+    s = torch.sort(ids, dim=1).values
+    new = torch.ones_like(s, dtype=torch.bool)
+    new[:, 1:] = s[:, 1:] != s[:, :-1]
+    return ((s >= 0) & new).sum(dim=1)
+
+
+def sector_ids(lo: torch.Tensor, n_bytes: int, on: torch.Tensor, size: int = 32) -> list:
+    """Ids of the ``size``-byte sectors of the bytes [lo, lo + n_bytes), -1
+    where ``on`` is false or past the range's last sector."""
+    first, last = lo // size, (lo + n_bytes - 1) // size
+    return [torch.where(on & (first + t <= last), first + t, -1)
+            for t in range((n_bytes + 2 * size - 2) // size)]
 
 
 def compare_k2u(d: dict, fw: torch.Tensor, what: str, kernel=None, plain=None,
@@ -159,6 +187,38 @@ def compare_k2u(d: dict, fw: torch.Tensor, what: str, kernel=None, plain=None,
         err = max(err, diff)
         if not torch.equal(g, w):
             raise AssertionError(f"{what}: kernel and plain version differ in {key}")
+    return err
+
+
+def tile_cases(work: np.ndarray, skew: torch.Tensor, us, k: int, tile: int) -> dict:
+    """Adversarial batches for a tiled kernel (``tile`` lanes a block):
+    2^20 + 37 lanes; the tile size -1, exactly and +1; a tile of one key;
+    tiles of skew lanes only and of foreign k-mers only; and the 200
+    boundary k-mers (deferred winners that fail validation, K2's mt == 3
+    sentinel)."""
+    skew_words = work[torch.nonzero(skew)[:, 0].cpu().numpy()]
+    rng = np.random.default_rng(8)
+    return {
+        f"N={len(work)}+37": np.concatenate([work, work[:37]]),
+        f"N={tile - 1}": work[: tile - 1],
+        f"N={tile}": work[:tile],
+        f"N={tile + 1}": work[: tile + 1],
+        "one key": np.full(tile, work[0]),
+        "skew only": np.resize(skew_words, tile),
+        "foreign only": rng.integers(0, 1 << (2 * k), tile, dtype=np.uint64),
+        "200 boundary": synth.sample_boundary_queries(us, 200, seed=6),
+    }
+
+
+def compare_cases(tag: str, d: dict, cases: dict, runs, dev) -> int:
+    """Every case of ``cases`` through every (label, kernel, plain, fields)
+    of ``runs``, bit-identical; returns the max absolute difference (0)."""
+    err = 0
+    for name, words in cases.items():
+        fw = torch.from_numpy(np.ascontiguousarray(words).view(np.int64)).to(dev)
+        for label, kern, plain, fields in runs:
+            err = max(err, compare_k2u(d, fw, f"{tag} {name} {label}", kern, plain, fields))
+    log(f"[{tag}] {'; '.join(cases)} at {', '.join(r[0] for r in runs)}: bit-identical")
     return err
 
 
@@ -238,8 +298,8 @@ def main():
     for line in ptxas_lines(ptxas):
         log(f"[build] {line}")
 
-    # 3. the lab kernels
-    labs = lab_kernels(dev, smi, lib4.name, ptxas4)
+    # 3. the lab kernels, and the card's random-read rates from device memory
+    labs, sector_rate = lab_kernels(dev, smi, lib4.name, ptxas4)
 
     # 4. index
     t0 = time.perf_counter()
@@ -353,9 +413,9 @@ def main():
     for line in ptxas_lines(ptxas2):
         log(f"[k2 build] {line}")
 
-    k2, profile_cap = capacity(args, dev, smi, lib3.name, ptxas3)
+    k2, profile_cap = capacity(args, dev, smi, lib3.name, ptxas3, sector_rate)
     torch.cuda.empty_cache()
-    k3, profile_mphf = mphf(args, dev, smi)
+    k3, profile_mphf = mphf(args, dev, smi, sector_rate)
 
     # 18. profiled passes
     for profile in (*profile_pf1, profile_cap, profile_mphf):
@@ -387,15 +447,27 @@ def probed_rows(run, n_occs: torch.Tensor, skew: torch.Tensor, plim: int) -> tor
     return torch.where(skew, 0, rows)
 
 
-def k3_lane_bytes(k2u: dict, fw: torch.Tensor, plim: int, mlim: int) -> int:
-    """Bytes K3 must move on this batch, each read once and only what a
-    lane reads: its key; one u32 MPHF word per level tested up to the first
-    hit (at most ``mlim``); for a placed lane its block's u32 rank and the
-    words before the hit word in the block; for a placed lane that is not
-    skew, two u16 bucket deltas, one or two i64 group bases, and the
-    position bits and three useq words of each probed row; for a winner two
-    wb2 words and a count and its 40-byte uproj row; and 59 bytes of
-    outputs. A deferred winner that fails validation counts as a miss."""
+def k3_lane_cost(k2u: dict, fw: torch.Tensor, plim: int, mlim: int) -> tuple[int, int, int, int]:
+    """(bytes, L2 sectors, DRAM sectors, DRAM 64-byte blocks) that K3 must
+    move on this batch on the MPHF layout with a truncated chain.
+
+    Bytes, each read once and only what a lane reads: its key; one u32 MPHF
+    word per level tested up to the first hit (at most ``mlim``); for a
+    placed lane its block's u32 rank and the words before the hit word in
+    the block; for a placed lane that is not skew, two u16 bucket deltas,
+    one or two i64 group bases, and the position bits and three useq words
+    of each probed row; for a winner two wb2 words and a count and its
+    40-byte uproj row; and 59 bytes of outputs. A deferred winner that
+    fails validation counts as a miss.
+
+    Sectors: the distinct 32-byte sectors of those random reads (the key
+    and output streams are left out), split into the tables that stay in
+    the 50 MB L2 at 300 Mbp (the MPHF words and ranks, gbase, uproj: ~32
+    MB) and those that do not (gdelta, the packed positions, words2,
+    wb2); the DRAM reads also in distinct 64-byte blocks. Every placed
+    lane reads its bucket bounds, skew or not. Both next-row words (q2, the
+    next wb2 word) are counted: the kernel skips them where its masks
+    discard them, so it touches a little less."""
     m, mp = k2u["meta"], k2u["mphf"]
     mm = canonical_minimizer_batch(fw, m.k, m.w, m.seed)[0]
     mmeta = mp["meta"]
@@ -427,8 +499,67 @@ def k3_lane_bytes(k2u: dict, fw: torch.Tensor, plim: int, mlim: int) -> int:
     width = k2u["pos"]["meta"].width
     bucket = torch.where(placed & ~last["use_skew"],
                          4 + 8 * groups + (rows * width + 7) // 8 + 24 * rows, 0)
-    tail = torch.where(last["mt"] > 0, 24 + 40, 0)
-    return int((8 + 4 * levels + rank + bucket + tail + 59).sum())
+    hits = last["mt"] > 0
+    tail = torch.where(hits, 24 + 40, 0)
+    n_bytes = int((8 + 4 * levels + rank + bucket + tail + 59).sum())
+
+    # L2: a sector per tested level (the hit word's 32-byte block is its
+    # sector), the rank, the group bases, the uproj row
+    us = k2u["us"]
+    uid = last["unitig_id"]
+    l2 = (levels + placed.to(torch.int64)
+          + distinct(torch.stack(sector_ids(8 * (hc >> 10), 8, placed)
+                                 + sector_ids(8 * ((hc + 1) >> 10), 8, placed), 1))
+          + distinct(torch.stack(sector_ids(40 * uid, 40, hits), 1)))
+    # DRAM: the two deltas, the position words, each probed row's two
+    # words2 rows, the winner's two wb2 rows; in 32-byte sectors and in
+    # 64-byte blocks
+    lo_w = 8 * ((ps * width) >> 6)
+    hi_w = 8 * (((ps + rows) * width - 1) >> 6)
+    n_w2, n_wb = us["useq"]["words2"].shape[0], us["bv"]["wb2"].shape[0]
+    n_pos = int(k2u["pos"]["meta"].length)
+    w2_rows = []
+    for j in range(plim):
+        mm_pos = _pos_get(k2u, torch.clamp(ps + j, 0, n_pos - 1))
+        wi = (torch.clamp(mm_pos - (m.k - m.w), min=0) * 2) >> 6
+        w2_rows += [(torch.clamp(wi, max=n_w2 - 1), j < rows),
+                    (torch.clamp(wi + 1, max=n_w2 - 1), j < rows)]
+    bwi = (last["pos"] + us["uproj"][torch.clamp(uid, max=us["uproj"].shape[0] - 1), 0]) >> 6
+
+    def dram(size):
+        w2 = [i for r, on in w2_rows for i in sector_ids(16 * r, 16, on, size)]
+        return int((distinct(torch.stack(sector_ids(2 * hc, 4, placed, size), 1))
+                    + torch.where(rows > 0, hi_w // size - lo_w // size + 1, 0)
+                    + distinct(torch.stack(w2, 1))
+                    + distinct(torch.stack(
+                        sector_ids(16 * bwi, 16, hits, size)
+                        + sector_ids(16 * torch.clamp(bwi + 1, max=n_wb - 1), 16, hits, size), 1))
+                    ).sum())
+
+    return n_bytes, int(l2.sum()), dram(32), dram(64)
+
+
+def k2_dram_sectors(k2u: dict, fw: torch.Tensor, rows: torch.Tensor) -> tuple[int, int]:
+    """The distinct 32-byte sectors and 64-byte blocks of K2's random reads
+    on this batch, all from tables past the L2 (2.1 GB of bpos rows, 0.6
+    GB of padded records at 300 Mbp): each lane's 16-byte bpos row and the
+    56 bytes of each of its ``rows`` probed rows' records, which the
+    kernel reads from 64-byte rows (``bpos_probe.padded_records``; the key
+    and output streams are left out)."""
+    m = k2u["meta"]
+    mm = canonical_minimizer_batch(fw, m.k, m.w, m.seed)[0]
+    brow = mask32(k2u["bpos"][fold_hash32(mm) & (m.direct_t - 1)])
+    n_rec = k2u["us"]["useqrec"].shape[0]
+    lo = [(8 * bpos_probe.REC_WORDS
+           * torch.clamp((torch.clamp(brow[:, j] - (m.k - m.w), min=0) * 2) >> 6, max=n_rec - 1),
+           j < rows)
+          for j in range(int(rows.max()) if rows.numel() else 0)]
+
+    def count(size):
+        ids = [i for r, on in lo for i in sector_ids(r, 56, on, size)]
+        return fw.shape[0] + (int(distinct(torch.stack(ids, 1)).sum()) if ids else 0)
+
+    return count(32), count(64)
 
 
 def tree_bytes(d) -> int:
@@ -533,7 +664,44 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
             f"{lib_txt}, bound {bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
         out.append(record(name, "gather_lab.cu", replaces, launches[name], err[name], ms, plain_ms,
                           bnd, lib_ms))
-    return out
+    return out, dram_rates(dev, smi, same)
+
+
+DRAM_WORDS, DRAM_IDX = 1 << 28, 1 << 22  # L1: 2^22 random words of a 1 GB table
+DRAM_ROWS, DRAM_NR = 1 << 21, 1 << 18  # L5: 2^18 random rows of a 1 GB table of 512-byte rows
+
+
+def dram_rates(dev, smi, same) -> float:
+    """The card's random-read rates from device memory (phase 3): L1 over
+    a 1 GB table of u32 (each 4-byte read costs one 32-byte sector) and L5
+    over a 1 GB table of 512-byte rows, both far past the 50 MB L2 and
+    bit-identical to their plain versions. Returns the random-sector rate
+    (sectors/s) that the K2 and K3 sector floors use."""
+    g = gather_lab
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def rand(hi, shape):
+        return torch.randint(0, hi, shape, dtype=torch.int32, device=dev, generator=gen)
+
+    tbl, idx = rand(1 << 30, (DRAM_WORDS,)), rand(DRAM_WORDS, (DRAM_IDX,))
+    same("gather_u32", g.gather_u32(tbl, idx), g.gather_u32_plain(tbl, idx))
+    ms = cuda_ms(lambda: g.gather_u32(tbl, idx), 20)
+    sec_s = DRAM_IDX / ms * 1e3
+    log(f"[lab dram] L1 gather_u32, {DRAM_IDX} random 4-byte reads of a {4 * DRAM_WORDS >> 20} MB "
+        f"table: {ms:.4f} ms = {sec_s / 1e9:.3f} G sectors/s = {32 * sec_s / 1e9:.1f} GB/s of "
+        f"32-byte sectors ({4 * sec_s / 1e9:.1f} GB/s of words) ({smi})")
+    del tbl, idx
+    rows, idx = rand(1 << 30, (DRAM_ROWS, g.ROW)), rand(DRAM_ROWS, (DRAM_NR,))
+    same("gather_rows", g.gather_rows(idx, rows), g.gather_rows_plain(idx, rows))
+    ms = cuda_ms(lambda: g.gather_rows(idx, rows), 20)
+    row_s = DRAM_NR / ms * 1e3
+    log(f"[lab dram] L5 gather_rows, {DRAM_NR} random 512-byte rows of a "
+        f"{4 * g.ROW * DRAM_ROWS >> 20} MB table: {ms:.4f} ms = {row_s / 1e6:.1f} M rows/s = "
+        f"{16 * row_s / 1e9:.3f} G sectors/s = {512 * row_s / 1e9:.1f} GB/s read ({smi})")
+    del rows, idx
+    torch.cuda.empty_cache()
+    return sec_s
 
 
 def pf1_path(kind: str, genome, n_bases: int, truth, dev, smi):
@@ -601,9 +769,10 @@ def pf1_path(kind: str, genome, n_bases: int, truth, dev, smi):
     return lambda: profile_pass(tag, lambda: checksum_padded_rolled(gpu_index, fw, CH), dt / iters)
 
 
-def capacity(args, dev, smi, lib3: str, ptxas3: str):
+def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
     """Phases 10-14; returns K2's record for the kernels line and the
-    capacity path's profiled pass."""
+    capacity path's profiled pass. ``sector_rate``: phase 3's random-sector
+    rate (sectors/s), for K2's sector floor."""
     # 10. the capacity index
     t0 = time.perf_counter()
     index = synth.build_capacity_index(int(args.cap_mbp * 1e6), seed=0, device=dev, chunk=1 << 24)
@@ -649,6 +818,9 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str):
         max_err = compare_k2u(k2u, fw, f"plim={plim} N={BATCH}", *k2(plim))
     log("[k2] N=1, N=257 (a skew lane, a foreign word, all-T) and 2^20 at probe limits 1-3: "
         "bit-identical on all nine fields")
+    cases = tile_cases(work, want["use_skew"], us, index.k, bpos_probe.TILE)
+    max_err = max(max_err, compare_cases(
+        "k2 tiles", k2u, cases, [(f"plim={p}", *k2(p), FIELDS) for p in (1, 2, 3)], dev))
     n_skew = int(want["use_skew"].sum())
     n_unres = int(want["unresolved"].sum())
     # unresolved lanes whose bucket has no row past the probed depth are
@@ -665,8 +837,13 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str):
                        n_occs_of(k2u, fw), want["use_skew"], PLIM)
     # the key, the 16-byte bpos row, a 56-byte record per probed row, the outputs
     k2_bound = bound(BATCH * (8 + 16 + K2U_OUT) + 56 * int(rows.sum()))
+    k2_dram, k2_blocks = k2_dram_sectors(k2u, fw, rows)
+    k2_floor = k2_dram / sector_rate * 1e3
     log(f"[k2] N={BATCH}: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms; {int(rows.sum())} "
-        f"records read; bound {k2_bound[0]:.4f} ms ({k2_bound[1]}) ({smi})")
+        f"records read; bound {k2_bound[0]:.4f} ms ({k2_bound[1]}); {k2_dram} DRAM sectors "
+        f"({k2_dram / BATCH:.3f} a lane): sector floor {k2_floor:.4f} ms; {k2_blocks} 64-byte "
+        f"blocks ({k2_blocks / BATCH:.3f} a lane): {k2_blocks / sector_rate * 1e3:.4f} ms at "
+        f"the same rate ({smi})")
     del want
 
     # 12. the capacity main path
@@ -692,6 +869,8 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str):
             compare_k2u(k3d, torch.from_numpy(words.view(np.int64)).to(dev),
                         f"direct plim={plim} N={len(words)}", *k3(plim), fields=FIELDS3)
         compare_k2u(k3d, fw, f"direct plim={plim} N={BATCH}", *k3(plim), fields=FIELDS3)
+    compare_cases("k3 direct tiles", k3d, cases,
+                  [(f"plim={p}", *k3(p), FIELDS3) for p in (1, 2, 3)], dev)
     kern, plain = k3(PLIM)
     k3_ms = cuda_ms(lambda: kern(k3d, fw), 20)
     k3_plain_ms = cuda_ms(lambda: plain(k3d, fw), 5)
@@ -699,7 +878,8 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str):
         f"N={BATCH} at probe limit {PLIM}: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms "
         f"({smi})")
     return record("bpos_probe", "bpos_probe.cu", "mazu_tpu/ops/pallas_capacity.py:266",
-                  launches, max_err, k2_ms, k2_plain_ms, k2_bound), profile
+                  launches, max_err, k2_ms, k2_plain_ms, k2_bound,
+                  sector_floor_ms=k2_floor), profile
 
 
 def sshash_path(tag: str, cpu_index, gpu_index, work, uid, upos, fw, query: dict, probe,
@@ -803,9 +983,9 @@ def lane_counts(k2u: dict, fw: torch.Tensor, plim: int, mlim) -> dict:
     }
 
 
-def mphf(args, dev, smi):
+def mphf(args, dev, smi, sector_rate: float):
     """Phases 15-17; returns K3's record for the kernels line and the MPHF
-    path's profiled pass."""
+    path's profiled pass (``sector_rate`` as for ``capacity``)."""
     # 15. the MPHF index
     t0 = time.perf_counter()
     index = synth.build_mphf_index(int(args.mphf_mbp * 1e6), seed=0, device=dev, chunk=1 << 24)
@@ -841,7 +1021,25 @@ def mphf(args, dev, smi):
     want = sshash_k2u(k2u, fw, mode="main", probe_limit=PLIM, defer_valid=True,
                       mphf_level_limit=MLIM)
     skew_lane = int(torch.nonzero(want["use_skew"])[0])
+    cases = tile_cases(work, want["use_skew"], us, index.k, capacity_probe.TILE)
     del want
+    # a tile the one-level chain cannot place; lanes that reach the final
+    # table (the batch's, and foreign k-mers that do)
+    n_levels = len(k2u["mphf"]["meta"].n_bits)
+    foreign = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 1 << (2 * index.k), 1 << 16, dtype=np.uint64).view(np.int64)).to(dev)
+
+    def unplaced(words, limit):
+        mm = canonical_minimizer_batch(words, m.k, m.w, m.seed)[0]
+        return words[mphf_lookup(k2u["mphf"], mm, level_limit=limit)[1]].cpu().numpy()
+
+    cases["unplaced at level limit 1"] = np.resize(unplaced(fw, 1).view(np.uint64),
+                                                   capacity_probe.TILE)
+    final_batch, final_foreign = unplaced(fw, n_levels), unplaced(foreign, n_levels)
+    cases["final-table lanes"] = np.concatenate([final_batch, final_foreign]).view(np.uint64)
+    log(f"[k3 mphf] lanes that reach the final-hash table at level limit None: "
+        f"{len(final_batch)} of the {BATCH} batch, {len(final_foreign)} of {foreign.shape[0]} "
+        f"foreign k-mers")
     small = work[:257].copy()
     small[0] = work[skew_lane]
     small[1] = np.random.default_rng(5).integers(1 << 63, 1 << 64, dtype=np.uint64)
@@ -857,6 +1055,11 @@ def mphf(args, dev, smi):
                     fields=FIELDS3))
     log("[k3 mphf] N=1, N=257 (a skew lane, a foreign word, all-T, 200 boundary k-mers) and 2^20 "
         "at level limits None and 4, probe limits 1-3: bit-identical on all ten fields")
+    max_err = max(max_err, compare_cases(
+        "k3 mphf tiles", k2u, cases,
+        [(f"mlim={ml} plim={p}", *k3(p, ml), FIELDS3) for ml in (None, MLIM, 2, 1)
+         for p in (1, 2, 3)],
+        dev))
     c_small = lane_counts(k2u, small_t, PLIM, MLIM)
     c_big = lane_counts(k2u, fw, PLIM, MLIM)
     log(f"[k3 mphf] probe limit {PLIM}, level limit {MLIM}: N=257 {c_small}; N={BATCH} {c_big}")
@@ -867,11 +1070,15 @@ def mphf(args, dev, smi):
     kern, plain = k3(PLIM, MLIM)
     k3_ms = cuda_ms(lambda: kern(k2u, fw), 20)
     k3_plain_ms = cuda_ms(lambda: plain(k2u, fw), 5)
-    k3_bytes = k3_lane_bytes(k2u, fw, PLIM, MLIM)
+    k3_bytes, k3_l2, k3_dram, k3_blocks = k3_lane_cost(k2u, fw, PLIM, MLIM)
     k3_bound = bound(k3_bytes)
+    k3_floor = k3_dram / sector_rate * 1e3
     log(f"[k3 mphf] N={BATCH} at probe limit {PLIM}, level limit {MLIM}: kernel {k3_ms:.4f} ms, "
         f"plain {k3_plain_ms:.4f} ms; {k3_bytes} bytes read and written; bound "
-        f"{k3_bound[0]:.4f} ms ({k3_bound[1]}) ({smi})")
+        f"{k3_bound[0]:.4f} ms ({k3_bound[1]}); sectors a lane {k3_l2 / BATCH:.3f} in L2, "
+        f"{k3_dram / BATCH:.3f} in DRAM: sector floor {k3_floor:.4f} ms; 64-byte DRAM blocks a "
+        f"lane {k3_blocks / BATCH:.3f}: {k3_blocks / sector_rate * 1e3:.4f} ms at the same rate "
+        f"({smi})")
     for mlim in (1, 2, None):
         kern_l = k3(PLIM, mlim)[0]
         log(f"[k3 mphf] N={BATCH} at probe limit {PLIM}, level limit {mlim}: kernel "
@@ -881,7 +1088,8 @@ def mphf(args, dev, smi):
     launches, _, profile = sshash_path("mphf main", cpu_index, gpu_index, work, uid, upos, fw,
                                        synth.MPHF_QUERY, capacity_probe, smi)
     return record("capacity_probe", "capacity_probe.cu", "mazu_tpu/ops/pallas_capacity.py:56",
-                  launches, max_err, k3_ms, k3_plain_ms, k3_bound), profile
+                  launches, max_err, k3_ms, k3_plain_ms, k3_bound,
+                  sector_floor_ms=k3_floor), profile
 
 
 def profile_pass(tag: str, run, pass_s: float):

@@ -8,13 +8,17 @@ layout with ``bpos`` rows and ``useqrec`` records; that function is its
 plain torch version. CPU tensors take the plain version; CUDA tensors
 launch ``csrc/bpos_probe.cu`` or raise.
 
-The kernel is compiled on first use (``cuda_build``) and loaded with
-``ctypes``. ``LAUNCHES`` counts kernel launches.
+The kernel reads each window record as one 64-byte block, from a copy of
+``useqrec`` padded to 8 words a row that ``padded_records`` makes on the
+records' device once per records tensor (14% larger than ``useqrec``,
+held beside it). The kernel is compiled on first use (``cuda_build``) and
+loaded with ``ctypes``. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -24,21 +28,36 @@ from .cuda_build import CSRC, compile_library
 LAUNCHES = 0
 
 SOURCE = CSRC / "bpos_probe.cu"
+MAX_PLIM = 3  # kMaxPlim: a bpos row holds the bucket's first three positions
+TILE = 256  # kTile: the kernel's lanes per block
+REC_WORDS = 8  # kRecWords: u64 words of a padded record
 _FN = None
+_PADDED: dict = {}  # id(records) -> (weakref to them, their version, padded copy)
 
-# (key, dtype) of the outputs, in the order the C function takes them
+# (field, key, dtype) of the outputs, in the kernel's order
 _OUTPUTS = (
-    ("unitig_id", torch.int64),
-    ("unitig_len", torch.int64),
-    ("pos", torch.int64),
-    ("mt", torch.uint8),
-    ("use_skew", torch.bool),
-    ("unresolved", torch.bool),
-    ("occ_word", torch.int64),
-    ("occ_word2", torch.int64),
-    ("occ_cnt", torch.int64),
+    ("uid", "unitig_id", torch.int64),
+    ("ulen", "unitig_len", torch.int64),
+    ("pos", "pos", torch.int64),
+    ("mt", "mt", torch.uint8),
+    ("use_skew", "use_skew", torch.bool),
+    ("unresolved", "unresolved", torch.bool),
+    ("ow", "occ_word", torch.int64),
+    ("ow2", "occ_word2", torch.int64),
+    ("cnt", "occ_cnt", torch.int64),
 )
-MAX_PLIM = 3  # a bpos row holds the bucket's first three positions
+_SCALARS = ("n", "n_rec", "tmask", "k", "w", "plim", "seed", "skew_param", "last_km")
+
+
+class _Args(ctypes.Structure):
+    """The kernel's ``Args`` block: the key and table pointers, the
+    outputs, then scalars; every field is 8 bytes."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in ("fw", "bpos", "rec")]
+        + [(field, ctypes.c_void_p) for field, _, _ in _OUTPUTS]
+        + [(name, ctypes.c_int64) for name in _SCALARS]
+    )
 
 
 def _kernel():
@@ -46,11 +65,26 @@ def _kernel():
     if _FN is None:
         path, _ = compile_library(SOURCE)
         fn = ctypes.CDLL(str(path)).bpos_probe
-        p, i64, u32, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_int
-        fn.argtypes = [p, p, p, i64, u32, cint, cint, u32, i64, cint, i64, i64] + [p] * 10
+        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def padded_records(rec: torch.Tensor) -> torch.Tensor:
+    """``rec`` [L, 7] as [L, 8] int64 rows, the eighth word 0, so that each
+    record is one 64-byte block. Made on first use and kept while ``rec``
+    lives; made again after ``rec`` is written in place."""
+    hit = _PADDED.get(id(rec))
+    if hit is not None and hit[0]() is rec and hit[1] == rec._version:
+        return hit[2]
+    out = torch.zeros(rec.shape[0], REC_WORDS, dtype=rec.dtype, device=rec.device)
+    out[:, : rec.shape[1]] = rec
+    if out.data_ptr() % 64:
+        raise RuntimeError("the padded records must be 64-byte aligned")
+    key = id(rec)
+    _PADDED[key] = (weakref.ref(rec, lambda _: _PADDED.pop(key, None)), rec._version, out)
+    return out
 
 
 def check_layout(d: dict, fw: torch.Tensor, probe_limit: int) -> int:
@@ -93,18 +127,18 @@ def bpos_usrec_k2u(d: dict, fw: torch.Tensor, probe_limit: int) -> dict:
     m = d["meta"]
     rec = d["us"]["useqrec"]
     n = fw.shape[0]
-    out = {key: torch.empty(n, dtype=dt, device=fw.device) for key, dt in _OUTPUTS}
+    out = {key: torch.empty(n, dtype=dt, device=fw.device) for _, key, dt in _OUTPUTS}
     if n == 0:
         return out
+    rec = padded_records(rec)
+    args = _Args(fw=fw.data_ptr(), bpos=d["bpos"].data_ptr(), rec=rec.data_ptr(),
+                 **{field: out[key].data_ptr() for field, key, _ in _OUTPUTS},
+                 n=n, n_rec=rec.shape[0], tmask=m.direct_t - 1, k=m.k, w=m.w, plim=plim,
+                 seed=int(m.seed) & 0xFFFFFFFF, skew_param=int(m.skew_param),
+                 last_km=d["us"]["meta"].total_len - m.k)
     fn = _kernel()
     with torch.cuda.device(fw.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            fw.data_ptr(), d["bpos"].data_ptr(), rec.data_ptr(), rec.shape[0],
-            m.direct_t - 1, m.k, m.w, int(m.seed) & 0xFFFFFFFF, int(m.skew_param), plim,
-            d["us"]["meta"].total_len - m.k, n,
-            *(out[key].data_ptr() for key, _ in _OUTPUTS), stream,
-        )
+        err = fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"bpos_probe launch failed: CUDA error {err}")
     LAUNCHES += 1

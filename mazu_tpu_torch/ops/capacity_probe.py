@@ -27,23 +27,24 @@ LAUNCHES = 0
 
 SOURCE = CSRC / "capacity_probe.cu"
 MAX_LEVELS = 32  # kMaxLevels of the kernel's argument block
+TILE = 256  # kTile: the kernel's lanes per block
 _FN = None
 
 _POINTERS = ("fw", "gdelta", "gbase", "posw", "words2", "wb2", "uproj", "accum2", "mwords",
              "mranks", "fh_keys", "fh_vals")
-# (key, dtype) of the outputs, in the kernel's order; the last four only
-# with uproj records
+# (field, key, dtype) of the outputs, in the kernel's order; the last four
+# only with uproj records
 _OUTPUTS = (
-    ("unitig_id", torch.int64),
-    ("unitig_len", torch.int64),
-    ("pos", torch.int64),
-    ("mt", torch.uint8),
-    ("use_skew", torch.bool),
-    ("unresolved", torch.bool),
-    ("occ_word", torch.int64),
-    ("occ_word2", torch.int64),
-    ("occ_cnt", torch.int64),
-    ("occ_start", torch.int64),
+    ("uid", "unitig_id", torch.int64),
+    ("ulen", "unitig_len", torch.int64),
+    ("pos", "pos", torch.int64),
+    ("mt", "mt", torch.uint8),
+    ("use_skew", "use_skew", torch.bool),
+    ("unresolved", "unresolved", torch.bool),
+    ("ow", "occ_word", torch.int64),
+    ("ow2", "occ_word2", torch.int64),
+    ("cnt", "occ_cnt", torch.int64),
+    ("ostart", "occ_start", torch.int64),
 )
 _SCALARS = ("n", "k", "w", "seed", "skew_param", "bound", "width", "last_km", "n_w2", "n_wb",
             "n_up", "n_unitigs", "tmask", "n_test", "full_chain", "n_fh")
@@ -55,7 +56,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in _POINTERS]
-        + [(f"out_{key}", ctypes.c_void_p) for key, _ in _OUTPUTS]
+        + [(field, ctypes.c_void_p) for field, _, _ in _OUTPUTS]
         + [(name, ctypes.c_int64) for name in _SCALARS]
         + [(name, ctypes.c_int64 * MAX_LEVELS) for name in ("n_bits", "word_off", "rank_off")]
     )
@@ -72,12 +73,15 @@ def _kernel():
     return _FN
 
 
-def _check(t: torch.Tensor, name: str, dtype, dev, cols: int | None = None):
+def _check(t: torch.Tensor, name: str, dtype, dev, cols: int | None = None, align: int = 8):
+    """``align``: the alignment that the kernel's widest read of this table
+    needs."""
     shape_ok = t.dim() == 1 if cols is None else (t.dim() == 2 and t.shape[1] == cols)
-    if t.dtype != dtype or not shape_ok or t.shape[0] < 1 or not t.is_contiguous() or t.device != dev:
+    if (t.dtype != dtype or not shape_ok or t.shape[0] < 1 or not t.is_contiguous()
+            or t.device != dev or t.data_ptr() % align):
         want = "[L]" if cols is None else f"[L, {cols}]"
-        raise ValueError(f"{name} must be a contiguous, non-empty {dtype} {want} tensor on "
-                         f"fw's device")
+        raise ValueError(f"{name} must be a contiguous, non-empty, {align}-byte aligned {dtype} "
+                         f"{want} tensor on fw's device")
 
 
 def check_layout(d: dict, fw: torch.Tensor, probe_limit: int, mphf_level_limit=None) -> dict:
@@ -101,15 +105,15 @@ def check_layout(d: dict, fw: torch.Tensor, probe_limit: int, mphf_level_limit=N
         raise ValueError("fw must be a contiguous 1-D int64 tensor")
     dev = fw.device
     t_plus_1 = d["prefix"]["gdelta"].shape[0]
-    _check(d["prefix"]["gdelta"], "gdelta", torch.int16, dev)
+    _check(d["prefix"]["gdelta"], "gdelta", torch.int16, dev, align=4)
     _check(d["prefix"]["gbase"], "gbase", torch.int64, dev)
     if d["prefix"]["gbase"].shape[0] != (t_plus_1 + 1023) // 1024:
         raise ValueError("gbase must hold one base per 1024 buckets of gdelta")
     _check(d["pos"]["words"], "pos words", torch.int64, dev)
     if not 0 < int(d["pos"]["meta"].width) <= 58:
         raise ValueError("packed positions must be 1 to 58 bits wide")
-    _check(us["useq"]["words2"], "words2", torch.int64, dev, 2)
-    _check(us["bv"]["wb2"], "wb2", torch.int64, dev, 2)
+    _check(us["useq"]["words2"], "words2", torch.int64, dev, 2, align=16)
+    _check(us["bv"]["wb2"], "wb2", torch.int64, dev, 2, align=16)
     if "uproj" in us:
         _check(us["uproj"], "uproj", torch.int64, dev, 5)
     else:
@@ -128,10 +132,10 @@ def check_layout(d: dict, fw: torch.Tensor, probe_limit: int, mphf_level_limit=N
             raise ValueError(f"the MPHF has {n_levels} levels; the kernel takes {MAX_LEVELS}")
         if n_levels == 0 or t_plus_1 < 2:
             raise ValueError("capacity_k2u needs a non-empty MPHF")
-        _check(mp["words"], "mphf words", torch.int32, dev)
-        _check(mp["ranks"], "mphf ranks", torch.int32, dev)
+        _check(mp["words"], "mphf words", torch.int32, dev, align=16)
+        _check(mp["ranks"], "mphf ranks", torch.int32, dev, align=4)
         _check(mp["fh_keys"], "mphf fh_keys", torch.int64, dev)
-        _check(mp["fh_vals"], "mphf fh_vals", torch.int32, dev)
+        _check(mp["fh_vals"], "mphf fh_vals", torch.int32, dev, align=4)
         full_chain = int(mphf_level_limit is None)
         n_test = n_levels if full_chain else min(max(int(mphf_level_limit), 1), n_levels)
         n_fh = mp["fh_keys"].shape[0]
@@ -161,7 +165,7 @@ def capacity_k2u(d: dict, fw: torch.Tensor, probe_limit: int,
     us = d["us"]
     n = fw.shape[0]
     keys = _OUTPUTS if "uproj" in us else _OUTPUTS[:6]
-    out = {key: torch.empty(n, dtype=dt, device=fw.device) for key, dt in keys}
+    out = {key: torch.empty(n, dtype=dt, device=fw.device) for _, key, dt in keys}
     if n == 0:
         return out
     mp = d.get("mphf", {}) if not d["meta"].direct_t else {}
@@ -172,8 +176,8 @@ def capacity_k2u(d: dict, fw: torch.Tensor, probe_limit: int,
         "mranks": mp.get("ranks"), "fh_keys": mp.get("fh_keys"), "fh_vals": mp.get("fh_vals"),
     }
     args = _Args(**{key: (t.data_ptr() if t is not None else None) for key, t in ptrs.items()},
-                 **{f"out_{key}": (out[key].data_ptr() if key in out else None)
-                    for key, _ in _OUTPUTS},
+                 **{field: (out[key].data_ptr() if key in out else None)
+                    for field, key, _ in _OUTPUTS},
                  **scalars)
     if mp:
         mm = mp["meta"]

@@ -176,6 +176,16 @@ def test_k2_wrapper_checks_layout(pair):
         bpos_probe.check_layout({**d, "bpos": d["bpos"][:, :3].contiguous()}, fw, 2)
     with pytest.raises(ValueError, match="no bpos probe"):
         bpos_probe.bpos_usrec_k2u(d, fw.to("meta"), 2)
+    # the kernel's records: each padded to one 64-byte row, made once per
+    # records tensor and again after it is written in place
+    rec = d["us"]["useqrec"].clone()
+    pad = bpos_probe.padded_records(rec)
+    assert pad.shape == (rec.shape[0], 8) and pad.data_ptr() % 64 == 0
+    assert torch.equal(pad[:, :7], rec) and not bool(pad[:, 7].any())
+    assert bpos_probe.padded_records(rec) is pad
+    rec[0, 0] += 1
+    again = bpos_probe.padded_records(rec)
+    assert again is not pad and torch.equal(again[:, :7], rec)
 
 
 def test_port_layouts_not_ported_raise(pair):
