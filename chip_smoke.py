@@ -14,20 +14,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``mazu_tpu_torch.labs.gather_probe`` and ``dma_lab``) as their main
    path; each kernel timed beside its plain version, its bound and the
    torch call that computes the same (``tbl[idx]``, ``index_select``);
-   then the card's random-read rates from device memory: L1 over a 1 GB
-   table of u32 (2^22 random 4-byte reads: sectors/s) and L5 over a 1 GB
-   table of 512-byte rows (2^18 random rows), both bit-identical to their
-   plain versions;
+   the rates L1 and L3 reach from L2 on larger batches (L1: 2^24 random
+   4-byte reads of the 1 MB table; L3: 2^21 random 512-byte rows of the 8
+   MB table); then the card's random-read rates from device memory:
+   L1 over a 1 GB table of u32 (2^22 random 4-byte reads: sectors/s) and L5
+   over a 1 GB table of 512-byte rows (2^18 random rows), both
+   bit-identical to their plain versions;
 4. the synthetic mono2-occ32 KCDict index (random genome, k=31, 10 kb
    unitigs, every 16th unitig with 3 occurrences, load 0.25), moved to the
-   card;
-5. the mono2 kernel (K1) against its plain torch version on the card:
-   ragged and adversarial small batches, then 2^20 queries (uniform over
-   the index, half reverse-complemented, 5% foreign); all nine fields
-   bit-identical; both timed;
+   card, where its main table takes K1's 64-byte rows;
+5. the mono2 kernel (K1) against its plain torch version on the card, all
+   nine fields bit-identical: the adversarial batches of ``k1_cases``
+   (ragged sizes around the 256-lane block and 2^20 + 37, foreign words,
+   side-table, slot-1 and khi-bit-31 keys, the last occupied row, words
+   whose bucket is row T - 1, all-A and all-T), then 2^20 queries (uniform over
+   the index, half reverse-complemented, 5% foreign); both timed; the DRAM
+   sectors and 64-byte blocks of a lane's row in the reference's 56-byte
+   rows and in the card's 64-byte rows, and the floors they give;
 6. the mono2 main path: ``OneGraphIndexQuery.checksum_pass_rolled`` over
    16 rolled chunks of that batch, checked against the port's plain path
-   on CPU tensors for chunk 0, and timed over 3 passes;
+   on CPU tensors for chunk 0, and timed over 7 passes (median, min, max);
+   then the index leaves the card;
 7. the pufferfish dense index (PFHash over a 64-bit BooPHF, the pf1
    occurrence table) over phase 4's genome, its MPHF lookup on the card;
    the 64-bit ``boophf_lookup`` on the card against the CPU on phase 5's
@@ -73,18 +80,23 @@ Phases, each printing its own lines; any failure exits non-zero:
     rolled chunks of 2^20 queries at probe limit 2, level limit 4,
     deferred validation, middle phase 4, checked against a CPU oracle as
     in phase 12; timed over 3 passes;
-18. one profiled pass of each of the paths of phases 7, 8, 12 and 17:
-    device busy share and the kernels that take the time. It runs last
+18. one profiled pass of each of the paths of phases 6 (its index moved to
+    the card again), 7, 8, 12 and 17: device busy share and the kernels
+    that take the time. It runs last
     because a profiler session slows the host's launches for the rest of
     the process (measured: the MPHF pass took 1.6-2x longer after one).
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the bytes it must move (each input read once, only the rows a
 lane reads; each output written once) over 3.35 TB/s, or its integer
-operations over 67 T/s where that is larger. K2's and K3's
+operations over 67 T/s where that is larger. K1's, K2's and K3's
 ``sector_floor_ms`` is the DRAM sectors their lanes touch over phase 3's
-random-sector rate. The last two lines are the kernels' JSON record and
-the result JSON. Imports nothing of JAX.
+random-sector rate (K1's ``block_floor_ms``: its 64-byte blocks at the
+same rate). L1's, L3's and L4's ``large_batch_ms`` is their work at the
+rate the same kernel (xor_rows for L4) reaches from L2 on phase 3's larger
+batch: it shows the launch and tail share, and is no floor, since the
+kernel's own costs set it. The last two lines are the kernels' JSON record and the
+result JSON. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -92,6 +104,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import statistics
 import subprocess
 import time
 
@@ -108,8 +121,10 @@ from mazu_tpu_torch.index.pipeline import (
 )
 from mazu_tpu_torch.kmer import canonical_minimizer_batch, mask2k, revcomp, revcomp_np
 from mazu_tpu_torch.kphf.boophf import boophf_lookup
-from mazu_tpu_torch.kphf.boophf32 import chain_next, fold_hash32, key_fold32
-from mazu_tpu_torch.kphf.kcdict import kcdict_k2u
+from mazu_tpu_torch.kphf.boophf32 import (
+    _C2, _GOLD, chain_next, fold_hash32, fold_hash32_np, key_fold32, mix32_np, unmix32_np,
+)
+from mazu_tpu_torch.kphf.kcdict import SLOTS, SW, kcdict_k2u
 from mazu_tpu_torch.kphf.sshash import _pos_get, _prefix_pair, mphf_lookup, sshash_k2u
 from mazu_tpu_torch.labs import cuda_ms, dma_lab, gather_probe
 from mazu_tpu_torch.ops import bpos_probe, capacity_probe, gather_lab, mono2_probe
@@ -118,6 +133,7 @@ from mazu_tpu_torch import synth
 
 BATCH = 1 << 20
 CH = 16
+PASSES = 7  # timed passes of the mono2 main path
 CAP_CH = 8  # rolled chunks per capacity pass (bench.py:366)
 PLIM, PLIM2 = 2, 4  # capacity probe limits: main phase, middle phase
 FIELDS = ("unitig_id", "unitig_len", "pos", "occ_cnt", "mt", "occ_word", "occ_word2",
@@ -142,8 +158,8 @@ def bound(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
 
 def record(name: str, source: str, replaces: str, launches: int, max_err: int, ms: float,
            plain_ms: float, bound_ms: tuple[float, str], library_ms=None, **extra) -> dict:
-    """One kernel's entry of the kernels line (``extra``: K2's and K3's
-    ``sector_floor_ms``)."""
+    """One kernel's entry of the kernels line (``extra``: the floors, K1-K3's
+    ``sector_floor_ms``, K1's ``block_floor_ms``, L1/L3/L4's ``large_batch_ms``)."""
     return {
         "name": name, "route": "cuda", "source": f"mazu_tpu_torch/csrc/{source}",
         "replaces": replaces, "launches": launches, "max_abs_err": max_err, "ms": ms,
@@ -210,6 +226,82 @@ def tile_cases(work: np.ndarray, skew: torch.Tensor, us, k: int, tile: int) -> d
     }
 
 
+def k1_cases(k2u: dict, work: np.ndarray, tile: int = mono2_probe.TILE, seed: int = 8) -> dict:
+    """Adversarial batches for K1 on a host mono2 dict ``k2u`` (NumPy, the
+    reference's [T, 14] table): ragged sizes around the ``tile``-lane
+    block and 2^20 + 37 lanes; tiles of foreign words, of side-table keys
+    (``unresolved`` in main mode), of slot-1 keys, of keys whose slot has
+    bit 31 of khi set, of the keys of the last occupied row, and of words
+    whose bucket is row T - 1 (its keys where it holds any, then foreign
+    words made to hash there), each half reverse-complemented; all-A and
+    all-T."""
+    table, k, t = k2u["table"], k2u["meta"].k, k2u["meta"].t
+    rng = np.random.default_rng(seed)
+    u64, u32 = np.uint64, np.uint32
+
+    def keys(tbl, rows, slot):
+        c = slot * SW
+        return tbl[rows, c].astype(u64) | ((tbl[rows, c + 1] & u32(0x7FFFFFFF)).astype(u64)
+                                           << u64(32))
+
+    def row_keys(row):
+        return np.concatenate([keys(table, [row], s) for s in range(SLOTS)
+                               if table[row, s * SW] != 0xFFFFFFFF] + [np.zeros(0, u64)])
+
+    def both_ways(words):
+        words = np.resize(words, tile)
+        flip = rng.random(tile) < 0.5
+        words[flip] = revcomp_np(words[flip], k)
+        return words
+
+    def to_last_row(n):
+        # fold_hash32 = mix32(lo ^ GOLD) ^ mix32(hi + C2): pick hi, then the
+        # low word whose mix completes the bucket T - 1; keep canonical words
+        hi = rng.integers(0, 1 << (2 * k - 32), n, dtype=u64).astype(u32)
+        want = (mix32_np(hi + u32(_C2)) ^ u32(t - 1)) & u32(t - 1)
+        mixed = (rng.integers(0, 1 << 32, n, dtype=u64).astype(u32) & ~u32(t - 1)) | want
+        words = (hi.astype(u64) << u64(32)) | (unmix32_np(mixed) ^ u32(_GOLD)).astype(u64)
+        words = words[words <= revcomp_np(words, k)]
+        if not (fold_hash32_np(words) & u32(t - 1) == t - 1).all():
+            raise AssertionError("words made for row T - 1 hash elsewhere")
+        return words
+
+    occ0 = np.flatnonzero(table[:, 0] != 0xFFFFFFFF)
+    occ1 = np.flatnonzero(table[:, SW] != 0xFFFFFFFF)
+    bit31 = occ0[(table[occ0, 1] >> 31) == 1][:tile]
+    last = int(max(occ0[-1], occ1[-1] if len(occ1) else -1))
+    cases = {
+        "N=1": work[:1],
+        f"N={tile - 1}": work[: tile - 1],
+        f"N={tile}": work[:tile],
+        f"N={tile + 1}": work[: tile + 1],
+        f"N={len(work)}+37": np.concatenate([work, work[:37]]),
+        "foreign only": rng.integers(0, 1 << (2 * k), tile, dtype=u64),
+        "slot-1 keys": both_ways(keys(table, occ1[:tile], 1)),
+        "khi bit 31 keys": both_ways(keys(table, bit31, 0)),
+        f"row {last} (last occupied)": both_ways(row_keys(last)),
+        f"row T - 1 = {t - 1} ({len(row_keys(t - 1))} keys)": both_ways(
+            np.concatenate([row_keys(t - 1), to_last_row(tile)])),
+        "all-A": np.zeros(tile, dtype=u64),
+        "all-T": np.full(tile, mask2k(k), dtype=u64),
+    }
+    if "side" in k2u:
+        side = k2u["side"]
+        cases["side-table keys"] = both_ways(np.concatenate(
+            [keys(side, np.flatnonzero(side[:, s * SW] != 0xFFFFFFFF), s) for s in range(SLOTS)]))
+    return cases
+
+
+def row_spans(k2u: dict, fw: torch.Tensor, row_bytes: int) -> tuple[int, int]:
+    """(32-byte sectors, 64-byte blocks) that the bucket rows of ``fw``
+    span, summed over the lanes, for rows of ``row_bytes`` at
+    ``h * row_bytes``."""
+    m = k2u["meta"]
+    lo = (fold_hash32(umin(fw, revcomp(fw, m.k))) & (m.t - 1)) * row_bytes
+    hi = lo + row_bytes - 1
+    return tuple(int((hi // size - lo // size + 1).sum()) for size in (32, 64))
+
+
 def compare_cases(tag: str, d: dict, cases: dict, runs, dev) -> int:
     """Every case of ``cases`` through every (label, kernel, plain, fields)
     of ``runs``, bit-identical; returns the max absolute difference (0)."""
@@ -220,12 +312,6 @@ def compare_cases(tag: str, d: dict, cases: dict, runs, dev) -> int:
             err = max(err, compare_k2u(d, fw, f"{tag} {name} {label}", kern, plain, fields))
     log(f"[{tag}] {'; '.join(cases)} at {', '.join(r[0] for r in runs)}: bit-identical")
     return err
-
-
-def slot1_key(table: np.ndarray) -> int:
-    """Canonical k-mer stored in slot 1 of the first bucket that uses it."""
-    row = table[int(np.flatnonzero(table[:, 7] != 0xFFFFFFFF)[0])]
-    return int(row[7]) | ((int(row[8]) & 0x7FFFFFFF) << 32)
 
 
 def card() -> tuple[torch.device, str]:
@@ -322,27 +408,51 @@ def main():
         f"{gpu_index.nbytes()} bytes on the card")
     d = gpu_index.arrays()
     table = d["k2u"]["table"]
+    log(f"[index] main table on the card: {table.dtype} {tuple(table.shape)}, "
+        f"{table.numel() * 4} bytes (host: {host['k2u']['table'].shape}, "
+        f"{host['k2u']['table'].nbytes} bytes)")
 
     # 5. kernel vs plain version
-    k = index.k
-    key1 = slot1_key(host["k2u"]["table"])
-    small = synth.sample_queries(us, 513, seed=2)
-    small[:4] = [0, mask2k(k), key1, revcomp_np(np.array([key1], np.uint64), k)[0]]
-    for words in (small[2:3], small):
-        compare_k2u(d["k2u"], torch.from_numpy(words.view(np.int64)).to(dev), f"N={len(words)}")
-    r = mono2_probe.mono2_k2u(d["k2u"], torch.from_numpy(small[2:4].view(np.int64)).to(dev))
-    if bool(r["unresolved"].any()) or sorted(r["mt"].tolist()) != [1, 2]:
-        raise AssertionError(f"slot-1 key and its reverse complement: mt={r['mt'].tolist()}")
-    log("[k1] N=1, N=513, all-A, all-T and slot-1 key: bit-identical")
-
     truth = synth.sample_queries_truth(us, BATCH, seed=1)
     work = truth[0]
     fw = torch.from_numpy(work.view(np.int64)).to(dev)
-    max_err = compare_k2u(d["k2u"], fw, f"N={BATCH}")
+    cases = k1_cases(host["k2u"], work)
+    max_err = compare_cases("k1 tiles", d["k2u"], cases, [("main", None, None, FIELDS)], dev)
+    # the tiles hold what they name
+    last_row = next(n for n in cases if n.endswith("(last occupied)"))
+    row_t1 = next(n for n in cases if n.startswith("row T - 1"))
+    words = torch.from_numpy(cases[row_t1].view(np.int64)).to(dev)
+    if not bool((fold_hash32(umin(words, revcomp(words, m.k))) & (m.t - 1) == m.t - 1).all()):
+        raise AssertionError(f"k1 tile {row_t1!r}: a lane's bucket is not row T - 1")
+    for name, want_unres in (("foreign only", True), ("side-table keys", True),
+                             ("slot-1 keys", False), ("khi bit 31 keys", False),
+                             (last_row, False)):
+        words = torch.from_numpy(np.ascontiguousarray(cases[name]).view(np.int64)).to(dev)
+        r = kcdict_k2u(d["k2u"], words, mode="main")
+        if not bool((r["unresolved"] == want_unres).all()):
+            raise AssertionError(f"k1 tile {name!r}: not every lane is "
+                                 f"{'unresolved' if want_unres else 'resolved'} in main mode")
+        if name != last_row and not want_unres and set(r["mt"].tolist()) != {1, 2}:
+            raise AssertionError(f"k1 tile {name!r}: mt {sorted(set(r['mt'].tolist()))}")
+    max_err = max(max_err, compare_k2u(d["k2u"], fw, f"N={BATCH}"))
     k1_ms = cuda_ms(lambda: mono2_probe.mono2_k2u(d["k2u"], fw), 20)
     plain_ms = cuda_ms(lambda: kcdict_k2u(d["k2u"], fw, mode="main"), 5)
     log(f"[k1] N={BATCH}: bit-identical on all nine fields; kernel {k1_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms ({smi})")
+    # the work: the key, one 56-byte row (the reference's two slots, whatever
+    # the card's layout) and the nine outputs a lane
+    k1_bound = bound(BATCH * (8 + 4 * 2 * SW + K2U_OUT))
+    # the floors of the card's layout, the last, go into the kernels line
+    for label, row_bytes in (("the reference's", 4 * 2 * SW),
+                             ("the card's", 4 * mono2_probe.ROW_WORDS)):
+        sec, blk = row_spans(d["k2u"], fw, row_bytes)
+        k1_floor, k1_block_floor = sec / sector_rate * 1e3, blk / sector_rate * 1e3
+        log(f"[k1] {label} {row_bytes}-byte rows: {sec / BATCH:.4f} DRAM sectors and "
+            f"{blk / BATCH:.4f} 64-byte blocks a lane: sector floor {k1_floor:.4f} ms, block "
+            f"floor {k1_block_floor:.4f} ms ({smi})")
+    log(f"[k1] bound {k1_bound[0]:.4f} ms ({k1_bound[1]}); kernel at {k1_bound[0] / k1_ms:.1%} of "
+        f"its bound, {k1_ms / k1_block_floor:.2f}x its block floor; no single torch call "
+        f"computes the probe ({smi})")
 
     # 6. main path
     t0 = time.perf_counter()
@@ -371,6 +481,7 @@ def main():
         if not torch.equal(g, w):
             raise AssertionError(f"merged compact query on the card differs from padded CPU in {key}")
     log("[main] merged compact query on 4096 lanes equals the padded CPU query")
+    del cpu_index, out0, got, want
 
     og = OneGraphIndexQuery(gpu_index, BATCH, n_chunks=CH, m2=M2)
     reset_launches()
@@ -384,23 +495,23 @@ def main():
         raise AssertionError(f"device checksum {chk} vs {CH} x {host_chk}; worst {worst} vs M2 {M2}")
     log(f"[main] first pass {first_s:.3f} s: checksum {chk} == {CH} x oracle, worst overflow "
         f"{worst} <= M2, mono2_probe launches {launches}")
-    iters = 3
-    t0 = time.perf_counter()
-    for _ in range(iters):
+    pass_s = []
+    for _ in range(PASSES):
+        t0 = time.perf_counter()
         chk, _ = og.checksum_pass_rolled(fw)
+        pass_s.append(time.perf_counter() - t0)
         if chk != CH * host_chk:
             raise AssertionError(f"timed pass checksum {chk} != {CH} x {host_chk}")
-    dt = time.perf_counter() - t0
-    log(f"[main] {iters} x {CH} x {BATCH} queries in {dt:.4f} s: {BATCH * CH * iters / dt:.1f} "
-        f"queries/s; overflow share {n_ovf / BATCH:.4f} ({smi})")
-
-    # one 56-byte row, the key and the nine outputs per lane
-    k1_bound = bound(BATCH * (8 + 4 * table.shape[1] + K2U_OUT))
-    log(f"[k1] bound {k1_bound[0]:.4f} ms ({k1_bound[1]}); no single torch call computes the "
-        f"probe ({smi})")
+    rates = sorted(BATCH * CH / t for t in pass_s)
+    log(f"[main] {PASSES} passes of {CH} x {BATCH} queries: median "
+        f"{statistics.median(rates):.1f} queries/s (min {rates[0]:.1f}, max {rates[-1]:.1f}); "
+        f"overflow share {n_ovf / BATCH:.4f} ({smi})")
     k1 = record("mono2_probe", "mono2_probe.cu", "mazu_tpu/ops/pallas_query.py:46", launches,
-                max_err, k1_ms, plain_ms, k1_bound)
-    del og, gpu_index, d, fw, r
+                max_err, k1_ms, plain_ms, k1_bound, sector_floor_ms=k1_floor,
+                block_floor_ms=k1_block_floor)
+    # the card's copy of the index goes now; phase 18 builds it again
+    profile_mono2 = mono2_profile(host, fw, M2, statistics.median(pass_s))
+    del og, gpu_index, d, table, r
     torch.cuda.empty_cache()
 
     # 7-8. the pufferfish dense and sparse paths over this genome
@@ -418,7 +529,7 @@ def main():
     k3, profile_mphf = mphf(args, dev, smi, sector_rate)
 
     # 18. profiled passes
-    for profile in (*profile_pf1, profile_cap, profile_mphf):
+    for profile in (profile_mono2, *profile_pf1, profile_cap, profile_mphf):
         profile()
     log(json.dumps({"kernels": [k1, k2, k3, *labs]}))
     log(json.dumps({"ok": True, "device": {
@@ -650,6 +761,22 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
                         lambda: torch.index_select(rowsL, 0, idxR),
                         bound(4 * NR + row_b * (T + NR))),
     }
+    # the kernels' own rates from L2 on batches where the launch costs
+    # little: random 4-byte reads of the 1 MB table, random 512-byte rows of
+    # the 8 MB one (what their own code costs stays in these rates)
+    idx_w = i32(rng.integers(0, M, L2_WORDS))
+    same("gather_u32", g.gather_u32(tblL, idx_w), g.gather_u32_plain(tblL, idx_w))
+    words_s = L2_WORDS / cuda_ms(lambda: g.gather_u32(tblL, idx_w), 20) * 1e3
+    idx_r = i32(rng.integers(0, T, L2_ROWS))
+    same("xor_rows", g.xor_rows(idx_r, rowsL), g.xor_rows_plain(idx_r, rowsL))
+    rows_s = L2_ROWS / cuda_ms(lambda: g.xor_rows(idx_r, rowsL), 20) * 1e3
+    del idx_w, idx_r
+    log(f"[lab l2] L1 gather_u32, {L2_WORDS} random 4-byte reads of the {4 * M >> 10} KB table: "
+        f"{words_s / 1e9:.3f} G words/s; L3 xor_rows, {L2_ROWS} random 512-byte rows of the "
+        f"{row_b * T >> 20} MB table: {rows_s / 1e6:.1f} M rows/s = {row_b * rows_s / 1e12:.3f} "
+        f"TB/s ({smi})")
+    large_batch = {"gather_u32": N / words_s * 1e3, "xor_rows": NR / rows_s * 1e3,
+                "xor_rows_ring": NR / rows_s * 1e3}
     out = []
     for name, replaces in LAB:
         kern, plain, library, bnd = spec[name]
@@ -660,13 +787,16 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
         else:
             rate = f"{NR / ms / 1e3:.1f} M rows/s, {NR * row_b / ms / 1e6:.1f} GB/s of 512B rows"
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        extra = {"large_batch_ms": large_batch[name]} if name in large_batch else {}
+        l2_txt = f", at its large-batch L2 rate {large_batch[name]:.4f} ms" if extra else ""
         log(f"[lab] {name}: kernel {ms:.4f} ms ({rate}), plain {plain_ms:.4f} ms, torch call "
-            f"{lib_txt}, bound {bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
+            f"{lib_txt}, bound {bnd[0]:.4f} ms ({bnd[1]}){l2_txt} ({smi})")
         out.append(record(name, "gather_lab.cu", replaces, launches[name], err[name], ms, plain_ms,
-                          bnd, lib_ms))
+                          bnd, lib_ms, **extra))
     return out, dram_rates(dev, smi, same)
 
 
+L2_WORDS, L2_ROWS = 1 << 24, 1 << 21  # random reads of the labs' tables for their L2 rates
 DRAM_WORDS, DRAM_IDX = 1 << 28, 1 << 22  # L1: 2^22 random words of a 1 GB table
 DRAM_ROWS, DRAM_NR = 1 << 21, 1 << 18  # L5: 2^18 random rows of a 1 GB table of 512-byte rows
 
@@ -1090,6 +1220,19 @@ def mphf(args, dev, smi, sector_rate: float):
     return record("capacity_probe", "capacity_probe.cu", "mazu_tpu/ops/pallas_capacity.py:56",
                   launches, max_err, k3_ms, k3_plain_ms, k3_bound,
                   sector_floor_ms=k3_floor), profile
+
+
+def mono2_profile(host: dict, fw: torch.Tensor, m2: int, pass_s: float):
+    """Phase 18's mono2 pass: the index moved to the card again from its
+    host arrays, one pass to warm it, one profiled, and the index freed."""
+    def run():
+        og = OneGraphIndexQuery(QueryIndex(arrays_from_numpy(host, "cpu")).to(fw.device), BATCH,
+                                n_chunks=CH, m2=m2)
+        og.checksum_pass_rolled(fw)
+        profile_pass("mono2 main", lambda: og.checksum_pass_rolled(fw), pass_s)
+        del og
+        torch.cuda.empty_cache()
+    return run
 
 
 def profile_pass(tag: str, run, pass_s: float):

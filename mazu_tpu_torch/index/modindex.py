@@ -23,7 +23,7 @@ from .. import MATCH_IDENTITY
 from ..ops.bpos_probe import bpos_usrec_k2u
 from ..ops.capacity_probe import capacity_k2u
 from ..ops.compact import flagged_lanes, flagged_lanes2
-from ..ops.mono2_probe import mono2_k2u
+from ..ops.mono2_probe import card_table, mono2_k2u
 from ..pytree import meta
 from .twophase import _project_fused
 from .unitig_table import fetch_occ_block
@@ -421,6 +421,10 @@ class QueryIndex(torch.nn.Module):
     """An index's query arrays (a dict of tensors, see
     ``convert.arrays_from_numpy``) held as buffers, so ``.to(device)``
     moves them all. ``arrays()`` returns the dict the query functions take.
+
+    Off the host, the main table takes the layout its probe kernel reads
+    (``ops.mono2_probe.card_table``), laid out before it moves, so the card
+    holds that one table; on the host it keeps the reference's rows.
     """
 
     def __init__(self, arrays: dict):
@@ -437,6 +441,16 @@ class QueryIndex(torch.nn.Module):
             self.register_buffer(name, node, persistent=False)
             return _Buf(name)
         return node
+
+    def to(self, device) -> "QueryIndex":
+        """Every buffer on ``device``; off the host, the main table in its
+        kernel's layout (``card_table``)."""
+        k2u = self._tree.get("k2u")
+        if torch.device(device).type != "cpu" and isinstance(k2u, dict) \
+                and isinstance(k2u.get("table"), _Buf):
+            name = k2u["table"].name
+            setattr(self, name, card_table(k2u["meta"], getattr(self, name)))
+        return super().to(device)
 
     def arrays(self) -> dict:
         def build(node):

@@ -79,6 +79,15 @@ def mix32_np(x: np.ndarray) -> np.ndarray:
     return x ^ (x >> U32(16))
 
 
+def unmix32_np(x: np.ndarray) -> np.ndarray:
+    """The inverse of ``mix32_np``: the u32 words that mix to ``x``."""
+    x = x ^ (x >> U32(16))
+    x = x * U32(pow(_C2, -1, 1 << 32))
+    x = x ^ (x >> U32(13)) ^ (x >> U32(26))
+    x = x * U32(pow(_C1, -1, 1 << 32))
+    return x ^ (x >> U32(16))
+
+
 def fold_hash32_np(keys: np.ndarray) -> np.ndarray:
     lo = (keys & U64(M32)).astype(U32)
     hi = (keys >> U64(32)).astype(U32)

@@ -13,7 +13,9 @@ with the same slot layout, probed only by the full (phase-2) query. The
 
 The builder is NumPy and gives the reference builder's arrays byte for
 byte. ``kcdict_k2u`` is the plain torch query; on the main path
-``ops.mono2_probe.mono2_k2u`` runs its ``mode="main"`` form as a kernel.
+``ops.mono2_probe.mono2_k2u`` runs its ``mode="main"`` form as a kernel,
+which reads the main table from 64-byte rows on the card (two zero words
+after the 14).
 """
 
 from __future__ import annotations
@@ -196,7 +198,9 @@ def kcdict_k2u(d: dict, fw: torch.Tensor, mode: str = "full") -> dict:
     2 twin); occ_word, occ_word2 as int64. ``mode="main"`` probes the main
     table only and adds bool use_skew (always False) and unresolved (not
     found there: a side-table key or a true miss). ``mode="full"`` also
-    probes the side table, so it is exact for every key."""
+    probes the side table, so it is exact for every key. It reads columns
+    0-13 of the main table, so it takes the reference's [T, 14] rows and
+    the card's 64-byte rows (``ops.mono2_probe.padded_table``) alike."""
     m = d["meta"]
     if not (m.scheme == "mono2" and m.occ32):
         raise ValueError("the port's KCDict query covers the mono2-occ32 layout")
@@ -213,7 +217,7 @@ def kcdict_k2u(d: dict, fw: torch.Tensor, mode: str = "full") -> dict:
     }
 
     def probe(table, h):
-        row = table[h]  # [N, 2 * SW] u32 bit patterns
+        row = table[h]  # [N, width >= 2 * SW] u32 bit patterns
         for c in (0, SW):
             khi = mask32(row[:, c + 1])
             hit = ~st["found"] & (mask32(row[:, c]) == clo) & ((khi & 0x7FFFFFFF) == chi)

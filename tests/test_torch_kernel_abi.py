@@ -1,6 +1,7 @@
-"""The argument blocks of the CUDA kernels K2 (``csrc/bpos_probe.cu``) and
-K3 (``csrc/capacity_probe.cu``) against their ctypes mirrors
-(``ops/bpos_probe._Args``, ``ops/capacity_probe._Args``).
+"""The argument blocks of the CUDA kernels K1 (``csrc/mono2_probe.cu``), K2
+(``csrc/bpos_probe.cu``) and K3 (``csrc/capacity_probe.cu``) against their
+ctypes mirrors (``ops/mono2_probe._Args``, ``ops/bpos_probe._Args``,
+``ops/capacity_probe._Args``).
 
 A field that drifts on one side shifts every field after it, and the
 kernel then reads garbage and writes wrong outputs without an error; no
@@ -16,7 +17,7 @@ import re
 
 import pytest
 
-from mazu_tpu_torch.ops import bpos_probe, capacity_probe
+from mazu_tpu_torch.ops import bpos_probe, capacity_probe, mono2_probe
 
 EIGHT_BYTE_INTS = {"int64_t", "uint64_t"}
 
@@ -55,6 +56,7 @@ def struct_args(src: str) -> list:
 
 
 KERNELS = {
+    "mono2_probe": (mono2_probe, {"kTile": "TILE", "kRowWords": "ROW_WORDS", "kSlotWords": "SW"}),
     "bpos_probe": (bpos_probe,
                    {"kTile": "TILE", "kMaxPlim": "MAX_PLIM", "kRecWords": "REC_WORDS"}),
     "capacity_probe": (capacity_probe, {"kTile": "TILE", "kMaxLevels": "MAX_LEVELS"}),
