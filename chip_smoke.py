@@ -16,10 +16,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    torch call that computes the same (``tbl[idx]``, ``index_select``);
    the rates L1 and L3 reach from L2 on larger batches (L1: 2^24 random
    4-byte reads of the 1 MB table; L3: 2^21 random 512-byte rows of the 8
-   MB table); then the card's random-read rates from device memory:
-   L1 over a 1 GB table of u32 (2^22 random 4-byte reads: sectors/s) and L5
-   over a 1 GB table of 512-byte rows (2^18 random rows), both
-   bit-identical to their plain versions;
+   MB table); the card's L2 read rate, from torch's ``.sum()`` over an 8 MB
+   and a 1 MB table each read from L2 many times in one call, and L1's,
+   L3's and L4's L2 floors at it; then the card's random-read rates from
+   device memory: L1 over a 1 GB table of u32 (2^22 random 4-byte reads:
+   sectors/s) and L5 over a 1 GB table of 512-byte rows (2^18 random rows),
+   both bit-identical to their plain versions;
 4. the synthetic mono2-occ32 KCDict index (random genome, k=31, 10 kb
    unitigs, every 16th unitig with 3 occurrences, load 0.25), moved to the
    card, where its main table takes K1's 64-byte rows;
@@ -33,16 +35,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    rows and in the card's 64-byte rows, and the floors they give;
 6. the mono2 main path: ``OneGraphIndexQuery.checksum_pass_rolled`` over
    16 rolled chunks of that batch, checked against the port's plain path
-   on CPU tensors for chunk 0, and timed over 7 passes (median, min, max);
-   then the index leaves the card;
+   on CPU tensors for chunk 0. Before it, ``TwoPhaseIndexQuery``'s
+   ``checksum_query`` and ``query`` (K1 in the main phase) and
+   ``get_ref_pos_csr`` on the whole batch, each equal to the same on CPU
+   tensors. The pass runs as one CUDA graph (its first run: an eager
+   warm-up, the capture, a replay; the capture's seconds and memory pool
+   printed) and eagerly, the two checksums equal to each other and to 16
+   x the oracle, then 7 passes of each timed in turns (median, min, max);
+   a tensor derived from the index first asked for inside a capture must
+   raise; then the index leaves the card;
 7. the pufferfish dense index (PFHash over a 64-bit BooPHF, the pf1
    occurrence table) over phase 4's genome, its MPHF lookup on the card;
    the 64-bit ``boophf_lookup`` on the card against the CPU on phase 5's
    2^20 canonical words; the padded path (``get_ref_pos_padded`` and
    ``bench.py``'s full-mode checksum) on phase 5's batch: a CPU oracle for
    chunk 0 that must hit every sampled lane at its sampled unitig and
-   offset, then 16 rolled chunks on the card equal to 16 x the oracle,
-   timed over 3 passes;
+   offset, then 16 rolled chunks on the card, replayed as one CUDA graph
+   and run eagerly, both equal to 16 x the oracle, 3 passes of each timed
+   in turns;
 8. the same for pufferfish's sparse index (SampledPFHash, sample 9,
    extension 4);
 9. the bpos probe kernel's (K2) ptxas report;
@@ -58,8 +68,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 12. the capacity path: ``OneGraphIndexQuery.checksum_pass_rolled`` over 8
     rolled chunks of 2^20 queries at probe limit 2, middle phase 4; the
     port's plain path on CPU tensors gives chunk 0's oracle, which must hit
-    every sampled lane at its sampled unitig and offset; timed over 3
-    passes;
+    every sampled lane at its sampled unitig and offset; replayed and
+    eager as in phase 6, 3 passes of each; then ``TwoPhaseIndexQuery`` (K2
+    in the main phase) and ``get_ref_pos_compact`` on these arrays without
+    bpos rows and window records (K3 on the direct layout, the main phase
+    projected through the offsets table), each equal to CPU tensors';
 13. the capacity probe kernel's (K3) ptxas report;
 14. K3 on the direct layout: phase 10's arrays on the card without bpos and
     useqrec, plus the per-unitig ``uproj`` records; against its plain
@@ -78,11 +91,11 @@ Phases, each printing its own lines; any failure exits non-zero:
     DRAM sectors and sector floor, and K3 at other level limits;
 17. the MPHF path: ``OneGraphIndexQuery.checksum_pass_rolled`` over 8
     rolled chunks of 2^20 queries at probe limit 2, level limit 4,
-    deferred validation, middle phase 4, checked against a CPU oracle as
-    in phase 12; timed over 3 passes;
-18. one profiled pass of each of the paths of phases 6 (its index moved to
-    the card again), 7, 8, 12 and 17: device busy share and the kernels
-    that take the time. It runs last
+    deferred validation, middle phase 4, checked against a CPU oracle and
+    replayed and eager as in phase 12;
+18. one profiled replayed pass and one profiled eager pass of each of the
+    paths of phases 6 (its index moved to the card again), 7, 8, 12 and
+    17: device busy share and the kernels that take the time. It runs last
     because a profiler session slows the host's launches for the rest of
     the process (measured: the MPHF pass took 1.6-2x longer after one).
 
@@ -95,8 +108,13 @@ random-sector rate (K1's ``block_floor_ms``: its 64-byte blocks at the
 same rate). L1's, L3's and L4's ``large_batch_ms`` is their work at the
 rate the same kernel (xor_rows for L4) reaches from L2 on phase 3's larger
 batch: it shows the launch and tail share, and is no floor, since the
-kernel's own costs set it. The last two lines are the kernels' JSON record and the
-result JSON. Imports nothing of JAX.
+kernel's own costs set it. Their ``l2_floor_ms`` is: the bytes they move
+through the L2 (a 32-byte sector per random 4-byte read, 512 bytes per
+row, and the index and output streams) over the L2 read rate of phase 3,
+which torch's reduction sets. A kernel's ``launches`` on a path run as a
+graph count the eager warm-up's and the captured launches: a replay
+adds none. The last two lines are the kernels' JSON record and the result
+JSON. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -114,11 +132,14 @@ import torch
 from mazu_tpu_torch._words import mask32, umin
 from mazu_tpu_torch.convert import arrays_from_numpy
 from mazu_tpu_torch.index.modindex import (
-    QueryIndex, build_uproj, get_ref_pos_compact, get_ref_pos_padded, merge_compact_k2u,
+    QueryIndex, build_uproj, get_ref_pos_compact, get_ref_pos_csr, get_ref_pos_padded,
+    merge_compact_k2u,
 )
 from mazu_tpu_torch.index.pipeline import (
     OneGraphIndexQuery, checksum_padded_rolled, padded_checksum,
 )
+from mazu_tpu_torch.index.twophase import TwoPhaseIndexQuery
+from mazu_tpu_torch.ops.derived import derived
 from mazu_tpu_torch.kmer import canonical_minimizer_batch, mask2k, revcomp, revcomp_np
 from mazu_tpu_torch.kphf.boophf import boophf_lookup
 from mazu_tpu_torch.kphf.boophf32 import (
@@ -481,37 +502,26 @@ def main():
         if not torch.equal(g, w):
             raise AssertionError(f"merged compact query on the card differs from padded CPU in {key}")
     log("[main] merged compact query on 4096 lanes equals the padded CPU query")
-    del cpu_index, out0, got, want
+    del got, want
+
+    # the two-phase and CSR drivers on the card against CPU tensors
+    mono2_drivers(cpu_index, gpu_index, work, fw)
+    del cpu_index, out0
 
     og = OneGraphIndexQuery(gpu_index, BATCH, n_chunks=CH, m2=M2)
-    reset_launches()
-    t0 = time.perf_counter()
-    chk, worst = og.checksum_pass_rolled(fw)
-    first_s = time.perf_counter() - t0
-    launches = mono2_probe.LAUNCHES
-    if launches == 0:
-        raise AssertionError("the main path never launched the mono2 probe kernel")
-    if chk != CH * host_chk or worst > M2:
-        raise AssertionError(f"device checksum {chk} vs {CH} x {host_chk}; worst {worst} vs M2 {M2}")
-    log(f"[main] first pass {first_s:.3f} s: checksum {chk} == {CH} x oracle, worst overflow "
-        f"{worst} <= M2, mono2_probe launches {launches}")
-    pass_s = []
-    for _ in range(PASSES):
-        t0 = time.perf_counter()
-        chk, _ = og.checksum_pass_rolled(fw)
-        pass_s.append(time.perf_counter() - t0)
-        if chk != CH * host_chk:
-            raise AssertionError(f"timed pass checksum {chk} != {CH} x {host_chk}")
-    rates = sorted(BATCH * CH / t for t in pass_s)
-    log(f"[main] {PASSES} passes of {CH} x {BATCH} queries: median "
-        f"{statistics.median(rates):.1f} queries/s (min {rates[0]:.1f}, max {rates[-1]:.1f}); "
-        f"overflow share {n_ovf / BATCH:.4f} ({smi})")
+    og_eager = OneGraphIndexQuery(gpu_index, BATCH, n_chunks=CH, m2=M2, graph=False)
+    launches, worst, times = graph_and_eager(
+        "main", gpu_index, og.checksum_pass_rolled, og_eager.checksum_pass_rolled, fw,
+        CH * host_chk, BATCH * CH, PASSES, mono2_probe, smi)
+    if worst > M2:
+        raise AssertionError(f"worst overflow {worst} > M2 {M2}")
+    derived_capture_raises(dev)
     k1 = record("mono2_probe", "mono2_probe.cu", "mazu_tpu/ops/pallas_query.py:46", launches,
                 max_err, k1_ms, plain_ms, k1_bound, sector_floor_ms=k1_floor,
                 block_floor_ms=k1_block_floor)
     # the card's copy of the index goes now; phase 18 builds it again
-    profile_mono2 = mono2_profile(host, fw, M2, statistics.median(pass_s))
-    del og, gpu_index, d, table, r
+    profile_mono2 = mono2_profile(host, fw, M2, times)
+    del og, og_eager, gpu_index, d, table, r
     torch.cuda.empty_cache()
 
     # 7-8. the pufferfish dense and sparse paths over this genome
@@ -535,6 +545,96 @@ def main():
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
+
+
+def same_query(tag: str, got, want):
+    """Two ``TwoPhaseIndexQuery.query`` results (main rows, overflow lanes,
+    overflow rows) hold the same arrays."""
+    (r_g, l_g, s_g), (r_w, l_w, s_w) = got, want
+    if not np.array_equal(l_g, l_w) or (s_g is None) != (s_w is None):
+        raise AssertionError(f"[{tag}] query: the overflow lanes differ")
+    for part, g, w in (("main", r_g, r_w), ("overflow", s_g or {}, s_w or {})):
+        if set(g) != set(w) or not all(np.array_equal(g[kk], w[kk]) for kk in w):
+            raise AssertionError(f"[{tag}] query: the {part} rows differ")
+
+
+def twophase_on_card(tag: str, gpu_index, cpu_index, work: np.ndarray, probe, **kw):
+    """``TwoPhaseIndexQuery.checksum_query`` and ``.query`` on the card
+    (its main phase launching ``probe``'s kernel) against the same on the
+    CPU copy of the index."""
+    fw = torch.from_numpy(work.view(np.int64))
+    tp, tp_cpu = TwoPhaseIndexQuery(gpu_index, **kw), TwoPhaseIndexQuery(cpu_index, **kw)
+    tp.checksum_query(fw.to(tp.device))  # warm
+    reset_launches()
+    t0 = time.perf_counter()
+    got = tp.checksum_query(fw.to(tp.device))
+    card_s = time.perf_counter() - t0
+    if probe.LAUNCHES == 0:
+        raise AssertionError(f"[{tag}] checksum_query never launched the {probe.SOURCE.stem} kernel")
+    want = tp_cpu.checksum_query(fw)
+    if got != want:
+        raise AssertionError(f"[{tag}] checksum_query on the card {got}, on the CPU {want}")
+    same_query(tag, tp.query(work), tp_cpu.query(work))
+    log(f"[{tag}] TwoPhaseIndexQuery on {len(work)} queries: checksum_query (checksum, overflow "
+        f"lanes) {got} on the card == CPU, {card_s * 1e3:.1f} ms on the card with "
+        f"{probe.SOURCE.stem} launches {probe.LAUNCHES}; query's main and overflow rows == CPU")
+
+
+def mono2_drivers(cpu_index, gpu_index, work: np.ndarray, fw: torch.Tensor):
+    """Phase 6's drivers beside the pass: ``TwoPhaseIndexQuery`` (K1 in its
+    main phase) and ``get_ref_pos_csr`` on the whole batch, each against
+    the port's path on CPU tensors."""
+    twophase_on_card("main twophase", gpu_index, cpu_index, work, mono2_probe)
+    work_cpu = torch.from_numpy(work.view(np.int64))
+    t0 = time.perf_counter()
+    want = get_ref_pos_csr(cpu_index.arrays(), work_cpu, 1)
+    total = int(want["total"])
+    want = get_ref_pos_csr(cpu_index.arrays(), work_cpu, total)
+    cpu_s = time.perf_counter() - t0
+    got = get_ref_pos_csr(gpu_index.arrays(), fw, total)
+    bad = [kk for kk in want if not torch.equal(got[kk].cpu(), want[kk])]
+    if bad or int(got["valid"].sum()) != total:
+        raise AssertionError(f"[main csr] get_ref_pos_csr on the card differs from the CPU in {bad}")
+    log(f"[main csr] get_ref_pos_csr of {fw.shape[0]} queries, budget = total = {total} "
+        f"occurrences: every field on the card == CPU ({cpu_s:.1f} s on the CPU)")
+
+
+def capacity_drivers(cpu_index, gpu_index, work: np.ndarray, fw: torch.Tensor):
+    """Phase 12's drivers beside the pass: ``TwoPhaseIndexQuery`` (K2 in its
+    main phase), and ``get_ref_pos_compact`` on the capacity index without
+    bpos rows and window records (K3 on the direct layout, the main phase
+    projected through the offsets table), each against the port's path on
+    CPU tensors."""
+    twophase_on_card("cap twophase", gpu_index, cpu_index, work, bpos_probe, probe_limit=PLIM)
+
+    def bare(d):
+        k2u = {kk: v for kk, v in d["k2u"].items() if kk != "bpos"}
+        k2u["us"] = {kk: v for kk, v in k2u["us"].items() if kk != "useqrec"}
+        return {**d, "k2u": k2u}
+
+    kw = dict(merge=False, m2=BATCH // 4, probe_limit=PLIM, m2b=BATCH // 4, defer_valid=True,
+              probe_limit2=PLIM2, m2c=BATCH // 16)
+    mo = gpu_index.max_occs
+    want = get_ref_pos_compact(bare(cpu_index.arrays()), torch.from_numpy(work.view(np.int64)), mo,
+                               **kw)
+    reset_launches()
+    got = get_ref_pos_compact(bare(gpu_index.arrays()), fw, mo, **kw)
+    chk, want_chk = int(OneGraphIndexQuery.checksum(got)), int(OneGraphIndexQuery.checksum(want))
+    if capacity_probe.LAUNCHES == 0:
+        raise AssertionError("[cap offsets] the main phase never launched the capacity_probe kernel")
+    if bool(want["over_budget"]) or bool(got["over_budget"]) or chk != want_chk:
+        raise AssertionError(f"[cap offsets] checksum on the card {chk}, on the CPU {want_chk}")
+    k2u_g, k2u_w = merge_compact_k2u(got), merge_compact_k2u(want)
+    for kk in k2u_w:
+        if not torch.equal(k2u_g[kk].cpu(), k2u_w[kk]):
+            raise AssertionError(f"[cap offsets] merged {kk} on the card differs from the CPU")
+    for kk in ("n_occs", "valid", "ref_id", "ref_pos"):
+        if not torch.equal(got["main"][kk].cpu(), want["main"][kk]):
+            raise AssertionError(f"[cap offsets] main-phase {kk} on the card differs from the CPU")
+    log(f"[cap offsets] get_ref_pos_compact without bpos, useqrec or uproj (main phase through "
+        f"_project_offsets): checksum {chk} and merged fields on the card == CPU; type-A "
+        f"{int(got['n_ovf'])}, type-B {int(got['n_ovf_b'])}; capacity_probe launches "
+        f"{capacity_probe.LAUNCHES}")
 
 
 def n_occs_of(k2u: dict, fw: torch.Tensor) -> torch.Tensor:
@@ -777,6 +877,13 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
         f"TB/s ({smi})")
     large_batch = {"gather_u32": N / words_s * 1e3, "xor_rows": NR / rows_s * 1e3,
                 "xor_rows_ring": NR / rows_s * 1e3}
+    # the L2 floor: the bytes each kernel moves through the L2 (a 32-byte
+    # sector per random 4-byte read, 512 bytes per row, the index and
+    # output streams) at the L2 read rate that torch's reduction reaches
+    l2_rate = l2_read_rate(dev, smi)
+    l2_bytes = {"gather_u32": N * (32 + 4 + 4), "xor_rows": NR * (row_b + 4) + row_b,
+                "xor_rows_ring": NR * (row_b + 4) + row_b}
+    l2_floor = {name: b / l2_rate * 1e3 for name, b in l2_bytes.items()}
     out = []
     for name, replaces in LAB:
         kern, plain, library, bnd = spec[name]
@@ -787,8 +894,11 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
         else:
             rate = f"{NR / ms / 1e3:.1f} M rows/s, {NR * row_b / ms / 1e6:.1f} GB/s of 512B rows"
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        extra = {"large_batch_ms": large_batch[name]} if name in large_batch else {}
-        l2_txt = f", at its large-batch L2 rate {large_batch[name]:.4f} ms" if extra else ""
+        extra = ({"large_batch_ms": large_batch[name], "l2_floor_ms": l2_floor[name]}
+                 if name in large_batch else {})
+        l2_txt = (f", at its large-batch L2 rate {large_batch[name]:.4f} ms, L2 floor "
+                  f"{l2_floor[name]:.4f} ms ({l2_floor[name] / ms:.1%} of the kernel's time: "
+                  f"{'under' if l2_floor[name] / ms < 0.5 else 'at or over'} half)" if extra else "")
         log(f"[lab] {name}: kernel {ms:.4f} ms ({rate}), plain {plain_ms:.4f} ms, torch call "
             f"{lib_txt}, bound {bnd[0]:.4f} ms ({bnd[1]}){l2_txt} ({smi})")
         out.append(record(name, "gather_lab.cu", replaces, launches[name], err[name], ms, plain_ms,
@@ -797,8 +907,41 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
 
 
 L2_WORDS, L2_ROWS = 1 << 24, 1 << 21  # random reads of the labs' tables for their L2 rates
+L2_READ = 512 << 20  # bytes a timed reduction reads from its L2-resident table
 DRAM_WORDS, DRAM_IDX = 1 << 28, 1 << 22  # L1: 2^22 random words of a 1 GB table
 DRAM_ROWS, DRAM_NR = 1 << 21, 1 << 18  # L5: 2^18 random rows of a 1 GB table of 512-byte rows
+
+
+def l2_read_rate(dev, smi) -> float:
+    """The card's L2 read rate (bytes/s), from code other than the lab
+    kernels: torch's reductions over an 8 MB and a 1 MB table, each seen
+    through a stride-0 view that repeats it to 512 MB (``t.expand(R, n)``),
+    so that one call reads the same table from the 50 MB L2 R times and
+    its launch costs little. int32, float32 and float64 tables, summed
+    whole and row by row; returns the fastest (torch's reduction may be
+    bound by its own instructions before the L2, so the rate is the most
+    torch's code reached, a lower bound on the L2's)."""
+    best = 0.0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    for mb in (8, 1):
+        base = torch.randint(0, 1 << 20, ((mb << 20) // 8,), dtype=torch.int32, device=dev,
+                             generator=gen)
+        for table in (torch.cat([base, base]), torch.cat([base, base]).to(torch.float32),
+                      base.to(torch.float64)):
+            n = table.shape[0]
+            reps = L2_READ // (table.element_size() * n)
+            view = table.expand(reps, n)
+            if table.dtype == torch.int32 and int(view.sum()) != reps * int(table.sum()):
+                raise AssertionError("the repeated sum differs from reps x the sum")
+            for how, fn in (("whole", view.sum), ("row by row", lambda: view.sum(dim=1))):
+                ms = cuda_ms(fn, 20)
+                rate = L2_READ / ms * 1e3
+                best = max(best, rate)
+                log(f"[lab l2 floor] {table.dtype} .sum() {how} of a {mb} MB table read {reps} "
+                    f"times through a stride-0 view: {ms:.4f} ms = {rate / 1e12:.3f} TB/s ({smi})")
+    log(f"[lab l2 floor] the card's L2 read rate: {best / 1e12:.3f} TB/s, the fastest of the twelve")
+    return best
 
 
 def dram_rates(dev, smi, same) -> float:
@@ -882,21 +1025,13 @@ def pf1_path(kind: str, genome, n_bases: int, truth, dev, smi):
         f"{int((~foreign).sum())} sampled lanes hit at their unitig and offset, "
         f"{int(foreign.sum())} foreign lanes missed")
     del cpu_index, cpu, out0
-    t0 = time.perf_counter()
-    chk = checksum_padded_rolled(gpu_index, fw, CH)
-    first_s = time.perf_counter() - t0
-    if chk != CH * host_chk:
-        raise AssertionError(f"[{tag}] device checksum {chk} vs {CH} x {host_chk}")
-    log(f"[{tag}] first pass {first_s:.3f} s: checksum {chk} == {CH} x oracle")
-    iters = 3
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        if checksum_padded_rolled(gpu_index, fw, CH) != CH * host_chk:
-            raise AssertionError(f"[{tag}] timed pass checksum differs")
-    dt = time.perf_counter() - t0
-    log(f"[{tag}] {iters} x {CH} x {BATCH} queries in {dt:.4f} s: {BATCH * CH * iters / dt:.1f} "
-        f"queries/s ({smi})")
-    return lambda: profile_pass(tag, lambda: checksum_padded_rolled(gpu_index, fw, CH), dt / iters)
+    _, _, times = graph_and_eager(
+        tag, gpu_index, lambda x: checksum_padded_rolled(gpu_index, x, CH),
+        lambda x: checksum_padded_rolled(gpu_index, x, CH, graph=False), fw, CH * host_chk,
+        BATCH * CH, 3, None, smi)
+    return lambda: profile_both(
+        tag, lambda: checksum_padded_rolled(gpu_index, fw, CH),
+        lambda: checksum_padded_rolled(gpu_index, fw, CH, graph=False), times)
 
 
 def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
@@ -983,6 +1118,7 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
     res_ms = cuda_ms(lambda: get_ref_pos_padded(d, fw[:m2c], gpu_index.max_occs), 5)
     log(f"[cap main] residue phase alone (full mode, static loop to probe_bound={m.probe_bound}) "
         f"on {m2c} lanes: {res_ms:.3f} ms ({smi})")
+    capacity_drivers(cpu_index, gpu_index, work, fw)
 
     # 13. K3 build report
     log(f"[k3 build] {lib3}")
@@ -1063,28 +1199,14 @@ def sshash_path(tag: str, cpu_index, gpu_index, work, uid, upos, fw, query: dict
     log(f"[{tag}] merged query on 4096 lanes equals the padded CPU query")
 
     og = OneGraphIndexQuery(gpu_index, BATCH, n_chunks=CAP_CH, m2=M2, m2b=M2B, **dict(query, m2c=m2c))
-    name = probe.SOURCE.stem
-    reset_launches()
-    t0 = time.perf_counter()
-    chk, worst = og.checksum_pass_rolled(fw)
-    first_s = time.perf_counter() - t0
-    launches = probe.LAUNCHES
-    if launches == 0:
-        raise AssertionError(f"[{tag}] the main path never launched the {name} kernel")
-    if chk != CAP_CH * host_chk:
-        raise AssertionError(f"[{tag}] device checksum {chk} vs {CAP_CH} x {host_chk}")
-    log(f"[{tag}] first pass {first_s:.3f} s: checksum {chk} == {CAP_CH} x oracle, worst "
-        f"(type-A, type-B) {worst} within (m2, m2b), {name} launches {launches}")
-    iters = 3
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        chk, _ = og.checksum_pass_rolled(fw)
-        if chk != CAP_CH * host_chk:
-            raise AssertionError(f"[{tag}] timed pass checksum {chk} != {CAP_CH} x {host_chk}")
-    dt = time.perf_counter() - t0
-    log(f"[{tag}] {iters} x {CAP_CH} x {BATCH} queries in {dt:.4f} s: "
-        f"{BATCH * CAP_CH * iters / dt:.1f} queries/s ({smi})")
-    return launches, m2c, lambda: profile_pass(tag, lambda: og.checksum_pass_rolled(fw), dt / iters)
+    og_eager = OneGraphIndexQuery(gpu_index, BATCH, n_chunks=CAP_CH, m2=M2, m2b=M2B, graph=False,
+                                  **dict(query, m2c=m2c))
+    launches, worst, times = graph_and_eager(
+        tag, gpu_index, og.checksum_pass_rolled, og_eager.checksum_pass_rolled, fw,
+        CAP_CH * host_chk, BATCH * CAP_CH, 3, probe, smi)
+    log(f"[{tag}] worst (type-A, type-B) {worst} within (m2, m2b)")
+    return launches, m2c, lambda: profile_both(
+        tag, lambda: og.checksum_pass_rolled(fw), lambda: og_eager.checksum_pass_rolled(fw), times)
 
 
 def k3(plim, mlim=None):
@@ -1222,17 +1344,104 @@ def mphf(args, dev, smi, sector_rate: float):
                   sector_floor_ms=k3_floor), profile
 
 
-def mono2_profile(host: dict, fw: torch.Tensor, m2: int, pass_s: float):
-    """Phase 18's mono2 pass: the index moved to the card again from its
-    host arrays, one pass to warm it, one profiled, and the index freed."""
+def mono2_profile(host: dict, fw: torch.Tensor, m2: int, times: dict):
+    """Phase 18's mono2 passes: the index moved to the card again from its
+    host arrays, a replayed and an eager pass to warm it (the first
+    captures the graph again), each profiled, and the index freed."""
     def run():
-        og = OneGraphIndexQuery(QueryIndex(arrays_from_numpy(host, "cpu")).to(fw.device), BATCH,
-                                n_chunks=CH, m2=m2)
+        index = QueryIndex(arrays_from_numpy(host, "cpu")).to(fw.device)
+        og = OneGraphIndexQuery(index, BATCH, n_chunks=CH, m2=m2)
+        og_eager = OneGraphIndexQuery(index, BATCH, n_chunks=CH, m2=m2, graph=False)
         og.checksum_pass_rolled(fw)
-        profile_pass("mono2 main", lambda: og.checksum_pass_rolled(fw), pass_s)
-        del og
+        og_eager.checksum_pass_rolled(fw)
+        profile_both("mono2 main", lambda: og.checksum_pass_rolled(fw),
+                     lambda: og_eager.checksum_pass_rolled(fw), times)
+        del og, og_eager, index
         torch.cuda.empty_cache()
     return run
+
+
+def graph_and_eager(tag: str, index, graph_pass, eager_pass, x: torch.Tensor, want: int,
+                    n_queries: int, passes: int, probe, smi):
+    """A path's pass over ``x`` as one CUDA graph and eagerly (phases 6, 7,
+    8, 12, 17; ``graph_pass`` and ``eager_pass`` take the input and return
+    the checksum, or (checksum, worst overflow)). The launch counts are set
+    to 0 just before the first replayed pass (the eager warm-up, the
+    capture and a replay), which must launch ``probe``'s kernel (the K2U
+    kernel of the path; None for the pf1 paths, which have none); the
+    graph's capture time and memory pool are read from ``index.graphs``.
+    The replayed pass and the eager one must give the same checksum,
+    ``want`` (the chunk count times the CPU oracle's), and agree again on
+    an input whose lane 0 holds lane 1's word, which the graph must read
+    from its input buffer; then ``passes`` passes of each, timed in turns.
+    Returns (the kernel's launches, the worst overflow the pass returned,
+    the median seconds of a pass of each kind)."""
+    def chk_of(res):
+        return res[0] if isinstance(res, tuple) else res
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = graph_pass(x)
+    first_s = time.perf_counter() - t0
+    launches = probe.LAUNCHES if probe else None
+    if probe and launches == 0:
+        raise AssertionError(f"[{tag}] the replayed pass never launched the "
+                             f"{probe.SOURCE.stem} kernel")
+    chk, worst = res if isinstance(res, tuple) else (res, None)
+    cap = list(index.graphs.values())[-1]
+    eager_chk = chk_of(eager_pass(x))
+    if not chk == eager_chk == want:
+        raise AssertionError(f"[{tag}] replayed checksum {chk}, eager {eager_chk}, oracle x chunks "
+                             f"{want}")
+    other = x.clone()
+    other[0] = x[1]
+    other_chk = chk_of(graph_pass(other))
+    if other_chk != chk_of(eager_pass(other)) or other_chk == want:
+        raise AssertionError(f"[{tag}] on a changed input the replayed pass gives {other_chk}, "
+                             f"the eager pass {chk_of(eager_pass(other))}")
+    name = f", {probe.SOURCE.stem} launches {launches} (the eager warm-up's and the captured)" \
+        if probe else ""
+    log(f"[{tag}] first replayed pass {first_s:.3f} s (capture {cap.capture_s:.3f} s of it; "
+        f"graph pool {cap.pool_bytes} bytes): checksum {chk} == eager == oracle x chunks{name}; "
+        f"with lane 0 changed, replayed == eager {other_chk}")
+    t = {"graph": [], "eager": []}
+    for _ in range(passes):
+        for kind, run in (("graph", graph_pass), ("eager", eager_pass)):
+            t0 = time.perf_counter()
+            out = run(x)
+            t[kind].append(time.perf_counter() - t0)
+            if chk_of(out) != want:
+                raise AssertionError(f"[{tag}] timed {kind} pass checksum differs")
+    for kind in ("graph", "eager"):
+        rates = sorted(n_queries / s for s in t[kind])
+        log(f"[{tag}] {kind} pass, {passes} in turns: median {statistics.median(rates):.1f} "
+            f"queries/s (min {rates[0]:.1f}, max {rates[-1]:.1f}) ({smi})")
+    return launches, worst, {kind: statistics.median(v) for kind, v in t.items()}
+
+
+def profile_both(tag: str, run_graph, run_eager, times: dict):
+    """Phase 18: one profiled replayed pass and one profiled eager pass."""
+    profile_pass(f"{tag} graph", run_graph, times["graph"])
+    profile_pass(f"{tag} eager", run_eager, times["eager"])
+
+
+def derived_capture_raises(dev):
+    """A tensor that a wrapper derives from an index, first asked for
+    inside a CUDA graph capture, raises rather than come from the graph's
+    pool."""
+    src = torch.zeros(4, dtype=torch.int64, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            derived(src, "a check", lambda: src + 1)
+    except RuntimeError as e:
+        if "CUDA graph capture" not in str(e):
+            raise
+        log(f"[graph] a derived tensor first asked for during capture raises: {e}")
+    else:
+        raise AssertionError("a derived tensor was made inside a CUDA graph capture")
+    del graph
+    torch.cuda.synchronize()
 
 
 def profile_pass(tag: str, run, pass_s: float):
@@ -1245,6 +1454,8 @@ def profile_pass(tag: str, run, pass_s: float):
         run()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    if not events:
+        log(f"[profile {tag}] the profiler gave no per-kernel device records for this pass")
     busy_us = sum(e.self_device_time_total for e in events)
     n_kernels = sum(e.count for e in events)
     log(f"[profile {tag}] profiled pass {wall * 1e3:.1f} ms (unprofiled {pass_s * 1e3:.1f} ms); device "

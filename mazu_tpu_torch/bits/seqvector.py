@@ -11,6 +11,7 @@ from .._words import read_window as read_window_t
 from ..kmer import seq_to_codes
 
 U64 = np.uint64
+_BASES = np.frombuffer(b"ACGT", dtype=np.uint8)  # the letter of each 2-bit code
 
 
 def read_window(words: np.ndarray, pos: np.ndarray, width: int) -> np.ndarray:
@@ -54,6 +55,11 @@ class SeqVector:
         pos = np.asarray(pos, dtype=np.int64)
         return ((self.words[pos >> 5] >> ((pos.astype(U64) & U64(31)) * U64(2))) & U64(3)).astype(
             np.uint8)
+
+    def to_str(self, start: int = 0, end: int | None = None) -> str:
+        """Bases [start, end) as an ACGT string."""
+        end = self.length if end is None else end
+        return _BASES[self.get_base(np.arange(start, end, dtype=np.int64))].tobytes().decode()
 
     def __len__(self) -> int:
         return self.length

@@ -16,17 +16,16 @@ exactly.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
 from .. import MATCH_IDENTITY
-from ..ops.bpos_probe import bpos_usrec_k2u
-from ..ops.capacity_probe import capacity_k2u
 from ..ops.compact import flagged_lanes, flagged_lanes2
-from ..ops.mono2_probe import card_table, mono2_k2u
+from ..ops.mono2_probe import card_table
 from ..pytree import meta
-from .twophase import _project_fused
-from .unitig_table import fetch_occ_block
+from .unitig_table import decode_occs, fetch_occ_block
 
 _K2U_FIELDS = ("unitig_id", "unitig_len", "pos", "mt")
 _MERGE_FIELDS = _K2U_FIELDS + ("n_occs", "ref_id", "ref_pos", "orient", "valid")
@@ -281,18 +280,13 @@ def get_ref_pos_compact(
 ) -> dict:
     """Two-phase exact query with on-device compacted heavy phases.
 
-    Main phase: the dictionary's shallow probe and the fused projection of
-    the (up to two) occurrence words it carries. On a mono2 KCDict the
-    probe is ``mono2_k2u``. On an SSHash it is ``sshash_k2u(mode="main")``
-    at depth ``probe_limit``, run by a kernel where one fits:
-    ``bpos_usrec_k2u`` on a direct SSHash with the ``bpos`` rows and
-    ``useqrec`` records (``probe_limit`` <= 3; ``defer_valid`` changes
-    nothing there, the records carry the extent check), and
-    ``capacity_k2u`` with ``defer_valid`` on the paired layout without
-    records, the capacity tier's deferred-validation probe
-    (``mphf_level_limit`` truncates a fast32 MPHF chain there). The main
-    projection needs the occurrence fields that the records or the
-    ``uproj`` records give.
+    Main phase: the dictionary's shallow probe (``twophase._main_probe``:
+    kernel K1 on a mono2 KCDict; on an SSHash ``sshash_k2u(mode="main")``
+    at depth ``probe_limit``, run by K2 or K3 where one fits, with
+    ``defer_valid`` and ``mphf_level_limit`` as that function takes them)
+    and the projection of the (up to two) occurrence words it carries, or,
+    on a layout whose probe carries none, of the first two through the
+    offsets table (``twophase._project_offsets``).
 
     Lanes the main phase does not settle are compacted into ``M = m2``
     (default ``N // 4``) slots and resolved by ``get_ref_pos_padded``. With
@@ -306,39 +300,13 @@ def get_ref_pos_compact(
     ``lanes_b``, ``slot_real_b``, ``phase2b``, ``n_ovf_b``, and with
     ``probe_limit2`` ``over_budget_c``) without materializing merged
     [N, max_occs] tensors."""
+    from .twophase import _main_probe, _project_main
+
     N = fw.shape[0]
     M = int(m2) if m2 else max(64, N // 4)
-    k2u = d["k2u"]
-    m_ = k2u["meta"]
-    probe_start = 0
-    if m_.kind == "kcdict":
-        r = mono2_k2u(k2u, fw)
-    elif m_.kind == "sshash":
-        from ..kphf.sshash import sshash_k2u
-
-        us = k2u["us"]
-        if (m_.direct_t and "bpos" in k2u and "useqrec" in us and probe_limit is not None
-                and 0 < probe_limit <= 3):
-            r = bpos_usrec_k2u(k2u, fw, probe_limit)
-        elif (probe_limit is not None and defer_valid and "useqrec" not in us
-              and "words2" in us["useq"] and "wb2" in us["bv"]):
-            r = capacity_k2u(k2u, fw, probe_limit, mphf_level_limit=mphf_level_limit)
-        else:
-            r = sshash_k2u(k2u, fw, mode="main", probe_limit=probe_limit,
-                           defer_valid=defer_valid, mphf_level_limit=mphf_level_limit)
-        if (probe_limit is not None and not defer_valid and mphf_level_limit is None
-                and "useqrec" not in us):
-            # the heavy phase's lanes never probed (skew) or probed rows
-            # [0, probe_limit) and missed: its re-probe may start past them.
-            # A failed deferred winner or an unplaced MPHF lane is no such
-            # proof, and neither is a record's failed extent check.
-            probe_start = min(int(probe_limit), int(m_.probe_bound))
-        if "occ_cnt" not in r:
-            raise ValueError("the port has no main-phase projection from the offsets table "
-                             "(_project_offsets) yet: give the SSHash arrays uproj records")
-    else:
-        raise ValueError(f"the port has no {m_.kind!r} K2U yet")
-    p = _project_fused(d, r)
+    m_ = d["k2u"]["meta"]
+    r, probe_start = _main_probe(d, fw, probe_limit, defer_valid, mphf_level_limit)
+    p = _project_main(d, r, 2)
     overflow = p["overflow"] | r["unresolved"]
     if m2b is not None:
         if probe_limit2 is not None and m_.kind != "sshash":
@@ -347,7 +315,9 @@ def get_ref_pos_compact(
                               probe_start=probe_start, probe_limit2=probe_limit2, m_c=m2c)
     lanes, n_ovf = flagged_lanes(overflow, M)
     over_budget = n_ovf > M
-    out2 = get_ref_pos_padded(d, fw[lanes], max_occs, probe_start=probe_start)
+    # these lanes include ones the main probe found (more occurrences than
+    # it projects): the re-probe starts at row 0, not at probe_start
+    out2 = get_ref_pos_padded(d, fw[lanes], max_occs)
     slot_real = torch.arange(M, device=fw.device) < torch.clamp(n_ovf, max=M)
     if not merge:
         return {
@@ -364,6 +334,91 @@ def get_ref_pos_compact(
     return full
 
 
+def get_ref_pos_csr(d: dict, fw: torch.Tensor, budget: int) -> dict:
+    """Exact query with the occurrences in CSR form: the K2U fields and
+    ``occ_start``/``occ_count`` per query, and flat ``qid``, ``ref_id``,
+    ``ref_pos``, ``orient`` and ``valid`` of length ``budget`` holding the
+    occurrences of all queries in query order. ``total`` is the true count.
+    Slots at or past it are invalid (``ref_id`` -1, ``ref_pos`` and
+    ``orient`` 0); when it exceeds ``budget`` the occurrences past the
+    budget are left out, and the caller runs again with a larger one."""
+    r = k2u_batch(d, fw)
+    u2 = d["u2pos"]
+    hit = r["mt"] > 0
+    uid = torch.where(hit, r["unitig_id"], 0)
+    start = u2["offsets"][uid]
+    cnt = torch.where(hit, u2["offsets"][uid + 1] - start, 0)
+    occ_start = torch.cumsum(cnt, 0) - cnt
+    n = cnt.shape[0]
+    total = cnt.sum()
+    # flat slot j belongs to query qid[j], the last query starting at or before j
+    j = torch.arange(budget, dtype=start.dtype, device=start.device)
+    qid = torch.clamp(torch.searchsorted(occ_start, j, right=True) - 1, 0, max(n - 1, 0))
+    within = j - occ_start[qid]
+    valid = (j < total) & (within < cnt[qid])
+    occ_idx = torch.clamp(start[qid] + within, 0, max(u2["meta"].n_occs - 1, 0))
+    ref_id, occ_pos, occ_o = decode_occs(u2, occ_idx)
+    k = d["meta"].k
+    kpos = r["pos"][qid]
+    ulen = r["unitig_len"][qid]
+    fwd = occ_o == 1
+    ref_pos = torch.where(fwd, kpos + occ_pos, occ_pos + (ulen - kpos) - k)
+    o_match = (r["mt"][qid] == MATCH_IDENTITY).to(torch.int32)
+    orient = torch.where(fwd, o_match, 1 - o_match)
+    return {
+        **r,
+        "occ_start": occ_start,
+        "occ_count": cnt,
+        "total": total,
+        "qid": qid,
+        "ref_id": torch.where(valid, ref_id, -1),
+        "ref_pos": torch.where(valid, ref_pos, 0),
+        "orient": torch.where(valid, orient, 0),
+        "valid": valid,
+    }
+
+
+def index_metadata(refs, decoys: int = 0, have_edge_vec: bool = False,
+                   keep_duplicates: bool = False) -> dict:
+    """Provenance record (the reference's IndexMetadata,
+    ``src/index.rs:266-278``): SHA-256 and SHA-512 over the reference names
+    (each followed by a zero byte) and over the 2-bit sequence words when
+    the collection holds sequences; SHA-256 over the trailing ``decoys``
+    references' names and their decoded sequence; the decoy count and
+    first decoy index; the two build flags. The same bytes as
+    ``mazu_tpu``'s, so the same hex strings."""
+
+    def hash_names(names, algo):
+        h = hashlib.new(algo)
+        for name in names:
+            h.update(name.encode())
+            h.update(b"\0")
+        return h.hexdigest()
+
+    def hash_bytes(data, algo):
+        return hashlib.new(algo, data).hexdigest()
+
+    n_refs = len(refs.names)
+    first_decoy = n_refs - int(decoys)
+    seq_bytes = np.ascontiguousarray(refs.seq.words).tobytes() if refs.has_seq else None
+    md = {
+        "have_edge_vec": bool(have_edge_vec),
+        "sha256_names": hash_names(refs.names, "sha256"),
+        "sha256_seqs": hash_bytes(seq_bytes, "sha256") if seq_bytes else None,
+        "name_hash_512": hash_names(refs.names, "sha512"),
+        "seq_hash_512": hash_bytes(seq_bytes, "sha512") if seq_bytes else None,
+        "decoy_name_hash": hash_names(refs.names[first_decoy:], "sha256") if decoys else "",
+        "decoy_seq_hash": "",
+        "num_decoys": int(decoys),
+        "first_decoy_index": int(first_decoy),
+        "keep_duplicates": bool(keep_duplicates),
+    }
+    if decoys and refs.has_seq:
+        lo, hi = int(refs.prefix_sum[first_decoy]), int(refs.prefix_sum[n_refs])
+        md["decoy_seq_hash"] = hash_bytes(refs.seq.to_str(lo, hi).encode(), "sha256")
+    return md
+
+
 class ModIndex:
     """Host-side index: K2U dictionary + U2Pos occurrence table + refs."""
 
@@ -377,6 +432,23 @@ class ModIndex:
     @property
     def k(self) -> int:
         return self.k2u.k
+
+    @property
+    def n_kmers(self) -> int:
+        return self.k2u.unitigs.n_kmers
+
+    @property
+    def n_unitigs(self) -> int:
+        return self.k2u.unitigs.n_unitigs
+
+    @property
+    def n_refs(self) -> int:
+        return self.refs.n_refs
+
+    @property
+    def ref_names(self) -> list:
+        """The occurrence table's reference names, else the collection's."""
+        return self.u2pos.ref_names or self.refs.names
 
     def max_occs(self) -> int:
         return self.u2pos.max_occs()
@@ -409,6 +481,86 @@ class ModIndex:
             d["k2u"]["us"]["useqrec"] = build_useqrec(self.u2pos, self.k2u.unitigs)
         return d
 
+    def _host_arrays(self) -> dict:
+        from ..convert import arrays_from_numpy
+
+        return arrays_from_numpy(self.device_arrays(), "cpu")
+
+    def make_query_fn(self, max_occs: int | None = None, device=None):
+        """(the ``QueryIndex`` of ``device_arrays()`` on ``device``, the card
+        by default; a function of int64 k-mer word tensors on that device
+        returning ``get_ref_pos_padded``'s dict)."""
+        from ..convert import arrays_from_numpy, resolve_device
+
+        mo = max(1, self.max_occs()) if max_occs is None else int(max_occs)
+        qi = QueryIndex(arrays_from_numpy(self.device_arrays(), "cpu"))
+        qi = qi.to(resolve_device(device))
+
+        def query(kms: torch.Tensor) -> dict:
+            return get_ref_pos_padded(qi.arrays(), kms, mo)
+
+        return qi, query
+
+    def unitigs_on_ref(self, ref_id: int) -> dict:
+        """Unitig tiling of reference ``ref_id`` from the occurrence table
+        (every occurrence naming the reference, in position order): arrays
+        unitig_id, unitig_len, pos and o (1 forward), entry for entry those
+        of ``iter_unitigs_on_ref``, with no k-mer query."""
+        from ..convert import arrays_from_numpy
+
+        u2 = arrays_from_numpy(self.u2pos.device_arrays(), "cpu")
+        idx = torch.arange(int(u2["meta"].n_occs), dtype=torch.int64)
+        rid, pos, o = (t.numpy() for t in decode_occs(u2, idx))
+        m = rid == ref_id
+        uid = np.searchsorted(self.u2pos.offsets, idx.numpy()[m], side="right") - 1
+        order = np.argsort(pos[m], kind="stable")
+        uid = uid[order]
+        return {
+            "unitig_id": uid,
+            "unitig_len": np.asarray(self.k2u.unitigs.unitig_len(uid)),
+            "pos": pos[m][order],
+            "o": o[m][order].astype(np.int64),
+        }
+
+    def iter_unitigs_on_ref(self, ref_id: int):
+        """Walk reference ``ref_id``'s unitig tiling: query the k-mer at each
+        tile start and jump ``unitig_len - k + 1`` (the reference's
+        RefSeqContigIterator, ``src/index.rs:363-424``). Yields dicts with
+        unitig_id, unitig_len, pos and o (1 forward). One query per tile: a
+        host oracle for ``unitigs_on_ref``."""
+        if not self.refs.has_seq:
+            raise ValueError("the reference collection holds lengths only")
+        arrays = self._host_arrays()
+        k = self.k
+        s, e = int(self.refs.prefix_sum[ref_id]), int(self.refs.prefix_sum[ref_id + 1])
+        pos = 0
+        while pos < (e - s) - k + 1:
+            km = self.refs.seq.get_kmer_u64(np.array([s + pos]), k)
+            r = k2u_batch(arrays, torch.from_numpy(km.view(np.int64)))
+            mt = int(r["mt"][0])
+            if mt == 0:
+                raise RuntimeError(f"reference walk failed at position {pos}")
+            ulen = int(r["unitig_len"][0])
+            yield {"unitig_id": int(r["unitig_id"][0]), "unitig_len": ulen, "pos": pos,
+                   "o": 1 if mt == MATCH_IDENTITY else 0}
+            pos += ulen - k + 1
+
+    def get_ref_pos_eager(self, kms) -> list:
+        """Per-query lists of (ref_id, ref_pos, orient), None for a miss,
+        from the exact padded query on the host (tests and debugging)."""
+        kms = np.ascontiguousarray(np.asarray(kms, dtype=np.uint64))
+        out = get_ref_pos_padded(self._host_arrays(), torch.from_numpy(kms.view(np.int64)),
+                                 max(1, self.max_occs()))
+        out = {kk: out[kk].numpy() for kk in ("mt", "n_occs", "ref_id", "ref_pos", "orient")}
+        res = []
+        for i in range(len(kms)):
+            if out["mt"][i] == 0:
+                res.append(None)
+                continue
+            res.append([(int(out["ref_id"][i, j]), int(out["ref_pos"][i, j]),
+                         int(out["orient"][i, j])) for j in range(int(out["n_occs"][i]))])
+        return res
+
 
 class _Buf:
     __slots__ = ("name",)
@@ -425,10 +577,15 @@ class QueryIndex(torch.nn.Module):
     Off the host, the main table takes the layout its probe kernel reads
     (``ops.mono2_probe.card_table``), laid out before it moves, so the card
     holds that one table; on the host it keeps the reference's rows.
+
+    ``graphs`` holds the CUDA graphs of passes over these buffers
+    (``index.pipeline.replay``). A graph keeps the buffers' addresses, so
+    any move of the buffers (``to``, ``cuda``, ``cpu``) drops them all.
     """
 
     def __init__(self, arrays: dict):
         super().__init__()
+        self.graphs = {}
         self._tree = self._register(arrays, ())
         off = arrays["u2pos"]["offsets"]
         self.max_occs = max(1, int((off[1:] - off[:-1]).max())) if off.numel() > 1 else 1
@@ -451,6 +608,10 @@ class QueryIndex(torch.nn.Module):
             name = k2u["table"].name
             setattr(self, name, card_table(k2u["meta"], getattr(self, name)))
         return super().to(device)
+
+    def _apply(self, *args, **kwargs):
+        self.graphs.clear()
+        return super()._apply(*args, **kwargs)
 
     def arrays(self) -> dict:
         def build(node):

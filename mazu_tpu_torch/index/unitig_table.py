@@ -140,7 +140,7 @@ def decode_occs(u2pos: dict, occ_idx: torch.Tensor):
         return decode_pf1(u2pos["ctable"][occ_idx])
     if m.enc == "piscem":
         return decode_piscem(iv_get(u2pos["ctable"], occ_idx), m.ref_shift, m.pos_mask)
-    raise ValueError(m.enc)
+    raise ValueError(f"the port has no {m.enc!r} occurrence table yet (ROADMAP A2)")
 
 
 def fetch_occ_block(u2pos: dict, start: torch.Tensor, max_occs: int):

@@ -26,6 +26,7 @@ from ..hashes import (
     multihash_h1_np, multihash_next, multihash_next_np,
 )
 from ..io.pf1 import RawBooPHF, read_boophf
+from .boophf32 import level_offsets
 
 _BLOCK_BITS = 512  # a rank sample every 8 u64 words
 _SIGN = -(1 << 63)
@@ -207,8 +208,8 @@ def boophf_lookup(d: dict, keys: torch.Tensor) -> torch.Tensor:
     res = torch.full(keys.shape, -1, dtype=torch.int64, device=keys.device)
     if n_levels:
         lvl = torch.clamp(hit_level, 0, n_levels - 1)
-        wo = torch.tensor(m.word_offsets, device=keys.device)[lvl]
-        ro = torch.tensor(m.rank_offsets, device=keys.device)[lvl]
+        offsets = level_offsets(d)
+        wo, ro = offsets[0][lvl], offsets[1][lvl]
         res = torch.where(hit_level >= 0, _level_rank(d, wo, ro, hit_pos), res)
     fhk = d["fh_keys"]
     idx = torch.clamp(torch.searchsorted(fhk ^ _SIGN, keys ^ _SIGN), 0, fhk.shape[0] - 1)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .._words import M32, mask32, popcount64, srl
+from ..ops.derived import derived
 
 _C1 = 0x85EBCA6B
 _C2 = 0xC2B2AE35
@@ -222,6 +223,17 @@ class BooPHF32:
         }
 
 
+def level_offsets(d: dict) -> torch.Tensor:
+    """int64 [2, levels] on the words' device: each level's first word
+    (``meta.word_offsets``) and first block rank (``meta.rank_offsets``) of
+    a BooPHF (either width). Made once per words tensor (``derived``), so a
+    lookup copies nothing from the host."""
+    m = d["meta"]
+    words = d["words"]
+    return derived(words, "level offsets", lambda: torch.tensor(
+        [m.word_offsets, m.rank_offsets], dtype=torch.int64, device=words.device))
+
+
 def boophf32_lookup(d: dict, keys: torch.Tensor, level_limit: int | None = None):
     """Batched lookup (plain torch): int32 values, -1 for a definite miss.
 
@@ -252,8 +264,8 @@ def boophf32_lookup(d: dict, keys: torch.Tensor, level_limit: int | None = None)
     res = torch.full(keys.shape, -1, dtype=torch.int32, device=keys.device)
     if n_levels:
         lvl = torch.clamp(hit_level, 0, n_levels - 1)
-        wo = torch.tensor(m.word_offsets, device=keys.device)[lvl]
-        ro = torch.tensor(m.rank_offsets, device=keys.device)[lvl]
+        offsets = level_offsets(d)
+        wo, ro = offsets[0][lvl], offsets[1][lvl]
         word_idx = hit_pos >> 5
         block_start = (hit_pos >> 8) << 3
         r = mask32(d["ranks"][ro + (hit_pos >> 8)])

@@ -18,12 +18,12 @@ loaded with ``ctypes``. ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import weakref
 
 import torch
 
 from ..kphf.sshash import sshash_k2u
 from .cuda_build import CSRC, compile_library
+from .derived import derived
 
 LAUNCHES = 0
 
@@ -32,7 +32,6 @@ MAX_PLIM = 3  # kMaxPlim: a bpos row holds the bucket's first three positions
 TILE = 256  # kTile: the kernel's lanes per block
 REC_WORDS = 8  # kRecWords: u64 words of a padded record
 _FN = None
-_PADDED: dict = {}  # id(records) -> (weakref to them, their version, padded copy)
 
 # (field, key, dtype) of the outputs, in the kernel's order
 _OUTPUTS = (
@@ -74,17 +73,16 @@ def _kernel():
 def padded_records(rec: torch.Tensor) -> torch.Tensor:
     """``rec`` [L, 7] as [L, 8] int64 rows, the eighth word 0, so that each
     record is one 64-byte block. Made on first use and kept while ``rec``
-    lives; made again after ``rec`` is written in place."""
-    hit = _PADDED.get(id(rec))
-    if hit is not None and hit[0]() is rec and hit[1] == rec._version:
-        return hit[2]
-    out = torch.zeros(rec.shape[0], REC_WORDS, dtype=rec.dtype, device=rec.device)
-    out[:, : rec.shape[1]] = rec
-    if out.data_ptr() % 64:
-        raise RuntimeError("the padded records must be 64-byte aligned")
-    key = id(rec)
-    _PADDED[key] = (weakref.ref(rec, lambda _: _PADDED.pop(key, None)), rec._version, out)
-    return out
+    lives (``derived``); made again after ``rec`` is written in place."""
+
+    def make():
+        out = torch.zeros(rec.shape[0], REC_WORDS, dtype=rec.dtype, device=rec.device)
+        out[:, : rec.shape[1]] = rec
+        if out.data_ptr() % 64:
+            raise RuntimeError("the padded records must be 64-byte aligned")
+        return out
+
+    return derived(rec, "padded records", make)
 
 
 def check_layout(d: dict, fw: torch.Tensor, probe_limit: int) -> int:

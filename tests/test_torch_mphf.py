@@ -23,7 +23,7 @@ import mazu_tpu_torch.kphf.sshash as psshash
 from mazu_tpu_torch import synth
 from mazu_tpu_torch.containers.unitig_set import us_get_kmer, us_validate_rank
 from mazu_tpu_torch.convert import arrays_from_numpy
-from mazu_tpu_torch.index import modindex as pmi
+from mazu_tpu_torch.index import modindex as pmi, twophase
 from mazu_tpu_torch.index.modindex import QueryIndex
 from mazu_tpu_torch.index.pipeline import ROLL_STEP, OneGraphIndexQuery
 from mazu_tpu_torch.kmer import mask2k
@@ -286,7 +286,7 @@ def test_compact_merged(case, monkeypatch, name):
     ref, port, host, d, work = case
     kw = SETTINGS[name]
     calls = []
-    monkeypatch.setattr(pmi, "capacity_k2u",
+    monkeypatch.setattr(twophase, "capacity_k2u",
                         lambda *a, **k: calls.append(k) or capacity_probe.capacity_k2u(*a, **k))
     mo = max(1, ref.max_occs())
     want = mmi.get_ref_pos_compact(host, work, np, mo, merge=True, m2=N, **kw)
@@ -333,10 +333,21 @@ def test_compact_pieces(case, name):
 
 
 def test_main_projection_needs_records(case):
+    """Without uproj records the main phase projects through the offsets
+    table (``_project_offsets``); the merged result equals mazu_tpu's."""
     ref, port, host, d, work = case
     bare = {**d, "k2u": _strip(d["k2u"], False)}
-    with pytest.raises(ValueError, match="_project_offsets"):
-        pmi.get_ref_pos_compact(bare, tensor(work), 3, probe_limit=2, defer_valid=True)
+    bare_host = {**host, "k2u": _strip(host["k2u"], False)}
+    mo = max(1, ref.max_occs())
+    kw = dict(probe_limit=2, defer_valid=True, m2=N)
+    want = mmi.get_ref_pos_compact(bare_host, work, np, mo, **kw)
+    got = pmi.get_ref_pos_compact(bare, tensor(work), mo, **kw)
+    assert not bool(want["over_budget"]) and not bool(got["over_budget"])
+    for key in MERGED:
+        assert_same(got[key], want[key], key)
+    v = np.asarray(want["valid"])
+    for key in PROJECTED:
+        assert_same(torch.where(got["valid"], got[key], 0), np.where(v, want[key], 0), key)
 
 
 def test_onegraph_checksum(case):
