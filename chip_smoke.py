@@ -43,7 +43,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    printed) and eagerly, the two checksums equal to each other and to 16
    x the oracle, then 7 passes of each timed in turns (median, min, max);
    a tensor derived from the index first asked for inside a capture must
-   raise; then the index leaves the card;
+   raise;
+6a. the serve pass (``bench.py::run_serve``'s device half,
+   ``index.pipeline.RunServePass``) on that index: its color classes and
+   bitsets (host seconds, classes, W, bytes on the card); 8 x 2,048 reads
+   of 150 bases (``synth.serve_reads``, seed 1: uniform starts over the
+   whole genome, half reverse-complemented, 1 in 100 with an N, 1 in 20
+   foreign) written to a gzipped FASTQ and packed; the port's plain pass on
+   CPU tensors gives every chunk's (map, pa, overflow) and sizes M2 from
+   chunk 0 as run_serve does; the pass as one CUDA graph (capture seconds,
+   pool bytes, K1's launches) and eagerly, both equal to the oracle chunk
+   for chunk, and again with chunks 0 and 1 swapped; 3 passes of each timed
+   in turns, end to end (FASTQ parse and pack, upload, pass, read-back)
+   and the device pass alone, in read k-mers/s; chunk 0 through the union
+   and threshold (tau 0.7) policies and the class ids, card against CPU,
+   and the host threshold count against the device count;
+6b. the validation oracles on the card: ``validate_self`` over every k-mer
+   of the 5,000 references through ``get_ref_pos_compact(merge=True)`` in
+   chunks of 2^20 (K1 in the main phase), ``validate_fasta`` on a FASTA of
+   the first 64 references, ``validate_k2u_self`` through ``k2u_batch``,
+   each timed; then the index leaves the card;
 7. the pufferfish dense index (PFHash over a 64-bit BooPHF, the pf1
    occurrence table) over phase 4's genome, its MPHF lookup on the card;
    the 64-bit ``boophf_lookup`` on the card against the CPU on phase 5's
@@ -94,8 +113,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     deferred validation, middle phase 4, checked against a CPU oracle and
     replayed and eager as in phase 12;
 18. one profiled replayed pass and one profiled eager pass of each of the
-    paths of phases 6 (its index moved to the card again), 7, 8, 12 and
-    17: device busy share and the kernels that take the time. It runs last
+    paths of phases 6 and 6a (its index moved to the card again; the serve
+    pass's device pass alone), 7, 8, 12 and 17: device busy share and the kernels that take the time. It runs last
     because a profiler session slows the host's launches for the rest of
     the process (measured: the MPHF pass took 1.6-2x longer after one).
 
@@ -113,7 +132,8 @@ through the L2 (a 32-byte sector per random 4-byte read, 512 bytes per
 row, and the index and output streams) over the L2 read rate of phase 3,
 which torch's reduction sets. A kernel's ``launches`` on a path run as a
 graph count the eager warm-up's and the captured launches: a replay
-adds none. The last two lines are the kernels' JSON record and the result
+adds none; K1's are those of phase 6's and phase 6a's first replayed
+passes. The last two lines are the kernels' JSON record and the result
 JSON. Imports nothing of JAX.
 """
 
@@ -121,9 +141,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -133,11 +155,17 @@ from mazu_tpu_torch._words import mask32, umin
 from mazu_tpu_torch.convert import arrays_from_numpy
 from mazu_tpu_torch.index.modindex import (
     QueryIndex, build_uproj, get_ref_pos_compact, get_ref_pos_csr, get_ref_pos_padded,
-    merge_compact_k2u,
+    k2u_batch, merge_compact_k2u,
 )
 from mazu_tpu_torch.index.pipeline import (
-    OneGraphIndexQuery, checksum_padded_rolled, padded_checksum,
+    OneGraphIndexQuery, RunServePass, checksum_padded_rolled, padded_checksum, serve_buffer,
 )
+from mazu_tpu_torch.index.pseudoalign import (
+    classify_kmers, color_bitsets, count_threshold_host, pseudoalign_batch,
+    pseudoalign_threshold_batch, tau_q32,
+)
+from mazu_tpu_torch.index.validate import validate_fasta, validate_k2u_self, validate_self
+from mazu_tpu_torch.io.reads import kmerize_device, pack_fastq, pack_reads
 from mazu_tpu_torch.index.twophase import TwoPhaseIndexQuery
 from mazu_tpu_torch.ops.derived import derived
 from mazu_tpu_torch.kmer import canonical_minimizer_batch, mask2k, revcomp, revcomp_np
@@ -164,6 +192,9 @@ MLIM = synth.MPHF_QUERY["mphf_level_limit"]  # the MPHF path's main-phase level 
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 INT_OPS = 67e12  # H100 SXM non-tensor rate (the guide's float32 figure), operations/s
 K2U_OUT = 6 * 8 + 3  # bytes of a lane's nine K1/K2 outputs (six int64, three u8/bool)
+SERVE_PASSES = 3  # timed serve passes of each kind
+TAU = 0.7  # the threshold policy's fraction on chunk 0
+VALIDATE_CHUNK = 1 << 20
 
 
 def log(*a):
@@ -516,12 +547,20 @@ def main():
     if worst > M2:
         raise AssertionError(f"worst overflow {worst} > M2 {M2}")
     derived_capture_raises(dev)
-    k1 = record("mono2_probe", "mono2_probe.cu", "mazu_tpu/ops/pallas_query.py:46", launches,
-                max_err, k1_ms, plain_ms, k1_bound, sector_floor_ms=k1_floor,
-                block_floor_ms=k1_block_floor)
+    del og, og_eager
+
+    # 6a-6b. the serve pass and the validation oracles on this index
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_launches, serve = serve_phase(index, host, gpu_index, dev, smi, tmp)
+        validation_phase(index, gpu_index, dev, tmp)
+    log(f"[main] mono2_probe launches: {launches} on the main path, {serve_launches} on the "
+        f"serve pass")
+    k1 = record("mono2_probe", "mono2_probe.cu", "mazu_tpu/ops/pallas_query.py:46",
+                launches + serve_launches, max_err, k1_ms, plain_ms, k1_bound,
+                sector_floor_ms=k1_floor, block_floor_ms=k1_block_floor)
     # the card's copy of the index goes now; phase 18 builds it again
-    profile_mono2 = mono2_profile(host, fw, M2, times)
-    del og, og_eager, gpu_index, d, table, r
+    profile_mono2 = mono2_profile(host, fw, M2, times, serve)
+    del gpu_index, d, table, r
     torch.cuda.empty_cache()
 
     # 7-8. the pufferfish dense and sparse paths over this genome
@@ -545,6 +584,157 @@ def main():
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
+
+
+def serve_phase(index, host: dict, gpu_index, dev, smi, tmp: str):
+    """Phase 6a: ``bench.py::run_serve``'s device pass on the mono2 index
+    over the synth50-serve traffic. Returns the mono2_probe launches of its
+    first replayed pass and what phase 18 needs to profile it."""
+    k, n_reads, n_ch = synth.K, synth.SERVE_READS, synth.SERVE_CHUNKS
+    t0 = time.perf_counter()
+    cc = index.color_classes()
+    cb_host = color_bitsets(cc)
+    cc_s = time.perf_counter() - t0
+    cb, cb_cpu = arrays_from_numpy(cb_host, dev), arrays_from_numpy(cb_host, "cpu")
+    log(f"[serve] color classes and bitsets in {cc_s:.2f} s on the host: {cc.n_classes} classes "
+        f"over {cc.n_unitigs} unitigs and {cc.n_refs} references, W={cb_host['meta'].W}; "
+        f"{tree_bytes(cb)} bytes on the card")
+
+    t0 = time.perf_counter()
+    reads = synth.serve_reads(index.refs, n_reads * n_ch, seed=1)
+    fq = os.path.join(tmp, "reads.fastq.gz")
+    synth.write_fastq(fq, reads)
+    packed = pack_fastq(fq, k)
+    m = packed["meta"]
+    nq = sum(max(len(r) - k + 1, 0) for r in reads)
+    log(f"[serve] {len(reads)} reads of {synth.READ_LEN} bases ({sum('N' in r for r in reads)} "
+        f"with an N) written to a gzipped FASTQ and packed in {time.perf_counter() - t0:.2f} s: "
+        f"{nq} read k-mers, has_bad={m.has_bad}, {serve_buffer(packed).nbytes} bytes to upload")
+
+    # the oracle: the port's plain pass on CPU tensors, every chunk; chunk 0
+    # sizes M2 as run_serve does (bench.py:209-211)
+    t0 = time.perf_counter()
+    cpu_index = QueryIndex(arrays_from_numpy(host, "cpu"))
+    oracle = RunServePass(cpu_index, cb_cpu, n_reads, n_ch, max(8192, n_reads * m.L // 4),
+                          synth.READ_LEN, probe_limit=PLIM, graph=False)(packed)
+    M2 = max(2048, -(-int(oracle[2][0] * 1.4 + 1024) // 1024) * 1024)
+    log(f"[serve] CPU oracle {time.perf_counter() - t0:.1f} s: chunk 0 map {oracle[0][0]}, pa "
+        f"{oracle[1][0]}, overflow {oracle[2][0]} -> M2={M2}; worst overflow {max(oracle[2])}")
+
+    sp = RunServePass(gpu_index, cb, n_reads, n_ch, M2, synth.READ_LEN, probe_limit=PLIM)
+    sp_eager = RunServePass(gpu_index, cb, n_reads, n_ch, M2, synth.READ_LEN, probe_limit=PLIM,
+                            graph=False)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = sp(packed)
+    first_s = time.perf_counter() - t0
+    launches = mono2_probe.LAUNCHES
+    if launches == 0:
+        raise AssertionError("[serve] the replayed pass never launched the mono2_probe kernel")
+    cap = list(gpu_index.graphs.values())[-1]
+    eager = sp_eager(packed)
+    if not got == eager == oracle:
+        raise AssertionError(f"[serve] replayed {got}, eager {eager}, CPU oracle {oracle}")
+    log(f"[serve] first replayed pass {first_s:.3f} s (capture {cap.capture_s:.3f} s of it; graph "
+        f"pool {cap.pool_bytes} bytes): {n_ch} chunks (map, pa, overflow) == eager == CPU oracle, "
+        f"chunk for chunk; worst overflow {max(got[2])} <= M2 {M2}; mono2_probe launches "
+        f"{launches} (the eager warm-up's and the captured)")
+    # the graph reads its input buffer: chunks 0 and 1 swapped
+    swapped = pack_reads(reads[n_reads : 2 * n_reads] + reads[:n_reads] + reads[2 * n_reads :], k)
+    got2 = sp(swapped)
+    if got2 != sp_eager(swapped) or [c[:2] for c in got2] != [[c[1], c[0]] for c in got]:
+        raise AssertionError(f"[serve] with chunks 0 and 1 swapped the replayed pass gives {got2}")
+    log("[serve] with chunks 0 and 1 swapped, replayed == eager, their results swapped")
+
+    flat = torch.from_numpy(serve_buffer(packed)).to(dev)
+    t = {kind: {"e2e": [], "device": []} for kind in ("graph", "eager")}
+    for _ in range(SERVE_PASSES):
+        for kind, run in (("graph", sp), ("eager", sp_eager)):
+            t0 = time.perf_counter()
+            res = run(pack_fastq(fq, k))
+            t[kind]["e2e"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            dev_res = run.device_pass(flat, m)
+            torch.cuda.synchronize()
+            t[kind]["device"].append(time.perf_counter() - t0)
+            if res != oracle or dev_res.T.tolist() != list(oracle):
+                raise AssertionError(f"[serve] a timed {kind} pass differs from the oracle")
+    for kind in ("graph", "eager"):
+        for what, label in (("e2e", "end to end (FASTQ parse + pack + upload + pass)"),
+                            ("device", "device pass alone")):
+            rates = sorted(nq / x for x in t[kind][what])
+            log(f"[serve] {kind} {label}, {SERVE_PASSES} in turns: median "
+                f"{statistics.median(rates):.1f} read-kmers/s (min {rates[0]:.1f}, max "
+                f"{rates[-1]:.1f}) ({smi})")
+
+    # other policies on chunk 0, card against CPU
+    t0 = time.perf_counter()
+    d, d_cpu = gpu_index.arrays(), cpu_index.arrays()
+    km, v = kmerize_device(arrays_from_numpy(packed, dev), 0, n_reads)
+    km_c, v_c = kmerize_device(arrays_from_numpy(packed, "cpu"), 0, n_reads)
+    num = tau_q32(TAU)
+    for name, fn in (
+        ("union", lambda a, c, x, y: pseudoalign_batch(a, c, x, y, "union")),
+        (f"threshold {TAU} (device count)",
+         lambda a, c, x, y: pseudoalign_threshold_batch(a, c, x, y, num)),
+        ("classify", classify_kmers),
+    ):
+        g_out, c_out = fn(d, cb, km, v), fn(d_cpu, cb_cpu, km_c, v_c)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(g_out, c_out)):
+            raise AssertionError(f"[serve] {name} on chunk 0: the card differs from the CPU")
+        if name == "classify":
+            cid, hit = (x.cpu().numpy() for x in g_out)
+        elif name.startswith("threshold"):
+            bits = g_out[0].cpu().numpy().view(np.uint8)
+    host_count = count_threshold_host(cc, cid, hit, v_c.numpy(), num)
+    unpacked = np.unpackbits(bits, bitorder="little", axis=1)[:, : cc.n_refs]
+    if any(not np.array_equal(refs, np.flatnonzero(unpacked[i]))
+           for i, (refs, _, _) in enumerate(host_count)):
+        raise AssertionError(f"[serve] threshold {TAU}: the host count differs from the device's")
+    log(f"[serve] chunk 0 through union, threshold {TAU} (device count) and classify: card == "
+        f"CPU; the host count of threshold {TAU} == the device count "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del cpu_index, sp, sp_eager, run
+    if any(key[0][0] == "serve" for key in gpu_index.graphs):
+        raise AssertionError("[serve] the pass's graphs outlived it")
+    log("[serve] the pass's graphs left the index with it")
+    return launches, {"cb": cb, "flat": flat, "meta": m, "m2": M2,
+                      "times": {kind: statistics.median(t[kind]["device"]) for kind in t}}
+
+
+def validation_phase(index, gpu_index, dev, tmp: str):
+    """Phase 6b: the validation oracles on the card over the whole index."""
+    d, mo = gpu_index.arrays(), gpu_index.max_occs
+
+    def query(w):
+        # every k-mer of a unitig with 3 occurrences overflows the main
+        # phase: a FASTA record of one such reference overflows whole
+        return get_ref_pos_compact(d, w, mo, merge=True, m2=w.shape[0])
+
+    refs = index.refs
+    n_kmers = int(np.maximum(np.diff(refs.prefix_sum) - index.k + 1, 0).sum())
+    reset_launches()
+    t0 = time.perf_counter()
+    validate_self(index, query_fn=query, chunk=VALIDATE_CHUNK, device=dev)
+    self_s = time.perf_counter() - t0
+    if mono2_probe.LAUNCHES == 0:
+        raise AssertionError("[validate] validate_self never launched the mono2_probe kernel")
+    log(f"[validate] validate_self: {n_kmers} k-mers of {refs.n_refs} references through "
+        f"get_ref_pos_compact(merge=True) in chunks of {VALIDATE_CHUNK}, every one at its "
+        f"(ref, pos), in {self_s:.1f} s (mono2_probe launches {mono2_probe.LAUNCHES})")
+    fa = os.path.join(tmp, "refs64.fa")
+    with open(fa, "w") as f:
+        for i in range(64):
+            s0, s1 = int(refs.prefix_sum[i]), int(refs.prefix_sum[i + 1])
+            f.write(f">{refs.names[i]}\n{refs.seq.to_str(s0, s1)}\n")
+    t0 = time.perf_counter()
+    validate_fasta(index, fa, query_fn=query, device=dev)
+    log(f"[validate] validate_fasta on the first 64 references: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    validate_k2u_self(index.k2u, k2u_fn=lambda w: k2u_batch(d, w), chunk=VALIDATE_CHUNK,
+                      device=dev)
+    log(f"[validate] validate_k2u_self: {index.k2u.unitigs.n_kmers} unitig k-mers, forward and "
+        f"reverse, through k2u_batch: {time.perf_counter() - t0:.1f} s")
 
 
 def same_query(tag: str, got, want):
@@ -1344,10 +1534,12 @@ def mphf(args, dev, smi, sector_rate: float):
                   sector_floor_ms=k3_floor), profile
 
 
-def mono2_profile(host: dict, fw: torch.Tensor, m2: int, times: dict):
+def mono2_profile(host: dict, fw: torch.Tensor, m2: int, times: dict, serve: dict):
     """Phase 18's mono2 passes: the index moved to the card again from its
-    host arrays, a replayed and an eager pass to warm it (the first
-    captures the graph again), each profiled, and the index freed."""
+    host arrays, a replayed and an eager pass of the main path and of the
+    serve pass (``serve``: its bitsets, batch buffer, Meta, capacity and
+    pass times) to warm it (the first of each captures its graph again),
+    each profiled, and the index freed."""
     def run():
         index = QueryIndex(arrays_from_numpy(host, "cpu")).to(fw.device)
         og = OneGraphIndexQuery(index, BATCH, n_chunks=CH, m2=m2)
@@ -1356,7 +1548,18 @@ def mono2_profile(host: dict, fw: torch.Tensor, m2: int, times: dict):
         og_eager.checksum_pass_rolled(fw)
         profile_both("mono2 main", lambda: og.checksum_pass_rolled(fw),
                      lambda: og_eager.checksum_pass_rolled(fw), times)
-        del og, og_eager, index
+        sp, sp_eager = (RunServePass(index, serve["cb"], synth.SERVE_READS, synth.SERVE_CHUNKS,
+                                     serve["m2"], synth.READ_LEN, probe_limit=PLIM, graph=g)
+                        for g in (True, False))
+
+        def device_pass(p):
+            return lambda: (p.device_pass(serve["flat"], serve["meta"]),
+                            torch.cuda.synchronize())
+
+        for p in (sp, sp_eager):
+            device_pass(p)()
+        profile_both("serve", device_pass(sp), device_pass(sp_eager), serve["times"])
+        del og, og_eager, sp, sp_eager, index
         torch.cuda.empty_cache()
     return run
 
@@ -1446,7 +1649,7 @@ def derived_capture_raises(dev):
 
 def profile_pass(tag: str, run, pass_s: float):
     """One profiled pass (``run()``): device busy share, kernel launches,
-    and the kernels that take the most device time."""
+    the kernels that take the most device time and the probe kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1461,7 +1664,9 @@ def profile_pass(tag: str, run, pass_s: float):
     log(f"[profile {tag}] profiled pass {wall * 1e3:.1f} ms (unprofiled {pass_s * 1e3:.1f} ms); device "
         f"busy {busy_us / 1e3:.2f} ms = {100 * busy_us / (pass_s * 1e6):.1f}% of an unprofiled "
         f"pass; {n_kernels} device kernels")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the twelve that take the most time, and every probe kernel of the repo
+    for e in ranked[:12] + [e for e in ranked[12:] if "_probe_kernel" in e.key]:
         log(f"[profile {tag}] {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
 
 

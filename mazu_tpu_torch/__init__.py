@@ -24,3 +24,7 @@ __version__ = "0.1.0"
 MATCH_NONE = 0
 MATCH_IDENTITY = 1
 MATCH_TWIN = 2
+
+# Occurrence orientations (same encoding as mazu_tpu).
+ORIENT_FORWARD = 1
+ORIENT_BACKWARD = 0

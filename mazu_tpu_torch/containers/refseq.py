@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..bits.seqvector import SeqVector
+from ..kmer import seq_to_codes
 from ..pytree import meta
 
 
@@ -14,6 +15,27 @@ class RefSeqCollection:
         self.seq = seq
         self.prefix_sum = np.asarray(prefix_sum, dtype=np.int64)
         self.names = names or []
+
+    @classmethod
+    def from_fasta(cls, path: str, min_len: int = 0) -> "RefSeqCollection":
+        """The records of a FASTA file at least ``min_len`` long, upper-cased,
+        with every non-ACGT base stored as A."""
+        from ..io.fasta import read_fasta
+
+        names, lens, code_chunks = [], [], []
+        for name, seq in read_fasta(path):
+            if len(seq) < min_len:
+                continue
+            codes = seq_to_codes(seq.upper())
+            codes = np.where(codes == 255, 0, codes)
+            names.append(name)
+            lens.append(len(codes))
+            code_chunks.append(codes)
+        prefix_sum = np.concatenate([[0], np.cumsum(np.array(lens, dtype=np.int64))])
+        sv = SeqVector.from_codes(
+            np.concatenate(code_chunks) if code_chunks else np.zeros(0, dtype=np.uint8)
+        )
+        return cls(sv, prefix_sum, names)
 
     @classmethod
     def from_lens(cls, ref_lens, names=None) -> "RefSeqCollection":

@@ -34,6 +34,20 @@ class UnitigSet:
         accum = np.concatenate([[0], np.cumsum(lens)])
         return cls(k, SeqVector.from_str("".join(seqs)), accum)
 
+    @classmethod
+    def from_cf(cls, cf_files) -> tuple["UnitigSet", dict]:
+        """The unitigs of cuttlefish output (``io.cuttlefish.CfFiles``) in
+        file order, and the map from cuttlefish id to that order."""
+        from ..io.cuttlefish import CfInfo, iter_segs
+
+        info = CfInfo.from_path(cf_files.json)
+        seqs = []
+        cfid2uid = {}
+        for i, (cfid, seq) in enumerate(iter_segs(cf_files)):
+            cfid2uid[cfid] = i
+            seqs.append(seq)
+        return cls.from_seqs(seqs, info.k), cfid2uid
+
     @property
     def n_unitigs(self) -> int:
         return len(self.accum) - 1

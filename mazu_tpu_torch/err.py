@@ -9,3 +9,11 @@ class MazuError(Exception):
 
 class TruncatedFile(MazuError, IOError):
     """Binary file shorter than its declared contents."""
+
+
+class InvalidData(MazuError, ValueError):
+    """Malformed input data."""
+
+
+class CfSeqTokenParseError(MazuError, ValueError):
+    """Malformed cuttlefish tiling token."""

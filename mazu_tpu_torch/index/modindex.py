@@ -501,6 +501,13 @@ class ModIndex:
 
         return qi, query
 
+    def color_classes(self):
+        """The color classes (unitig -> its set of references) of this
+        index's occurrence table (``index.colors``)."""
+        from .colors import ColorClasses
+
+        return ColorClasses.from_u2pos(self.u2pos)
+
     def unitigs_on_ref(self, ref_id: int) -> dict:
         """Unitig tiling of reference ``ref_id`` from the occurrence table
         (every occurrence naming the reference, in position order): arrays

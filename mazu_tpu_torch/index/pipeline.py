@@ -25,18 +25,27 @@ oracle (``graph=False``) and is what runs on CPU tensors.
 
 ``PipelinedIndexQuery`` gives the reference's split results of several
 batches: every main phase, then one compacted phase 2 a batch.
+
+``RunServePass`` is the device half of ``bench.py::run_serve``: packed
+reads k-merized on the device, mapped exactly, checksummed and
+pseudoaligned, chunk by chunk, as one CUDA graph a pass; a pass object
+holds at most two graphs (with and without non-ACGT bases) and drops them
+when it goes.
 """
 
 from __future__ import annotations
 
 import gc
 import time
+import weakref
 
 import numpy as np
 import torch
 
+from ..io.reads import kmerize_device, pad_reads, row_shape
 from ..ops.compact import flagged_lanes
-from .modindex import QueryIndex, get_ref_pos_compact, get_ref_pos_padded
+from .modindex import QueryIndex, get_ref_pos_compact, get_ref_pos_padded, merge_compact_k2u
+from .pseudoalign import pseudoalign_from_k2u
 from .twophase import TwoPhaseIndexQuery, _host, _merge_lists
 
 ROLL_STEP = 40009  # chunk i of a rolled pass is roll(work, i * ROLL_STEP)
@@ -335,3 +344,117 @@ class PipelinedIndexQuery:
         mains, overflows = self.query_batches([fw_words])
         lanes, rows = overflows[0]
         return _merge_lists(mains[0], lanes, rows, self.batch)
+
+
+def serve_buffer(packed: dict) -> np.ndarray:
+    """A ``pack_reads`` dict as one int64 host buffer: the words, the
+    lengths, then the bad-base words when the batch has any (the one input
+    tensor of a serve pass)."""
+    parts = [packed["words"].view(np.int64), packed["lengths"].astype(np.int64)]
+    if packed["meta"].has_bad:
+        parts.append(packed["bad"].view(np.int64))
+    return np.concatenate(parts)
+
+
+def _unserve(flat: torch.Tensor, m) -> dict:
+    """Views of ``serve_buffer``'s parts in a tensor, as ``kmerize_device``
+    takes them (lengths stay int64)."""
+    nw = m.R * m.stride // 32 + 1
+    packed = {"words": flat[:nw], "lengths": flat[nw : nw + m.R], "meta": m}
+    if m.has_bad:
+        packed["bad"] = flat[nw + m.R :]
+    return packed
+
+
+def serve_chunk(arrays: dict, cb: dict, packed: dict, row_start: int, rows: int, max_occs: int,
+                m2: int, probe_limit: int | None = 2) -> torch.Tensor:
+    """int64 [3] (map_chk, pa_chk, n_ovf) of reads ``row_start`` ..
+    ``row_start + rows`` of a packed batch on ``arrays``' device, as
+    ``bench.py::run_serve`` computes a chunk: ``kmerize_device``,
+    ``get_ref_pos_compact(merge=False)``, ``OneGraphIndexQuery.checksum``,
+    ``merge_compact_k2u`` and the intersecting ``pseudoalign_from_k2u``
+    over the color bitsets ``cb``. pa_chk sums the bitset words' int64 bit
+    patterns, which wraps as the reference's u64 sum cast to int64 does,
+    plus the reads' hit counts."""
+    km, v = kmerize_device(packed, row_start, rows)
+    out = get_ref_pos_compact(arrays, km.reshape(-1), max_occs, merge=False, m2=m2,
+                              probe_limit=probe_limit)
+    bits, n_hit, _ = pseudoalign_from_k2u(cb, merge_compact_k2u(out), v)
+    return torch.stack([OneGraphIndexQuery.checksum(out), bits.sum() + n_hit.sum(),
+                        out["n_ovf"].to(torch.int64)])
+
+
+def _drop_graphs(index: QueryIndex, token) -> None:
+    """Remove from ``index.graphs`` the serve graphs keyed by ``token``."""
+    for key in [key for key in index.graphs if key[0][:2] == ("serve", token)]:
+        del index.graphs[key]
+
+
+class RunServePass:
+    """``bench.py::run_serve``'s device pass over one packed batch of
+    ``n_chunks * n_reads`` reads: ``serve_chunk`` on each chunk of
+    ``n_reads``, on ``index`` (a mono2 KCDict or an SSHash, queried at
+    ``probe_limit``) and the color bitsets ``bitsets`` (tensors on the
+    index's device). Exact unless a chunk overflows ``m2``: then the pass
+    raises.
+
+    Every batch is laid out for reads of ``read_len`` bases (``pad_reads``:
+    run_serve's reads have a fixed length), so its shape is fixed and only
+    whether it holds a non-ACGT base varies. A batch with a longer read is
+    rejected; one of shorter reads is padded, and its added windows, invalid,
+    are queried as run_serve queries the invalid windows of its batch.
+    ``graph``: on a CUDA index each pass is one CUDA graph in ``index.graphs``
+    keyed by this object and the batch's Meta, of which only ``has_bad``
+    varies, so a pass holds at most two graphs, dropped with the pass; False
+    runs it eagerly, the oracle."""
+
+    def __init__(self, index: QueryIndex, bitsets: dict, n_reads: int, n_chunks: int, m2: int,
+                 read_len: int, probe_limit: int | None = 2, graph: bool = True):
+        self.index, self.cb = index, bitsets
+        self.n_reads, self.CH, self.M2 = int(n_reads), int(n_chunks), int(m2)
+        self.read_len = int(read_len)
+        self.probe_limit = probe_limit
+        self.graph = bool(graph)
+        self._key = object()  # a graph of this pass reads these bitsets
+        weakref.finalize(self, _drop_graphs, index, self._key)
+
+    def _run(self, m, flat: torch.Tensor) -> torch.Tensor:
+        packed = _unserve(flat, m)
+        arrays = self.index.arrays()
+        return torch.stack([
+            serve_chunk(arrays, self.cb, packed, ci * self.n_reads, self.n_reads,
+                        self.index.max_occs, self.M2, self.probe_limit)
+            for ci in range(self.CH)
+        ])
+
+    def device_pass(self, flat: torch.Tensor, m) -> torch.Tensor:
+        """int64 [CH, 3] (map_chk, pa_chk, n_ovf) of a batch with Meta ``m``
+        (``pad_reads``'s, to ``read_len``) already on the device as one
+        ``serve_buffer``, with no host read; on a CUDA index the graph's
+        output, which the next replay overwrites."""
+        if m.R != self.n_reads * self.CH:
+            raise ValueError(f"{m.R} reads; the pass takes {self.CH} x {self.n_reads}")
+        if (m.stride, m.L) != row_shape(self.read_len, m.k):
+            raise ValueError(f"a batch of stride {m.stride} and L {m.L}; the pass takes reads "
+                             f"padded to {self.read_len} bases")
+
+        def run(x: torch.Tensor) -> torch.Tensor:
+            return self._run(m, x)
+
+        if _use_graph(self.graph, flat):
+            key = ("serve", self._key, m, self.CH, self.M2, self.probe_limit)
+            return replay(self.index, key, flat, run)
+        return run(flat)
+
+    def __call__(self, packed: dict):
+        """(map_chk, pa_chk, n_ovf) lists, one entry a chunk, of a
+        ``pack_reads`` dict: padded to ``read_len``, uploaded as one buffer,
+        one host read."""
+        packed = pad_reads(packed, self.read_len)
+        flat = torch.from_numpy(serve_buffer(packed)).to(self.cb["bitsets"].device)
+        maps, pas, n_ovf = self.device_pass(flat, packed["meta"]).T.tolist()
+        if max(n_ovf) > self.M2:
+            raise RuntimeError(f"phase-2 capacity exceeded: {max(n_ovf)} overflow lanes in a "
+                               f"chunk (m2={self.M2}); results for the lanes past it are "
+                               f"unresolved")
+        return maps, pas, n_ovf

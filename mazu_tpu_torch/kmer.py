@@ -27,6 +27,7 @@ for _b, _c in zip(b"ACGT", range(4)):
     _BASE_TO_CODE[_b] = _c
 for _b, _c in zip(b"acgt", range(4)):
     _BASE_TO_CODE[_b] = _c
+_CODE_TO_BASE = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
 def mask2k(k: int) -> int:
@@ -40,6 +41,33 @@ def seq_to_codes(seq: bytes | str) -> np.ndarray:
     if isinstance(seq, str):
         seq = seq.encode()
     return _BASE_TO_CODE[np.frombuffer(seq, dtype=np.uint8)]
+
+
+def codes_to_seq(codes: np.ndarray) -> str:
+    """2-bit base codes -> ASCII ACGT string. Host-side."""
+    return _CODE_TO_BASE[np.asarray(codes, dtype=np.uint8)].tobytes().decode()
+
+
+def kmer_from_str(s: str) -> np.uint64:
+    """Pack an ASCII k-mer into a u64 word (first base in the low bits)."""
+    codes = seq_to_codes(s)
+    assert (codes < 4).all(), f"invalid base in {s!r}"
+    w = 0
+    for i, c in enumerate(codes):
+        w |= int(c) << (2 * i)
+    return np.uint64(w)
+
+
+def kmer_to_str(w, k: int) -> str:
+    """The k bases of a k-mer word (a u64 or its int64 bit pattern)."""
+    w = int(w) & ((1 << 64) - 1)
+    return "".join("ACGT"[(w >> (2 * i)) & 3] for i in range(int(k)))
+
+
+def reverse_match_type(mt: torch.Tensor) -> torch.Tensor:
+    """Swap identity and twin, keep no-match: the match type of the same
+    hit seen from the reverse-complement query."""
+    return torch.where(mt == 0, mt, mt ^ 3)
 
 
 def reverse_groups(x: torch.Tensor) -> torch.Tensor:

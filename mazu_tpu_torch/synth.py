@@ -61,6 +61,16 @@ MPHF_GAMMA = 1.7
 MPHF_LAYOUT = dict(prefix_kind="grouped16", pos_kind="packed", uproj=True)
 MPHF_QUERY = dict(probe_limit=2, defer_valid=True, mphf_level_limit=4, probe_limit2=4)
 
+# the serve traffic: bench.py::run_serve's batch (MAZU_BENCH_READS,
+# MAZU_BENCH_CHUNKS, 150-base reads), drawn over the whole genome. The N
+# and foreign shares are not taken from a read set: they make the pass run
+# its graph with non-ACGT bases and its miss lanes
+SERVE_READS = 2048
+SERVE_CHUNKS = 8
+READ_LEN = 150
+N_SHARE = 0.01  # reads with one N
+FOREIGN_READS = 0.05  # reads of random sequence
+
 # the pufferfish indexes: pufferfish's defaults
 PF1_GAMMA = 1.7
 PF1_SAMPLE = 9
@@ -234,3 +244,32 @@ def sample_queries_truth(unitigs: UnitigSet, n: int, seed: int):
     foreign = rng.random(n) < FOREIGN_SHARE
     words[foreign] = rng.integers(0, 1 << 62, int(foreign.sum()), dtype=np.uint64)
     return words, uid, off, foreign
+
+
+def serve_reads(refs: RefSeqCollection, n: int, seed: int = 1, n_share: float = N_SHARE,
+                foreign_share: float = FOREIGN_READS) -> list:
+    """``n`` reads of ``READ_LEN`` bases: uniform starts over the whole
+    concatenated reference, a ``RC_SHARE`` reverse-complemented, a
+    ``foreign_share`` replaced by random sequence, and a ``n_share`` with
+    one base turned to N."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, int(refs.prefix_sum[-1]) - READ_LEN + 1, n)
+    codes = refs.seq.get_base(starts[:, None] + np.arange(READ_LEN))
+    rc = rng.random(n) < RC_SHARE
+    codes[rc] = 3 - codes[rc, ::-1]
+    foreign = rng.random(n) < foreign_share
+    codes[foreign] = rng.integers(0, 4, (int(foreign.sum()), READ_LEN), dtype=np.uint8)
+    with_n = np.flatnonzero(rng.random(n) < n_share)
+    codes[with_n, rng.integers(0, READ_LEN, len(with_n))] = 4
+    text = np.frombuffer(b"ACGTN", dtype=np.uint8)[codes]
+    return [row.tobytes().decode() for row in text]
+
+
+def write_fastq(path: str, reads: list) -> None:
+    """A FASTQ file of ``reads`` (records r0, r1, ...; quality all I),
+    gzipped when ``path`` ends in ``.gz``."""
+    import gzip
+
+    with (gzip.open(path, "wt") if str(path).endswith(".gz") else open(path, "w")) as f:
+        for i, r in enumerate(reads):
+            f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")

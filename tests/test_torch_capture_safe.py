@@ -2,7 +2,9 @@
 one chunk of each ``OneGraphIndexQuery`` path (mono2 KCDict; direct SSHash
 with window records, and without records through K3's plain version and
 the offsets projection; fast32 SSHash) and of ``checksum_padded_rolled``
-(pufferfish dense and sparse) runs under a ``TorchDispatchMode`` that
+(pufferfish dense and sparse) and of the serve pass (``serve_chunk``, on
+a packed batch with and without non-ACGT bases) runs under a
+``TorchDispatchMode`` that
 records every aten call. Inside the chunk loop nothing may read a value
 back to the host (``_local_scalar_dense``, ``item``), size a tensor by its
 data (``nonzero``, boolean-mask indexing) or build a tensor from host data
@@ -193,3 +195,33 @@ def test_replay_reuses_one_graph_a_kind(toy, monkeypatch):
     assert len(graphs) == 3 and all(g.graph.replays == 2 for g in graphs)
     qi.to("cpu")
     assert qi.graphs == {}
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+def test_serve_chunk_stays_on_device(with_n, tmp_path):
+    """One chunk of the serve pass on the buffer a graph captures: device
+    k-merization (with bad bases, the stable sort that moves the valid
+    windows left), the compact query, the checksum, the merge and the
+    bitset reduction."""
+    from mazu_tpu_torch.index.pseudoalign import color_bitsets
+    from mazu_tpu_torch.io.reads import pack_reads
+
+    from mazu_tpu_torch.synth import serve_reads
+
+    from torch_fixtures import seq_recipe, with_refs, write_fasta
+
+    recipe, seqs = seq_recipe()
+    write_fasta(tmp_path / "refs.fa", seqs)
+    _, port = with_refs(build_pair(recipe), tmp_path / "refs.fa")
+    qi = QueryIndex(arrays_from_numpy(port.device_arrays(), "cpu"))
+    cb = arrays_from_numpy(color_bitsets(port.color_classes()), "cpu")
+    reads = serve_reads(port.refs, 64, seed=3, n_share=0.2 if with_n else 0.0,
+                        foreign_share=0.1)
+    packed = pack_reads(reads, 31)
+    assert packed["meta"].has_bad == with_n
+    flat = torch.from_numpy(pipeline.serve_buffer(packed))
+    m = packed["meta"]
+    guard = guarded(lambda: pipeline.serve_chunk(
+        qi.arrays(), cb, pipeline._unserve(flat, m), 32, 32, qi.max_occs, 1024))
+    assert not guard.bad, guard.bad
+    assert ("aten.sort" in guard.ops) == with_n

@@ -1,7 +1,9 @@
 """The port runs where there is no JAX: every module imports, and tiny
 indexes (the mono2 KCDict, the SSHash capacity tier, the MPHF capacity
-tier and the pufferfish dense and sparse indexes) answer queries and a lab
-kernel's plain version runs, with ``jax`` blocked from importing."""
+tier and the pufferfish dense and sparse indexes) answer queries, a lab
+kernel's plain version runs, and a tiny serve pass (FASTQ, packing, device
+k-merization, map, pseudoalignment) and ``validate_self`` run, with
+``jax`` blocked from importing."""
 
 import os
 import pkgutil
@@ -62,6 +64,24 @@ for build in (synth.build_pf1_dense_index, synth.build_pf1_sparse_index):
     assert (out["unitig_id"].numpy()[~foreign] == uid[~foreign]).all()
 idx = torch.arange(64, dtype=torch.int32) % 16
 assert gather_lab.xor_rows(idx, torch.ones(16, 128, dtype=torch.int32)).eq(0).all()
+import os, tempfile
+from mazu_tpu_torch.index.pipeline import RunServePass
+from mazu_tpu_torch.index.pseudoalign import color_bitsets
+from mazu_tpu_torch.index.validate import validate_self
+from mazu_tpu_torch.io.reads import pack_fastq
+from mazu_tpu_torch.kmer import codes_to_seq
+validate_self(index, device="cpu")
+cb = arrays_from_numpy(color_bitsets(index.color_classes()), "cpu")
+codes = index.refs.seq.get_base(np.arange(index.refs.prefix_sum[-1]))
+starts = np.random.default_rng(1).integers(0, len(codes) - 150, 64)
+with tempfile.TemporaryDirectory() as tmp:
+    fq = os.path.join(tmp, "reads.fastq")
+    with open(fq, "w") as f:
+        for i, s in enumerate(starts):
+            sq = codes_to_seq(codes[s : s + 150])
+            f.write(f"@r{i}\\n{sq[:70]}N{sq[71:]}\\n+\\n{'I' * 150}\\n")
+    maps, pas, novf = RunServePass(qi, cb, 32, 2, 4096, 150, graph=False)(pack_fastq(fq, 31))
+assert all(c > 0 for c in maps) and all(p != 0 for p in pas)
 leaked = sorted(m for m in sys.modules if m == "mazu_tpu" or m.startswith("mazu_tpu."))
 assert not leaked, leaked
 print("OK", len(mods))
@@ -87,7 +107,9 @@ def test_port_imports_and_queries_without_jax():
     assert "mazu_tpu_torch.ops.bpos_probe" in mods and "mazu_tpu_torch.kphf.sshash" in mods
     assert "mazu_tpu_torch.ops.capacity_probe" in mods and "mazu_tpu_torch.kphf.boophf32" in mods
     for name in ("hashes", "kphf.boophf", "kphf.pfhash", "kphf.sampled", "io.pf1",
-                 "io.pf1_index", "ops.gather_lab", "labs.gather_probe", "labs.dma_lab"):
+                 "io.pf1_index", "ops.gather_lab", "labs.gather_probe", "labs.dma_lab",
+                 "io.fasta", "io.fastq", "io.cuttlefish", "io.reads", "index.streaming",
+                 "index.validate", "index.colors", "index.pseudoalign"):
         assert f"mazu_tpu_torch.{name}" in mods, name
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, *mods], capture_output=True, text=True,

@@ -313,3 +313,46 @@ def write_pf1_index(dirname, index, ref_lens):
     with open(p("refAccumLengths.bin"), "wb") as f:
         acc = np.cumsum(np.asarray(ref_lens, dtype=np.uint64))
         f.write(struct.pack("<Q", len(acc)) + acc.astype("<u8").tobytes())
+
+
+# ------------------------------------------------------- reads and references
+
+
+def seq_recipe(n_refs: int = 24, length: int = 400, k: int = 31, seed: int = 11, every: int = 4):
+    """Random references, each one unitig at position 0 forward; every
+    ``every``-th unitig also occurs on the next two references (one forward,
+    one reverse, at random positions), so its color set holds three
+    references. Returns (recipe for ``build_pair``, reference sequences)."""
+    rng = np.random.default_rng(seed)
+    seqs = ["".join(rng.choice(list("ACGT"), length)) for _ in range(n_refs)]
+    multi = np.repeat(np.arange(0, n_refs, every, dtype=np.int64), 2)
+    j = np.arange(len(multi), dtype=np.int64) % 2
+    occ = (
+        np.concatenate([np.arange(n_refs), multi]),
+        np.concatenate([np.arange(n_refs), (multi + 1 + j) % n_refs]),
+        np.concatenate([np.zeros(n_refs, dtype=np.int64), rng.integers(0, length, len(multi))]),
+        np.concatenate([np.ones(n_refs, dtype=np.int64), j]),
+    )
+    return (seqs, k, occ, np.full(n_refs, length, dtype=np.int64)), seqs
+
+
+def write_fasta(path, seqs, width: int = 60, names=None):
+    """A FASTA file of ``seqs`` (records r0, r1, ...) wrapped at ``width``."""
+    with open(path, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(f">{names[i] if names else f'r{i}'}\n")
+            for a in range(0, len(s), width):
+                f.write(s[a : a + width] + "\n")
+
+
+def with_refs(pair, fasta_path):
+    """Both ModIndexes of ``pair`` with their references read from a FASTA
+    file by each package's ``RefSeqCollection.from_fasta``."""
+    from mazu_tpu.containers.refseq import RefSeqCollection as MRefs
+
+    from mazu_tpu_torch.containers.refseq import RefSeqCollection
+
+    ref, port = pair
+    ref.refs = MRefs.from_fasta(str(fasta_path))
+    port.refs = RefSeqCollection.from_fasta(str(fasta_path))
+    return ref, port
