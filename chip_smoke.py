@@ -10,18 +10,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    second and third sources);
 3. the lab kernels L1-L5 (``csrc/gather_lab.cu``) against their plain torch
    versions on the card at the labs' shapes, N=1, a ragged N and all-same
-   indices, bit-identical; then the two lab entry points
+   indices, bit-identical; L3 and L4 also on ``xor_cases`` (ragged sizes
+   around a 32-index group, fewer rows than warps, 3 x the warps + 5,
+   only row 0, only row T - 1, pairs that cancel to zero; each called
+   twice in a row); then the two lab entry points
    (``mazu_tpu_torch.labs.gather_probe`` and ``dma_lab``) as their main
    path; each kernel timed beside its plain version, its bound and the
    torch call that computes the same (``tbl[idx]``, ``index_select``);
-   the rates L1 and L3 reach from L2 on larger batches (L1: 2^24 random
-   4-byte reads of the 1 MB table; L3: 2^21 random 512-byte rows of the 8
-   MB table); the card's L2 read rate, from torch's ``.sum()`` over an 8 MB
-   and a 1 MB table each read from L2 many times in one call, and L1's,
-   L3's and L4's L2 floors at it; then the card's random-read rates from
-   device memory: L1 over a 1 GB table of u32 (2^22 random 4-byte reads:
-   sectors/s) and L5 over a 1 GB table of 512-byte rows (2^18 random rows),
-   both bit-identical to their plain versions;
+   the rates L1, L3 and L4 reach from L2 on larger batches (L1: 2^24
+   random 4-byte reads of the 1 MB table; L3, L4: 2^21 random 512-byte rows
+   of the 8 MB table); the card's L2 read rate, from ``l2_stream`` (an 8 MB
+   and a 32 MB table read ~2 GB a launch with loads that no L1 serves, in
+   order and in random orders), beside torch's ``.sum()`` over stride-0
+   views as a cross-check, and L1's, L3's and L4's L2 floors at it, and
+   whether any L3/L4 rate of the run exceeds it; then the card's
+   random-read rates from device memory: L1 over a 1 GB table of u32
+   (2^22 random 4-byte reads: sectors/s) and L5 over a 1 GB table of
+   512-byte rows (2^18 random rows), both bit-identical to their plain
+   versions;
 4. the synthetic mono2-occ32 KCDict index (random genome, k=31, 10 kb
    unitigs, every 16th unitig with 3 occurrences, load 0.25), moved to the
    card, where its main table takes K1's 64-byte rows;
@@ -125,12 +131,12 @@ operations over 67 T/s where that is larger. K1's, K2's and K3's
 ``sector_floor_ms`` is the DRAM sectors their lanes touch over phase 3's
 random-sector rate (K1's ``block_floor_ms``: its 64-byte blocks at the
 same rate). L1's, L3's and L4's ``large_batch_ms`` is their work at the
-rate the same kernel (xor_rows for L4) reaches from L2 on phase 3's larger
-batch: it shows the launch and tail share, and is no floor, since the
-kernel's own costs set it. Their ``l2_floor_ms`` is: the bytes they move
-through the L2 (a 32-byte sector per random 4-byte read, 512 bytes per
-row, and the index and output streams) over the L2 read rate of phase 3,
-which torch's reduction sets. A kernel's ``launches`` on a path run as a
+rate the same kernel reaches from L2 on phase 3's larger batch: it shows
+the launch and tail share, and is no floor, since the kernel's own costs
+set it. Their ``l2_floor_ms`` is: the bytes they move through the L2 (a
+32-byte sector per random 4-byte read, 512 bytes per row, and the index
+and output streams) over the L2 read rate of phase 3, which
+``l2_stream`` sets. A kernel's ``launches`` on a path run as a
 graph count the eager warm-up's and the captured launches: a replay
 adds none; K1's are those of phase 6's and phase 6a's first replayed
 passes. The last two lines are the kernels' JSON record and the result
@@ -1024,6 +1030,7 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
     torch.cuda.synchronize()
     log("[lab] L1-L5 at the labs' shapes, N=1, N=2^18+37 and all-same indices (and L2 on an "
         "unaligned view): bit-identical")
+    xor_cases(rows, T, NR, rng, same)
 
     # the main path: the two lab entry points
     reset_launches()
@@ -1058,19 +1065,25 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
     same("gather_u32", g.gather_u32(tblL, idx_w), g.gather_u32_plain(tblL, idx_w))
     words_s = L2_WORDS / cuda_ms(lambda: g.gather_u32(tblL, idx_w), 20) * 1e3
     idx_r = i32(rng.integers(0, T, L2_ROWS))
-    same("xor_rows", g.xor_rows(idx_r, rowsL), g.xor_rows_plain(idx_r, rowsL))
-    rows_s = L2_ROWS / cuda_ms(lambda: g.xor_rows(idx_r, rowsL), 20) * 1e3
+    rows_s = {}
+    for name in ("xor_rows", "xor_rows_ring"):
+        kern = getattr(g, name)
+        same(name, kern(idx_r, rowsL), g.xor_rows_plain(idx_r, rowsL))
+        rows_s[name] = L2_ROWS / cuda_ms(lambda: kern(idx_r, rowsL), 20) * 1e3
     del idx_w, idx_r
     log(f"[lab l2] L1 gather_u32, {L2_WORDS} random 4-byte reads of the {4 * M >> 10} KB table: "
-        f"{words_s / 1e9:.3f} G words/s; L3 xor_rows, {L2_ROWS} random 512-byte rows of the "
-        f"{row_b * T >> 20} MB table: {rows_s / 1e6:.1f} M rows/s = {row_b * rows_s / 1e12:.3f} "
-        f"TB/s ({smi})")
-    large_batch = {"gather_u32": N / words_s * 1e3, "xor_rows": NR / rows_s * 1e3,
-                "xor_rows_ring": NR / rows_s * 1e3}
+        f"{words_s / 1e9:.3f} G words/s; {L2_ROWS} random 512-byte rows of the "
+        f"{row_b * T >> 20} MB table: " + ", ".join(
+            f"{name} {r / 1e6:.1f} M rows/s = {row_b * r / 1e12:.3f} TB/s"
+            for name, r in rows_s.items()) + f" ({smi})")
+    large_batch = {"gather_u32": N / words_s * 1e3,
+                   **{name: NR / r * 1e3 for name, r in rows_s.items()}}
     # the L2 floor: the bytes each kernel moves through the L2 (a 32-byte
     # sector per random 4-byte read, 512 bytes per row, the index and
-    # output streams) at the L2 read rate that torch's reduction reaches
-    l2_rate = l2_read_rate(dev, smi)
+    # output streams) at the L2 read rate of l2_stream; torch's reductions
+    # are printed beside it as a cross-check
+    l2_rate = l2_stream_rate(dev, smi)
+    torch_l2_rate(dev, smi)
     l2_bytes = {"gather_u32": N * (32 + 4 + 4), "xor_rows": NR * (row_b + 4) + row_b,
                 "xor_rows_ring": NR * (row_b + 4) + row_b}
     l2_floor = {name: b / l2_rate * 1e3 for name, b in l2_bytes.items()}
@@ -1093,24 +1106,97 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
             f"{lib_txt}, bound {bnd[0]:.4f} ms ({bnd[1]}){l2_txt} ({smi})")
         out.append(record(name, "gather_lab.cu", replaces, launches[name], err[name], ms, plain_ms,
                           bnd, lib_ms, **extra))
+        if name in rows_s:
+            rows_s[f"{name} at N={NR}"] = NR / ms * 1e3
+    fastest = max(rows_s, key=rows_s.get)
+    top = row_b * rows_s[fastest]
+    log(f"[lab l2 floor] the L2 read rate {l2_rate / 1e12:.3f} TB/s is "
+        f"{'at or over' if l2_rate >= top else 'UNDER'} the fastest L3/L4 rate of this run, "
+        f"{fastest}'s {top / 1e12:.3f} TB/s of rows"
+        + ("" if l2_rate >= top else ": the reader is not the ceiling") + f" ({smi})")
     return out, dram_rates(dev, smi, same)
 
 
+def xor_cases(rows: torch.Tensor, t: int, n_lab: int, rng, same):
+    """L3 and L4 against their plain version, bit for bit, on batches made
+    to break a grid of contiguous 32-index runs and a ticket fold: ragged
+    sizes around a group (2, 31, 32, 33) and the lab's size - 1, fewer rows
+    than the grid has warps and 3 x its warps + 5, indices only 0 or only
+    T - 1, and pairs that cancel to zero; each called twice in a row, so a
+    ticket left non-zero by the first call shows in the second."""
+    g = gather_lab
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(rows.device)
+
+    cases = {f"N={n}": i32(rng.integers(0, t, n)) for n in (2, 31, 32, 33, n_lab - 1)}
+    for name in ("xor_rows", "xor_rows_ring"):
+        warps = g.wave_blocks(name, rows.device) * g.FOLD_WARPS
+        for n in (warps - 3, 3 * warps + 5):
+            cases[f"N={n} ({name}: {warps} warps)"] = i32(rng.integers(0, t, n))
+    cases["only row 0"] = i32(np.zeros(n_lab))
+    cases[f"only row {t - 1}"] = i32(np.full(n_lab, t - 1))
+    half = rng.integers(0, t, n_lab // 2)
+    cases["pairs that cancel"] = i32(np.concatenate([half, half[::-1]]))
+    if bool(g.xor_rows_plain(cases["pairs that cancel"], rows).any()):
+        raise AssertionError("[lab] the cancelling batch does not fold to zero")
+    for ii in cases.values():
+        want = g.xor_rows_plain(ii, rows)
+        for name in ("xor_rows", "xor_rows_ring"):
+            kern = getattr(g, name)
+            first, second = kern(ii, rows), kern(ii, rows)
+            same(name, first, want)
+            same(name, second, want)
+    torch.cuda.synchronize()
+    log(f"[lab] L3 and L4 on {'; '.join(cases)}, each called twice in a row: bit-identical")
+
+
 L2_WORDS, L2_ROWS = 1 << 24, 1 << 21  # random reads of the labs' tables for their L2 rates
-L2_READ = 512 << 20  # bytes a timed reduction reads from its L2-resident table
+L2_READ = 512 << 20  # bytes a timed torch reduction reads from its L2-resident table
+L2_STREAM = ((8, 257), (32, 65))  # l2_stream's tables (MB) and passes: ~2 GB a launch
 DRAM_WORDS, DRAM_IDX = 1 << 28, 1 << 22  # L1: 2^22 random words of a 1 GB table
 DRAM_ROWS, DRAM_NR = 1 << 21, 1 << 18  # L5: 2^18 random rows of a 1 GB table of 512-byte rows
 
 
-def l2_read_rate(dev, smi) -> float:
-    """The card's L2 read rate (bytes/s), from code other than the lab
-    kernels: torch's reductions over an 8 MB and a 1 MB table, each seen
-    through a stride-0 view that repeats it to 512 MB (``t.expand(R, n)``),
-    so that one call reads the same table from the 50 MB L2 R times and
-    its launch costs little. int32, float32 and float64 tables, summed
-    whole and row by row; returns the fastest (torch's reduction may be
-    bound by its own instructions before the L2, so the rate is the most
-    torch's code reached, a lower bound on the L2's)."""
+def l2_stream_rate(dev, smi) -> float:
+    """The card's L2 read rate (bytes/s) that the L2 floors use:
+    ``gather_lab.l2_stream`` over an 8 MB table (the labs' size) and a 32
+    MB one, each read R times in one launch (R odd: the blocks' rows fold
+    to the table's XOR, checked), in order and in a fresh random order each
+    pass. Its 16-byte ``ld.global.cg`` loads are cached in L2 only and no
+    warp repeats another's read, so no SM's L1 serves any of it. Returns
+    the fastest of the four."""
+    g = gather_lab
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    best = 0.0
+    for mb, reps in L2_STREAM:
+        tbl = torch.randint(-(1 << 31), 1 << 31, ((mb << 20) // (4 * g.ROW), g.ROW),
+                            dtype=torch.int32, device=dev, generator=gen)
+        want = g.l2_stream_plain(tbl, reps)
+        for random in (False, True):
+            if not torch.equal(g.xor_fold(g.l2_stream(tbl, reps, random)), want):
+                raise AssertionError(f"[lab l2 floor] l2_stream over {mb} MB (random={random}): "
+                                     f"its rows do not fold to the table's XOR")
+            ms = cuda_ms(lambda: g.l2_stream(tbl, reps, random), 10)
+            rate = reps * (mb << 20) / ms * 1e3
+            best = max(best, rate)
+            log(f"[lab l2 floor] l2_stream: a {mb} MB table read {reps} times in one launch, "
+                f"{'a fresh random order' if random else 'in order'} each pass: {ms:.4f} ms = "
+                f"{rate / 1e12:.3f} TB/s ({smi})")
+        del tbl
+    log(f"[lab l2 floor] the card's L2 read rate: {best / 1e12:.3f} TB/s (l2_stream, the fastest "
+        f"of the four)")
+    return best
+
+
+def torch_l2_rate(dev, smi) -> float:
+    """A cross-check of ``l2_stream_rate``, no floor: torch's reductions
+    over an 8 MB and a 1 MB table, each seen through a stride-0 view that
+    repeats it to 512 MB (``t.expand(R, n)``), so that one call reads the
+    same table R times; int32, float32 and float64 tables, summed whole
+    and row by row. Every row of such a view reads the same addresses, so
+    an SM's L1 may serve part of it. Returns the fastest."""
     best = 0.0
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
@@ -1128,9 +1214,11 @@ def l2_read_rate(dev, smi) -> float:
                 ms = cuda_ms(fn, 20)
                 rate = L2_READ / ms * 1e3
                 best = max(best, rate)
-                log(f"[lab l2 floor] {table.dtype} .sum() {how} of a {mb} MB table read {reps} "
-                    f"times through a stride-0 view: {ms:.4f} ms = {rate / 1e12:.3f} TB/s ({smi})")
-    log(f"[lab l2 floor] the card's L2 read rate: {best / 1e12:.3f} TB/s, the fastest of the twelve")
+                log(f"[lab l2 floor] {table.dtype} .sum() {how} of a {mb} MB table read "
+                    f"{reps} times through a stride-0 view: {ms:.4f} ms = {rate / 1e12:.3f} TB/s "
+                    f"({smi})")
+    log(f"[lab l2 floor] torch's reductions: {best / 1e12:.3f} TB/s at best (a cross-check, not "
+        f"the floor: L1 may serve part of a stride-0 view)")
     return best
 
 

@@ -3,10 +3,11 @@
 
 N random (1, 128) i32 rows of an i32[T, 128] table, by four strategies:
 
-- ``vmem_loop`` -> L3 ``xor_rows``: one warp per row, XOR-reduced in
-  registers, shared memory and atomics;
-- ``dma_ring`` -> L4 ``xor_rows_ring``: each row through an 8-deep ring of
-  ``cp.async`` copies into shared memory;
+- ``vmem_loop`` -> L3 ``xor_rows``: one wave of blocks, a contiguous run
+  of indices a warp, four rows a lane in flight in registers, XOR-folded
+  through a scratch row a block;
+- ``dma_ring`` -> L4 ``xor_rows_ring``: the same, each row through an
+  8-deep ring of ``cp.async`` copies a warp into shared memory;
 - ``tiled`` -> L5 ``gather_rows``: rows written back to device memory,
   XOR-folded outside the kernel;
 - ``xla``: torch's ``tbl[idx]`` and the same fold.

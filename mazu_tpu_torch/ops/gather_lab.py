@@ -10,10 +10,16 @@ CPU tensors take the plain version; CUDA tensors launch the kernel of
 - ``hash_mix32x8(x)``: 8 rounds of ``z = (z ^ (z >> 16)) * 0x85EBCA6B``
   mod 2^32 (L2);
 - ``xor_rows(idx, tbl)``: the XOR of rows ``tbl[idx]`` as one (1, 128) row
-  (L3); ``xor_rows_ring`` computes the same through an async-copy ring (L4);
+  (L3); ``xor_rows_ring`` computes the same through an async-copy ring (L4).
+  Both run one wave of blocks and fold through a ``[blocks, 128]`` scratch
+  that the wrapper allocates (``wave_blocks``); the kernel writes the
+  whole output, which nothing zero-fills;
 - ``gather_rows(idx, tbl)``: the rows ``tbl[idx]``, i32[N, 128] (L5);
   ``tiled(idx, tbl)`` folds them with ``xor_fold``, as the lab did outside
-  its kernel.
+  its kernel;
+- ``l2_stream(tbl, reps, random)``: no port of a TPU kernel, the yardstick
+  of the L2 floors: every row of an L2-resident table read ``reps`` times
+  in one launch with loads that no SM's L1 serves. Not in ``NAMES``.
 
 The kernels are compiled on first use (``cuda_build``) and loaded with
 ``ctypes``. ``LAUNCHES[name]`` counts each kernel's launches.
@@ -31,8 +37,22 @@ SOURCE = CSRC / "gather_lab.cu"
 NAMES = ("gather_u32", "hash_mix32x8", "xor_rows", "xor_rows_ring", "gather_rows")
 LAUNCHES = dict.fromkeys(NAMES, 0)
 ROW = 128  # i32 columns of a lab row (512 bytes)
+FOLD_WARPS = 32  # warps a block of xor_rows, xor_rows_ring and l2_stream
 _C = 0x85EBCA6B
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+ARGTYPES = {  # every entry of SOURCE, its parameters in order (the stream last)
+    "gather_u32": [_P, _P, _P, _I64, _P],
+    "hash_mix32x8": [_P, _P, _I64, _INT, _P],
+    "xor_rows_blocks": [],
+    "xor_rows_ring_blocks": [],
+    "l2_stream_blocks": [],
+    "xor_rows": [_P, _P, _P, _P, _I64, _INT, _P],
+    "xor_rows_ring": [_P, _P, _P, _P, _I64, _INT, _P],
+    "l2_stream": [_P, _INT, _INT, _INT, _P, _INT, _P],
+    "gather_rows": [_P, _P, _P, _I64, _P],
+}
 _LIB = None
+_WAVE = {}  # (kernel, device index) -> its blocks of one wave
 
 
 def _fn(name: str):
@@ -40,11 +60,9 @@ def _fn(name: str):
     if _LIB is None:
         path, _ = compile_library(SOURCE)
         lib = ctypes.CDLL(str(path))
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        for nm in NAMES:
+        for nm, types in ARGTYPES.items():
             f = getattr(lib, nm)
-            f.argtypes = ([p, i64, ctypes.c_int, p] if nm == "hash_mix32x8"
-                          else [p, p, p, i64, p])
+            f.argtypes = types
             f.restype = ctypes.c_int
         _LIB = lib
     return getattr(_LIB, name)
@@ -54,14 +72,35 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch(name: str, *args):
-    """Launch kernel ``name`` on the current stream of the first tensor's
+def _call(name: str, *args):
+    """Call entry ``name`` on the current stream of the first tensor's
     device; tensors go as their data pointers."""
     err = _fn(name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
                     _stream(args[0].device))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _launch(name: str, *args):
+    """``_call`` a kernel of ``NAMES`` and count the launch."""
+    _call(name, *args)
     LAUNCHES[name] += 1
+
+
+def wave_blocks(name: str, device: torch.device) -> int:
+    """Blocks of one wave of kernel ``name`` (``xor_rows``,
+    ``xor_rows_ring``, ``l2_stream``) on the card: its SMs times the blocks
+    of the kernel one SM holds, from the C side's occupancy query
+    (``<name>_blocks``); asked once a device. The kernel launches that many
+    blocks and folds through a scratch row for each."""
+    key = (name, device.index)
+    if key not in _WAVE:
+        blocks = _fn(f"{name}_blocks")()
+        if blocks <= 0:
+            raise RuntimeError(f"{name}: no block of one wave (the occupancy query gave "
+                               f"{blocks}: minus a CUDA error, or no block fits an SM)")
+        _WAVE[key] = blocks
+    return _WAVE[key]
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -81,12 +120,16 @@ def _check_1d_i32(name: str, what: str, t: torch.Tensor):
         raise ValueError(f"{name}: {what} must be a contiguous 1-D int32 tensor")
 
 
-def _check_rows(name: str, idx: torch.Tensor, tbl: torch.Tensor):
-    _check_1d_i32(name, "idx", idx)
+def _check_table(name: str, tbl: torch.Tensor):
     if (tbl.dtype != torch.int32 or tbl.dim() != 2 or tbl.shape[1] != ROW
             or not tbl.is_contiguous() or tbl.data_ptr() % 16):
         raise ValueError(f"{name}: tbl must be a contiguous, 16-byte aligned int32 "
                          f"[T, {ROW}] tensor")
+
+
+def _check_rows(name: str, idx: torch.Tensor, tbl: torch.Tensor):
+    _check_1d_i32(name, "idx", idx)
+    _check_table(name, tbl)
 
 
 # ---------------------------------------------------------------- L1
@@ -157,19 +200,24 @@ def _xor_rows(name: str, idx: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     if not _on_card(name, idx, tbl):
         return xor_rows_plain(idx, tbl)
     _check_rows(name, idx, tbl)
-    out = torch.zeros(1, ROW, dtype=torch.int32, device=idx.device)
-    if idx.numel():
-        _launch(name, tbl, idx, out, idx.numel())
+    if not idx.numel():
+        return xor_fold(tbl[:0])
+    blocks = wave_blocks(name, idx.device)
+    part = torch.empty(blocks, ROW, dtype=torch.int32, device=idx.device)
+    out = torch.empty(1, ROW, dtype=torch.int32, device=idx.device)
+    _launch(name, tbl, idx, part, out, idx.numel(), blocks)
     return out
 
 
 def xor_rows(idx: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
-    """XOR of the 512-byte rows ``tbl[idx]``, a (1, 128) int32 row (L3)."""
+    """XOR of the 512-byte rows ``tbl[idx]``, a (1, 128) int32 row (L3):
+    every row read, kept in registers."""
     return _xor_rows("xor_rows", idx, tbl)
 
 
 def xor_rows_ring(idx: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
-    """``xor_rows``, each row fetched through an 8-deep async-copy ring (L4)."""
+    """``xor_rows``, each row fetched through an 8-deep async-copy ring a
+    warp (L4)."""
     return _xor_rows("xor_rows_ring", idx, tbl)
 
 
@@ -191,3 +239,31 @@ def gather_rows(idx: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
 def tiled(idx: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     """The lab's ``tiled``: rows gathered by L5, then folded outside it."""
     return xor_fold(gather_rows(idx, tbl))
+
+
+# ---------------------------------------------------------------- the L2 yardstick
+
+
+def l2_stream_plain(tbl: torch.Tensor, reps: int) -> torch.Tensor:
+    """What ``l2_stream``'s rows fold to: the table's XOR ``reps`` times
+    over, i.e. once for odd ``reps``, else zero; as one row."""
+    return xor_fold(tbl) if reps % 2 else xor_fold(tbl[:0])
+
+
+def l2_stream(tbl: torch.Tensor, reps: int, random: bool = False) -> torch.Tensor:
+    """Read every row of ``tbl`` (int32 [2^k, 128]) ``reps`` times in one
+    launch, each pass in order or, with ``random``, in a fresh permutation
+    of the rows; returns the blocks' XORs [blocks, 128], which ``xor_fold``
+    to ``l2_stream_plain`` (its one row on the CPU). The card's L2 read
+    rate, timed by ``chip_smoke.py``; no TPU kernel, not counted in
+    ``LAUNCHES``."""
+    if not _on_card("l2_stream", tbl):
+        return l2_stream_plain(tbl, reps)
+    _check_table("l2_stream", tbl)
+    rows = tbl.shape[0]
+    if rows & (rows - 1) or not rows or reps <= 0:
+        raise ValueError(f"l2_stream: {rows} rows is not a power of two, or reps {reps} < 1")
+    blocks = wave_blocks("l2_stream", tbl.device)
+    part = torch.empty(blocks, ROW, dtype=torch.int32, device=tbl.device)
+    _call("l2_stream", tbl, rows.bit_length() - 1, reps, int(random), part, blocks)
+    return part

@@ -1,7 +1,8 @@
 """The argument blocks of the CUDA kernels K1 (``csrc/mono2_probe.cu``), K2
 (``csrc/bpos_probe.cu``) and K3 (``csrc/capacity_probe.cu``) against their
 ctypes mirrors (``ops/mono2_probe._Args``, ``ops/bpos_probe._Args``,
-``ops/capacity_probe._Args``).
+``ops/capacity_probe._Args``), and the C entries of the lab kernels
+(``csrc/gather_lab.cu``) against ``ops/gather_lab.ARGTYPES``.
 
 A field that drifts on one side shifts every field after it, and the
 kernel then reads garbage and writes wrong outputs without an error; no
@@ -17,7 +18,7 @@ import re
 
 import pytest
 
-from mazu_tpu_torch.ops import bpos_probe, capacity_probe, mono2_probe
+from mazu_tpu_torch.ops import bpos_probe, capacity_probe, gather_lab, mono2_probe
 
 EIGHT_BYTE_INTS = {"int64_t", "uint64_t"}
 
@@ -77,3 +78,26 @@ def test_args_block_matches_source(kernel):
     # the limits and tile size that the wrapper and chip_smoke.py rely on
     found = constexprs(src)
     assert {c: found[c] for c in consts} == {c: getattr(mod, py) for c, py in consts.items()}
+
+
+C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int64_t": ctypes.c_int64,
+           "int": ctypes.c_int}
+
+
+def c_entries(src: str) -> dict:
+    """The C type of each parameter of each ``extern "C" int`` entry."""
+    return {m.group(1): [" ".join(p.split()[:-1]) for p in m.group(2).split(",") if p.strip()]
+            for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+
+
+def test_gather_lab_entries_match_argtypes():
+    """Each entry of the lab source takes the ctypes types the wrapper
+    declares, in order: an argument list one short (hash_mix32x8's had
+    four types for five parameters) passes the rest by ctypes' default
+    conversion, a C int, which cuts a 64-bit count or stream handle."""
+    src = gather_lab.SOURCE.read_text()
+    entries = c_entries(src)
+    assert set(entries) == set(gather_lab.ARGTYPES) and set(gather_lab.NAMES) < set(entries)
+    for name, types in entries.items():
+        assert [C_TYPES[t] for t in types] == gather_lab.ARGTYPES[name], name
+    assert constexprs(src)["kFoldWarps"] == gather_lab.FOLD_WARPS

@@ -1,9 +1,11 @@
 """The plain versions of the gather-lab kernels L1-L5 against the lab
 Pallas kernels of ``labs/pallas_probe.py`` and ``labs/tpu_dma_lab.py`` in
 interpret mode, with tolerance 0; the lab entry points at their CPU sizes;
-and the wrappers' refusals and launch counters (the kernels themselves run
+the wrappers' refusals, launch counters and L3/L4's fold scratch; and the
+L2 yardstick ``l2_stream``'s plain version (the kernels themselves run
 only on the card, in ``chip_smoke.py``)."""
 
+import ctypes
 import os
 import sys
 
@@ -97,6 +99,51 @@ def test_xor_rows_plain_equals_pallas(dma_case, lab, port):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+PORTS = {
+    "vmem_loop": gather_lab.xor_rows,
+    "dma_ring": gather_lab.xor_rows_ring,
+    "tiled": gather_lab.tiled,
+    "xla": lambda i, t: gather_lab.xor_fold(t[i.to(torch.int64)]),
+}
+
+
+@pytest.fixture(scope="module")
+def dma_edge_cases():
+    """Batches at the edges of L3/L4's 32-index groups (N = 1, 31, 33) and
+    one of pairs that cancel to zero, over dma_case's kind of table."""
+    T = 256
+    rng = np.random.default_rng(5)
+    tbl = rng.integers(0, 1 << 31, size=(T, 128), dtype=np.int32)
+    tbl[:, 0] |= np.int32(-(1 << 31))
+    cases = {f"N={n}": rng.integers(0, T, n, dtype=np.int32) for n in (1, 31, 33)}
+    half = rng.integers(0, T, 20, dtype=np.int32)
+    cases["pairs"] = np.concatenate([half, half[::-1]])
+    return tbl, {name: (idx, tpu_dma_lab.build_fns(T, len(idx), True))
+                 for name, idx in cases.items()}
+
+
+@pytest.mark.parametrize("case", ["N=1", "N=31", "N=33", "pairs"])
+@pytest.mark.parametrize("lab", sorted(PORTS))
+def test_xor_rows_plain_equals_pallas_at_edge_sizes(dma_edge_cases, lab, case):
+    """As ``test_xor_rows_plain_equals_pallas``, at the edge sizes. The
+    Pallas ``vmem_loop`` runs N // 8 steps of a loop unrolled by 8 with no
+    tail, so it folds only the first N // 8 * 8 rows; the port's L3 folds
+    every row, as ``tpu_dma_lab.reference`` and the other strategies do,
+    and equals the Pallas kernel on that prefix."""
+    tbl, cases = dma_edge_cases
+    idx, fns = cases[case]
+    got = PORTS[lab](torch.from_numpy(idx), torch.from_numpy(tbl))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (1, 128)
+    np.testing.assert_array_equal(got.numpy(), tpu_dma_lab.reference(idx, tbl))
+    want = np.asarray(fns[lab](jnp.asarray(idx), jnp.asarray(tbl)))
+    covered = len(idx) // 8 * 8 if lab == "vmem_loop" else len(idx)
+    np.testing.assert_array_equal(want, tpu_dma_lab.reference(idx[:covered], tbl))
+    prefix = PORTS[lab](torch.from_numpy(idx[:covered]), torch.from_numpy(tbl))
+    np.testing.assert_array_equal(prefix.numpy(), want)
+    if case == "pairs":
+        assert not want.any()
+
+
 def test_gather_rows_plain(dma_case):
     """L5 before its fold (the Pallas ``tiled`` above holds the fold): the
     rows themselves, in order."""
@@ -135,15 +182,26 @@ def test_wrappers_refuse_other_devices_and_mixed_devices():
         gather_lab.gather_u32(torch.zeros(4, dtype=torch.int32), meta_t)
 
 
+FAKE_BLOCKS = 3  # one wave of blocks, as the fake card's occupancy queries give it
+
+
+def fake_entry(name: str, kernel):
+    """The fake card's C entry ``name``: a one-wave query gives FAKE_BLOCKS,
+    any other entry is ``kernel``."""
+    return (lambda: FAKE_BLOCKS) if name.endswith("_blocks") else kernel
+
+
 @pytest.fixture
 def fake_card(monkeypatch):
     """Treat CPU tensors as on the card with a kernel that returns
-    ``status[0]``, to drive the wrappers' checks and counters here."""
+    ``status[0]`` (and one-wave queries that give FAKE_BLOCKS), to drive
+    the wrappers' checks and counters here."""
     status = [0]
     monkeypatch.setattr(gather_lab, "_on_card", lambda name, *t: True)
     monkeypatch.setattr(gather_lab, "_stream", lambda device: 0)
-    monkeypatch.setattr(gather_lab, "_fn", lambda name: lambda *a: status[0])
+    monkeypatch.setattr(gather_lab, "_fn", lambda name: fake_entry(name, lambda *a: status[0]))
     monkeypatch.setattr(gather_lab, "LAUNCHES", dict.fromkeys(gather_lab.NAMES, 0))
+    monkeypatch.setattr(gather_lab, "_WAVE", {})
     return status
 
 
@@ -169,3 +227,71 @@ def test_wrappers_check_inputs_and_count_launches(fake_card):
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         gather_lab.xor_rows_ring(i32, rows)
     assert gather_lab.LAUNCHES["xor_rows_ring"] == 1
+
+
+def test_row_folds_take_one_wave_of_scratch_and_never_fill_out(fake_card, monkeypatch):
+    """L3's and L4's wrappers hand the kernel a [blocks, 128] int32 scratch
+    for the blocks that the C side's one-wave query gives, launch that many
+    blocks, and return the output the kernel wrote whole: nothing fills it
+    before the launch."""
+    idx = torch.arange(40, dtype=torch.int32)
+    rows = torch.ones(64, gather_lab.ROW, dtype=torch.int32)
+    calls, made = [], []
+
+    def kernel(tbl, ii, part, out, n, blocks, stream):
+        calls.append((part, out, n, blocks))
+        ctypes.memset(out, 0x5A, 4 * gather_lab.ROW)
+        return 0
+
+    empty = torch.empty
+
+    def recording_empty(*a, **k):
+        made.append(empty(*a, **k))
+        return made[-1]
+
+    def no_fill(*a, **k):
+        raise AssertionError("the output was filled before the launch")
+
+    monkeypatch.setattr(gather_lab, "_fn", lambda name: fake_entry(name, kernel))
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    for name in ("zeros", "zeros_like", "full", "full_like"):
+        monkeypatch.setattr(torch, name, no_fill)
+    for name in ("zero_", "fill_"):
+        monkeypatch.setattr(torch.Tensor, name, no_fill)
+    for fn in (gather_lab.xor_rows, gather_lab.xor_rows_ring):
+        calls.clear()
+        made.clear()
+        got = fn(idx, rows)
+        [(part, out, n, blocks)] = calls
+        assert (n, blocks) == (40, FAKE_BLOCKS)
+        [scratch] = [t for t in made if t.data_ptr() == part]
+        assert scratch.dtype == torch.int32 and tuple(scratch.shape) == (FAKE_BLOCKS, 128)
+        assert got.data_ptr() == out and tuple(got.shape) == (1, 128)
+        assert bool((got == 0x5A5A5A5A).all())
+    assert gather_lab.LAUNCHES == {**dict.fromkeys(gather_lab.NAMES, 0),
+                                   "xor_rows": 1, "xor_rows_ring": 1}
+
+
+@pytest.mark.parametrize("reps", [1, 2, 3])
+def test_l2_stream_plain_folds_to_the_table(reps):
+    tbl = np.random.default_rng(reps).integers(-(1 << 31), 1 << 31, (16, 128)).astype(np.int32)
+    got = gather_lab.xor_fold(gather_lab.l2_stream(torch.from_numpy(tbl), reps, random=True))
+    want = np.bitwise_xor.reduce(np.concatenate([tbl] * reps), axis=0)
+    np.testing.assert_array_equal(got.numpy()[0], want)
+
+
+def test_l2_stream_on_the_card_is_no_counted_kernel(fake_card, monkeypatch):
+    """The yardstick reads a power-of-two table with one wave of blocks and
+    counts no launch of the lab kernels."""
+    calls = []
+    monkeypatch.setattr(gather_lab, "_fn", lambda name: fake_entry(
+        name, lambda *a: calls.append(a) or 0))
+    part = gather_lab.l2_stream(torch.zeros(16, 128, dtype=torch.int32), 3, random=True)
+    assert part.dtype == torch.int32 and tuple(part.shape) == (FAKE_BLOCKS, 128)
+    [(_, bits, reps, random, out, blocks, _)] = calls
+    assert (bits, reps, random, out, blocks) == (4, 3, 1, part.data_ptr(), FAKE_BLOCKS)
+    assert gather_lab.LAUNCHES == dict.fromkeys(gather_lab.NAMES, 0)
+    with pytest.raises(ValueError, match="power of two"):
+        gather_lab.l2_stream(torch.zeros(12, 128, dtype=torch.int32), 3)
+    with pytest.raises(ValueError, match=r"\[T, 128\]"):
+        gather_lab.l2_stream(torch.zeros(16, 64, dtype=torch.int32), 3)
