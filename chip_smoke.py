@@ -10,24 +10,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    second and third sources);
 3. the lab kernels L1-L5 (``csrc/gather_lab.cu``) against their plain torch
    versions on the card at the labs' shapes, N=1, a ragged N and all-same
-   indices, bit-identical; L3 and L4 also on ``xor_cases`` (ragged sizes
+   indices, bit-identical; L1 also on an unaligned index view, all-0 and
+   all-(M-1) indices each called twice, ragged tables (M = 37, 2^18 - 1,
+   2^18 + 1) and inputs written by the kernels just before it (its
+   launch overlaps theirs), and L1's frozen first design (``sector_reads``)
+   at the lab's shape; L3 and L4 also on ``xor_cases`` (ragged sizes
    around a 32-index group, fewer rows than warps, 3 x the warps + 5,
    only row 0, only row T - 1, pairs that cancel to zero; each called
    twice in a row); then the two lab entry points
    (``mazu_tpu_torch.labs.gather_probe`` and ``dma_lab``) as their main
    path; each kernel timed beside its plain version, its bound and the
-   torch call that computes the same (``tbl[idx]``, ``index_select``);
+   torch call that computes the same (``tbl[idx]``, ``index_select``), L1
+   in turns with ``sector_reads``;
    the rates L1, L3 and L4 reach from L2 on larger batches (L1: 2^24
    random 4-byte reads of the 1 MB table; L3, L4: 2^21 random 512-byte rows
    of the 8 MB table); the card's L2 read rate, from ``l2_stream`` (an 8 MB
    and a 32 MB table read ~2 GB a launch with loads that no L1 serves, in
    order and in random orders), beside torch's ``.sum()`` over stride-0
    views as a cross-check, and L1's, L3's and L4's L2 floors at it, and
-   whether any L3/L4 rate of the run exceeds it; then the card's
-   random-read rates from device memory: L1 over a 1 GB table of u32
-   (2^22 random 4-byte reads: sectors/s) and L5 over a 1 GB table of
-   512-byte rows (2^18 random rows), both bit-identical to their plain
-   versions;
+   whether any L3/L4 rate of the run exceeds it; the L2's random-sector
+   rate, from ``l2_sectors`` (random 4-byte words of a 1 MB and an 8 MB
+   table that no L1 serves), and L1's sector floor at it; then the card's
+   random-read rates from device memory: ``sector_reads`` over a 1 GB
+   table of u32 (2^22 random 4-byte reads: sectors/s; L1 on the same
+   beside it) and L5 over a 1 GB table of 512-byte rows (2^18 random
+   rows), all bit-identical to their plain versions;
 4. the synthetic mono2-occ32 KCDict index (random genome, k=31, 10 kb
    unitigs, every 16th unitig with 3 occurrences, load 0.25), moved to the
    card, where its main table takes K1's 64-byte rows;
@@ -136,7 +143,10 @@ the launch and tail share, and is no floor, since the kernel's own costs
 set it. Their ``l2_floor_ms`` is: the bytes they move through the L2 (a
 32-byte sector per random 4-byte read, 512 bytes per row, and the index
 and output streams) over the L2 read rate of phase 3, which
-``l2_stream`` sets. A kernel's ``launches`` on a path run as a
+``l2_stream`` sets. L1's ``sector_floor_ms`` is its N random reads at the
+L2's random-sector rate (``l2_sectors``) plus its 8N bytes of index and
+output streams at that read rate; its ``before_ms`` is its frozen first
+design's time in the same turns. A kernel's ``launches`` on a path run as a
 graph count the eager warm-up's and the captured launches: a replay
 adds none; K1's are those of phase 6's and phase 6a's first replayed
 passes. The last two lines are the kernels' JSON record and the result
@@ -217,7 +227,8 @@ def bound(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
 def record(name: str, source: str, replaces: str, launches: int, max_err: int, ms: float,
            plain_ms: float, bound_ms: tuple[float, str], library_ms=None, **extra) -> dict:
     """One kernel's entry of the kernels line (``extra``: the floors, K1-K3's
-    ``sector_floor_ms``, K1's ``block_floor_ms``, L1/L3/L4's ``large_batch_ms``)."""
+    and L1's ``sector_floor_ms``, K1's ``block_floor_ms``, L1/L3/L4's
+    ``large_batch_ms`` and ``l2_floor_ms``, L1's ``before_ms``)."""
     return {
         "name": name, "route": "cuda", "source": f"mazu_tpu_torch/csrc/{source}",
         "replaces": replaces, "launches": launches, "max_abs_err": max_err, "ms": ms,
@@ -1001,7 +1012,7 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
     def u32(shape):
         return i32(rng.integers(-(1 << 31), 1 << 31, shape))
 
-    err = dict.fromkeys(g.NAMES, 0)
+    err = dict.fromkeys((*g.NAMES, "sector_reads"), 0)
 
     def same(name, got, want):
         if got.dtype != want.dtype or got.shape != want.shape:
@@ -1017,6 +1028,7 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
         idx = i32(rng.integers(0, M, n))
         for ii in (idx, torch.full_like(idx, M - 1)):
             same("gather_u32", g.gather_u32(tbl, ii), g.gather_u32_plain(tbl, ii))
+        same("sector_reads", g.sector_reads(tbl, idx), g.gather_u32_plain(tbl, idx))
         x = u32(n + 1)
         for xx in (x[:n], x[1:]):  # 16-byte aligned, and not
             same("hash_mix32x8", g.hash_mix32x8(xx), g.hash_mix32x8_plain(xx))
@@ -1029,7 +1041,8 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
             same("gather_rows", g.gather_rows(ii, rows), g.gather_rows_plain(ii, rows))
     torch.cuda.synchronize()
     log("[lab] L1-L5 at the labs' shapes, N=1, N=2^18+37 and all-same indices (and L2 on an "
-        "unaligned view): bit-identical")
+        "unaligned view), and sector_reads: bit-identical")
+    gather_cases(tbl, M, N, rng, same)
     xor_cases(rows, T, NR, rng, same)
 
     # the main path: the two lab entry points
@@ -1087,10 +1100,22 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
     l2_bytes = {"gather_u32": N * (32 + 4 + 4), "xor_rows": NR * (row_b + 4) + row_b,
                 "xor_rows_ring": NR * (row_b + 4) + row_b}
     l2_floor = {name: b / l2_rate * 1e3 for name, b in l2_bytes.items()}
+    # L1's sector floor: its N random reads at the L2's random-sector rate,
+    # its index and output streams at the L2 read rate
+    sector_floor = (N / l2_sectors_rate(dev, smi) + 8 * N / l2_rate) * 1e3
+    # L1 in turns with its frozen first design on the same inputs
+    turns = [(name, cuda_ms(lambda: getattr(g, name)(tblL, idxL), 50))
+             for name in ("sector_reads", "gather_u32", "gather_u32", "sector_reads")]
+    l1_ms, before_ms = (statistics.mean(t for name, t in turns if name == k)
+                        for k in ("gather_u32", "sector_reads"))
+    log("[lab] L1 in turns with its frozen first design: "
+        + ", ".join(f"{name} {t:.4f}" for name, t in turns)
+        + f" ms; {l1_ms:.4f} against {before_ms:.4f} ms ({before_ms / l1_ms:.3f}x) ({smi})")
     out = []
     for name, replaces in LAB:
         kern, plain, library, bnd = spec[name]
-        ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 10)
+        ms = l1_ms if name == "gather_u32" else cuda_ms(kern, 50)
+        plain_ms = cuda_ms(plain, 10)
         lib_ms = cuda_ms(library, 50) if library else None
         if name in ("gather_u32", "hash_mix32x8"):
             rate = f"{N / ms / 1e6:.3f} G words/s"
@@ -1102,6 +1127,10 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
         l2_txt = (f", at its large-batch L2 rate {large_batch[name]:.4f} ms, L2 floor "
                   f"{l2_floor[name]:.4f} ms ({l2_floor[name] / ms:.1%} of the kernel's time: "
                   f"{'under' if l2_floor[name] / ms < 0.5 else 'at or over'} half)" if extra else "")
+        if name == "gather_u32":
+            extra.update(sector_floor_ms=sector_floor, before_ms=before_ms)
+            l2_txt += (f", sector floor {sector_floor:.4f} ms ({sector_floor / ms:.1%}), first "
+                       f"design in turns {before_ms:.4f} ms")
         log(f"[lab] {name}: kernel {ms:.4f} ms ({rate}), plain {plain_ms:.4f} ms, torch call "
             f"{lib_txt}, bound {bnd[0]:.4f} ms ({bnd[1]}){l2_txt} ({smi})")
         out.append(record(name, "gather_lab.cu", replaces, launches[name], err[name], ms, plain_ms,
@@ -1115,6 +1144,42 @@ def lab_kernels(dev, smi, lib: str, report: str) -> list:
         f"{fastest}'s {top / 1e12:.3f} TB/s of rows"
         + ("" if l2_rate >= top else ": the reader is not the ceiling") + f" ({smi})")
     return out, dram_rates(dev, smi, same)
+
+
+def gather_cases(tbl: torch.Tensor, m: int, n_lab: int, rng, same):
+    """L1 against its plain version, bit for bit, on what its launch and
+    its one thread a word could get wrong: an index view 4 bytes off 16-byte
+    alignment, all-0 and all-(M-1) indices each called twice, ragged tables
+    (37, 2^18 - 1, 2^18 + 1 words) and a table and indices written by the
+    kernels launched just before each call (the launch may begin before
+    they end, and must not read before they do)."""
+    g = gather_lab
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int64).astype(np.int32)).to(tbl.device)
+
+    def check(t, ii, calls=1):
+        for _ in range(calls):
+            same("gather_u32", g.gather_u32(t, ii), g.gather_u32_plain(t, ii))
+
+    ii = i32(rng.integers(0, m, n_lab + 1))
+    check(tbl, ii[1:])
+    for fill in (0, m - 1):
+        check(tbl, torch.full_like(ii[:n_lab], fill), calls=2)
+    for words in (37, m - 1, m + 1):
+        t = i32(rng.integers(-(1 << 31), 1 << 31, words))
+        check(t, i32(rng.integers(0, words, n_lab + 37)))
+        check(t, torch.full_like(ii[:n_lab], words - 1), calls=2)
+    gen = torch.Generator(device=tbl.device)
+    gen.manual_seed(17)
+    for k in range(8):
+        t = tbl * (k + 3)
+        check(t, torch.randint(0, m, (n_lab + k,), dtype=torch.int32, device=tbl.device,
+                               generator=gen))
+    torch.cuda.synchronize()
+    log(f"[lab] L1 on idx[1:], all-0 and all-{m - 1} indices (twice each), tables of 37, "
+        f"{m - 1} and {m + 1} words, and inputs written just before each of 8 calls: "
+        f"bit-identical")
 
 
 def xor_cases(rows: torch.Tensor, t: int, n_lab: int, rng, same):
@@ -1190,6 +1255,39 @@ def l2_stream_rate(dev, smi) -> float:
     return best
 
 
+L2_SECTORS = ((18, 257), (21, 33))  # l2_sectors' tables (2^k words: 1, 8 MB), passes: ~2^26 reads
+
+
+def l2_sectors_rate(dev, smi) -> float:
+    """The L2's random-sector rate (reads/s) that L1's sector floor uses:
+    ``gather_lab.l2_sectors`` over a 1 MB table (the lab's) and an 8 MB
+    one, each word read R times in one launch (R odd: the blocks' words
+    fold to the table's XOR, checked), a fresh random order each pass. Its
+    4-byte ``ld.global.cg`` loads each cost one 32-byte L2 sector and no
+    L1 serves a repeat. Returns the faster of the two."""
+    g = gather_lab
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    best = 0.0
+    for bits, reps in L2_SECTORS:
+        tbl = torch.randint(-(1 << 31), 1 << 31, (1 << bits,), dtype=torch.int32, device=dev,
+                            generator=gen)
+        got = g.xor_fold(g.l2_sectors(tbl, reps).reshape(-1, 1)).reshape(1)
+        if not torch.equal(got, g.l2_sectors_plain(tbl, reps)):
+            raise AssertionError(f"[lab l2 sectors] l2_sectors over 2^{bits} words: its words do "
+                                 f"not fold to the table's XOR")
+        ms = cuda_ms(lambda: g.l2_sectors(tbl, reps), 10)
+        rate = (reps << bits) / ms * 1e3
+        best = max(best, rate)
+        log(f"[lab l2 sectors] l2_sectors: a {4 << bits >> 20} MB table's words read {reps} times "
+            f"in one launch, a fresh random order each pass: {ms:.4f} ms = {rate / 1e9:.2f} G "
+            f"sectors/s = {32 * rate / 1e12:.3f} TB/s of 32-byte sectors ({smi})")
+        del tbl
+    log(f"[lab l2 sectors] the L2's random-sector rate: {best / 1e9:.2f} G sectors/s (the faster "
+        f"of the two)")
+    return best
+
+
 def torch_l2_rate(dev, smi) -> float:
     """A cross-check of ``l2_stream_rate``, no floor: torch's reductions
     over an 8 MB and a 1 MB table, each seen through a stride-0 view that
@@ -1223,11 +1321,13 @@ def torch_l2_rate(dev, smi) -> float:
 
 
 def dram_rates(dev, smi, same) -> float:
-    """The card's random-read rates from device memory (phase 3): L1 over
-    a 1 GB table of u32 (each 4-byte read costs one 32-byte sector) and L5
-    over a 1 GB table of 512-byte rows, both far past the 50 MB L2 and
-    bit-identical to their plain versions. Returns the random-sector rate
-    (sectors/s) that the K2 and K3 sector floors use."""
+    """The card's random-read rates from device memory (phase 3): the
+    frozen first design of L1 (``sector_reads``) over a 1 GB table of u32 (each
+    4-byte read costs one 32-byte sector), L1 itself on the same as a
+    cross-check, and L5 over a 1 GB table of 512-byte rows, all far past
+    the 50 MB L2 and bit-identical to their plain versions. Returns
+    ``sector_reads``' random-sector rate (sectors/s), which the K2 and K3
+    sector floors use."""
     g = gather_lab
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -1236,13 +1336,19 @@ def dram_rates(dev, smi, same) -> float:
         return torch.randint(0, hi, shape, dtype=torch.int32, device=dev, generator=gen)
 
     tbl, idx = rand(1 << 30, (DRAM_WORDS,)), rand(DRAM_WORDS, (DRAM_IDX,))
-    same("gather_u32", g.gather_u32(tbl, idx), g.gather_u32_plain(tbl, idx))
-    ms = cuda_ms(lambda: g.gather_u32(tbl, idx), 20)
+    want = g.gather_u32_plain(tbl, idx)
+    same("sector_reads", g.sector_reads(tbl, idx), want)
+    same("gather_u32", g.gather_u32(tbl, idx), want)
+    ms = cuda_ms(lambda: g.sector_reads(tbl, idx), 20)
     sec_s = DRAM_IDX / ms * 1e3
-    log(f"[lab dram] L1 gather_u32, {DRAM_IDX} random 4-byte reads of a {4 * DRAM_WORDS >> 20} MB "
-        f"table: {ms:.4f} ms = {sec_s / 1e9:.3f} G sectors/s = {32 * sec_s / 1e9:.1f} GB/s of "
-        f"32-byte sectors ({4 * sec_s / 1e9:.1f} GB/s of words) ({smi})")
-    del tbl, idx
+    log(f"[lab dram] sector_reads (L1's first design), {DRAM_IDX} random 4-byte reads of a "
+        f"{4 * DRAM_WORDS >> 20} MB table: {ms:.4f} ms = {sec_s / 1e9:.3f} G sectors/s = "
+        f"{32 * sec_s / 1e9:.1f} GB/s of 32-byte sectors ({4 * sec_s / 1e9:.1f} GB/s of words) "
+        f"({smi})")
+    ms = cuda_ms(lambda: g.gather_u32(tbl, idx), 20)
+    log(f"[lab dram] L1 gather_u32 on the same (a cross-check, not the floors' rate): {ms:.4f} ms "
+        f"= {DRAM_IDX / ms / 1e6:.3f} G sectors/s ({smi})")
+    del tbl, idx, want
     rows, idx = rand(1 << 30, (DRAM_ROWS, g.ROW)), rand(DRAM_ROWS, (DRAM_NR,))
     same("gather_rows", g.gather_rows(idx, rows), g.gather_rows_plain(idx, rows))
     ms = cuda_ms(lambda: g.gather_rows(idx, rows), 20)

@@ -1,6 +1,7 @@
 // Random-gather rate lab for Hopper (sm_90a): five small kernels that
 // measure how fast this card serves the reads every probe of the engine is
-// made of, and one measurement kernel that is no port (l2_stream).
+// made of, and three measurement kernels that are no port (l2_stream,
+// l2_sectors, sector_reads).
 //
 // Replaces the TPU lab kernels (all verified in interpret mode only there):
 //   gather_u32     <- labs/pallas_probe.py::gather_kernel (pallas_gather)
@@ -13,10 +14,15 @@
 //
 // What bounds them on this card:
 // - gather_u32: 2^20 random 4-byte reads from a 1 MB table. The TPU kept
-//   the table in VMEM; here it does not fit a block's 227 KB of shared
-//   memory, so it stays resident in the 50 MB L2 and each read costs a
-//   32-byte L2 sector. Bytes moved (9 MB) bound it at ~0.003 ms; L2 sector
-//   throughput sets the pace. One thread per output, read-only loads.
+//   the table in VMEM. Here no block's 227 KB of shared memory holds it, so
+//   it stays resident in the 50 MB L2 and each read costs a 32-byte L2
+//   sector: the L2's random-sector rate (~136 G/s, l2_sectors) bounds it,
+//   not the 9 MB it moves. A cluster of 8 blocks can hold the table in
+//   their shared memory, but a peer's shared memory serves random words at
+//   ~80 G/s, and sorting the reads by owner to fetch them in runs cost more
+//   than it saved (PERF.md section 6). So: one thread a word, read-only loads,
+//   which keep the L2 at ~93% of that rate, and a programmatic dependent
+//   launch that overlaps a launch with the tail of the one before it.
 // - hash_mix32x8: elementwise, 8 MB in and out; 24 integer operations a
 //   word are far below the ALU rate, so memory bounds it. 16-byte vector
 //   loads and stores, a masked tail.
@@ -61,6 +67,13 @@
 //   L1 serves a repeat), each pass over the rows in order or in a fresh
 //   random permutation, each (pass, row) read by one warp; XORs what it
 //   reads into one row a block.
+// - l2_sectors (no TPU kernel: L1's sector floor): the same for 4-byte
+//   words of a 2^bits-word table, a fresh random permutation a pass, the
+//   addresses made in registers, 8 independent ld.global.cg loads a lane in
+//   flight; XORs them into one word a block.
+// - sector_reads (no TPU kernel): gather_u32's first design, frozen, with a plain
+//   launch: the random-sector rate over a 1 GB table that K2's and K3's
+//   sector floors use, which no change to gather_u32 may move.
 //
 // Every entry launches on ``stream``, allocates nothing and returns
 // cudaGetLastError() (0 on success); the *_blocks queries return a block
@@ -82,15 +95,33 @@ constexpr int kRowLoads = 4;  // xor_rows: row loads a lane issues before it XOR
 constexpr int kRing = 8;      // xor_rows_ring: 512-byte slots a warp
 constexpr int kRingBytes = kFoldWarps * kRing * kRowInt4 * 16;
 constexpr int kStreamLoads = 4;  // l2_stream: row loads a lane in flight
+constexpr int kSectorLoads = 8;  // l2_sectors: word loads a lane in flight
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // Blocks of xor_rows and xor_rows_ring that have stored their row; the
 // last block of a launch sets its kernel's count back to 0.
 __device__ unsigned g_tickets[2];
 
+// One thread a word (the first design's body). The launch lets the next kernel on
+// the stream launch before this one ends (launch_dependents), and the
+// kernel waits for the grids before it to end, their writes visible
+// (wait), before it reads anything: consecutive launches overlap one's
+// tail with the next one's launch, and every read sees what earlier
+// kernels wrote.
 __global__ void gather_u32_kernel(const uint32_t* __restrict__ tbl,
                                   const int32_t* __restrict__ idx,
                                   uint32_t* __restrict__ out, int64_t n) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __ldg(tbl + __ldg(idx + i));
+}
+
+// gather_u32's first design, frozen as sector_reads: one thread a word, a
+// plain launch.
+__global__ void sector_reads_kernel(const uint32_t* __restrict__ tbl,
+                                    const int32_t* __restrict__ idx,
+                                    uint32_t* __restrict__ out, int64_t n) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < n) out[i] = __ldg(tbl + __ldg(idx + i));
 }
@@ -327,6 +358,40 @@ __global__ void __launch_bounds__(kFoldThreads) l2_stream_kernel(const int4* __r
   fold_blocks(acc, part, nullptr, nullptr);
 }
 
+// Word f of all reps * 2^bits reads is word order(f mod 2^bits) of pass
+// f >> bits, a fresh permutation a pass; a lane takes kSectorLoads
+// consecutive reads (one pass: bits >= 3) at a time and XORs them; a
+// block's XOR goes to part[blockIdx].
+__global__ void __launch_bounds__(kFoldThreads) l2_sectors_kernel(const uint32_t* __restrict__ tbl,
+                                                                  int bits, int reps,
+                                                                  uint32_t* __restrict__ part) {
+  __shared__ uint32_t red[kFoldWarps];
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * kFoldThreads;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kFoldThreads + threadIdx.x;
+  const uint32_t mask = (1u << bits) - 1;
+  const int64_t total = static_cast<int64_t>(reps) << bits;
+  uint32_t acc = 0;
+  for (int64_t f = t * kSectorLoads; f < total; f += threads * kSectorLoads) {
+    const PassOrder order(static_cast<uint32_t>(f >> bits), bits);
+    uint32_t v[kSectorLoads];
+#pragma unroll
+    for (int u = 0; u < kSectorLoads; ++u)
+      v[u] = __ldcg(tbl + order(static_cast<uint32_t>(f + u) & mask));
+#pragma unroll
+    for (int u = 0; u < kSectorLoads; ++u) acc ^= v[u];
+  }
+#pragma unroll
+  for (int d = 16; d; d >>= 1) acc ^= __shfl_xor_sync(kFullMask, acc, d);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int w = 0; w < kFoldWarps; ++w) v ^= red[w];
+    part[blockIdx.x] = v;
+  }
+}
+
 __global__ void gather_rows_kernel(const int4* __restrict__ tbl,
                                    const int32_t* __restrict__ idx,
                                    int4* __restrict__ out, int64_t n) {
@@ -369,14 +434,35 @@ cudaError_t ring_smem() {
 
 }  // namespace
 
-extern "C" int gather_u32(const void* tbl, const void* idx, void* out, int64_t n,
-                          void* stream) {
+// gather_u32's frozen first design: the random-sector yardstick of K2's and
+// K3's floors (chip_smoke.py's 1 GB table) and the "before" of L1's A/B.
+extern "C" int sector_reads(const void* tbl, const void* idx, void* out, int64_t n,
+                            void* stream) {
   if (n <= 0) return 0;
-  gather_u32_kernel<<<blocks_for(n, kThreads), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  sector_reads_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(tbl), static_cast<const int32_t*>(idx),
       static_cast<uint32_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launched with programmatic stream serialization (see gather_u32_kernel).
+extern "C" int gather_u32(const void* tbl, const void* idx, void* out, int64_t n,
+                          void* stream) {
+  if (n <= 0) return 0;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks_for(n, kThreads));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, gather_u32_kernel, static_cast<const uint32_t*>(tbl),
+                         static_cast<const int32_t*>(idx), static_cast<uint32_t*>(out), n);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // ``vec``: x and out are 16-byte aligned, so whole uint4 vectors may be used.
@@ -401,6 +487,10 @@ extern "C" int xor_rows_ring_blocks() {
   const cudaError_t e = ring_smem();
   if (e != cudaSuccess) return -static_cast<int>(e);
   return one_wave(reinterpret_cast<const void*>(xor_rows_ring_kernel), kRingBytes);
+}
+
+extern "C" int l2_sectors_blocks() {
+  return one_wave(reinterpret_cast<const void*>(l2_sectors_kernel), 0);
 }
 
 extern "C" int l2_stream_blocks() {
@@ -438,6 +528,16 @@ extern "C" int l2_stream(const void* tbl, int bits, int reps, int random, void* 
     return static_cast<int>(cudaErrorInvalidValue);
   l2_stream_kernel<<<blocks, kFoldThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(tbl), bits, reps, random, static_cast<int4*>(part));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ``tbl``: 2^bits words (bits >= 3); ``part``: [blocks] words, one a block.
+extern "C" int l2_sectors(const void* tbl, int bits, int reps, void* part, int blocks,
+                          void* stream) {
+  if (bits < 3 || bits > 30 || reps <= 0 || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  l2_sectors_kernel<<<blocks, kFoldThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(tbl), bits, reps, static_cast<uint32_t*>(part));
   return static_cast<int>(cudaGetLastError());
 }
 

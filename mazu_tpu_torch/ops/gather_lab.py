@@ -6,7 +6,8 @@ Each wrapper has a plain torch version beside it with the same contract.
 CPU tensors take the plain version; CUDA tensors launch the kernel of
 ``csrc/gather_lab.cu`` or raise. u32 values travel as int32 bit patterns.
 
-- ``gather_u32(tbl, idx)``: ``tbl[idx]`` (L1);
+- ``gather_u32(tbl, idx)``: ``tbl[idx]`` (L1), launched so that a call
+  overlaps its launch with the tail of the kernel before it;
 - ``hash_mix32x8(x)``: 8 rounds of ``z = (z ^ (z >> 16)) * 0x85EBCA6B``
   mod 2^32 (L2);
 - ``xor_rows(idx, tbl)``: the XOR of rows ``tbl[idx]`` as one (1, 128) row
@@ -19,7 +20,12 @@ CPU tensors take the plain version; CUDA tensors launch the kernel of
   its kernel;
 - ``l2_stream(tbl, reps, random)``: no port of a TPU kernel, the yardstick
   of the L2 floors: every row of an L2-resident table read ``reps`` times
-  in one launch with loads that no SM's L1 serves. Not in ``NAMES``.
+  in one launch with loads that no SM's L1 serves. Not in ``NAMES``;
+- ``l2_sectors(tbl, reps)``: the same for random 4-byte words, each a
+  32-byte L2 sector: the L2's random-sector rate (L1's ``sector_floor_ms``);
+- ``sector_reads(tbl, idx)``: ``tbl[idx]`` by L1's first design (one
+  thread a word), frozen: the random-sector yardstick of K2's and K3's floors over a
+  1 GB table, and the "before" of L1's A/B. Neither is in ``NAMES``.
 
 The kernels are compiled on first use (``cuda_build``) and loaded with
 ``ctypes``. ``LAUNCHES[name]`` counts each kernel's launches.
@@ -42,13 +48,16 @@ _C = 0x85EBCA6B
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 ARGTYPES = {  # every entry of SOURCE, its parameters in order (the stream last)
     "gather_u32": [_P, _P, _P, _I64, _P],
+    "sector_reads": [_P, _P, _P, _I64, _P],
     "hash_mix32x8": [_P, _P, _I64, _INT, _P],
     "xor_rows_blocks": [],
     "xor_rows_ring_blocks": [],
     "l2_stream_blocks": [],
+    "l2_sectors_blocks": [],
     "xor_rows": [_P, _P, _P, _P, _I64, _INT, _P],
     "xor_rows_ring": [_P, _P, _P, _P, _I64, _INT, _P],
     "l2_stream": [_P, _INT, _INT, _INT, _P, _INT, _P],
+    "l2_sectors": [_P, _INT, _INT, _P, _INT, _P],
     "gather_rows": [_P, _P, _P, _I64, _P],
 }
 _LIB = None
@@ -89,10 +98,10 @@ def _launch(name: str, *args):
 
 def wave_blocks(name: str, device: torch.device) -> int:
     """Blocks of one wave of kernel ``name`` (``xor_rows``,
-    ``xor_rows_ring``, ``l2_stream``) on the card: its SMs times the blocks
-    of the kernel one SM holds, from the C side's occupancy query
-    (``<name>_blocks``); asked once a device. The kernel launches that many
-    blocks and folds through a scratch row for each."""
+    ``xor_rows_ring``, ``l2_stream``, ``l2_sectors``) on the card: its SMs
+    times the blocks of the kernel one SM holds, from the C side's occupancy
+    query (``<name>_blocks``); asked once a device. The kernel launches that
+    many blocks (and the folds have a scratch row for each)."""
     key = (name, device.index)
     if key not in _WAVE:
         blocks = _fn(f"{name}_blocks")()
@@ -141,7 +150,8 @@ def gather_u32_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_u32(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``tbl[idx]`` for an int32 (u32 bits) table and int32 indices in
-    [0, len(tbl)) (the kernel does not check them)."""
+    [0, len(tbl)) (the kernel does not check them); allocates only the
+    output."""
     if not _on_card("gather_u32", tbl, idx):
         return gather_u32_plain(tbl, idx)
     _check_1d_i32("gather_u32", "tbl", tbl)
@@ -149,6 +159,19 @@ def gather_u32(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(idx)
     if idx.numel():
         _launch("gather_u32", tbl, idx, out, idx.numel())
+    return out
+
+
+def sector_reads(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``tbl[idx]`` by L1's frozen first design (one thread a word): a
+    yardstick, not counted in ``LAUNCHES``."""
+    if not _on_card("sector_reads", tbl, idx):
+        return gather_u32_plain(tbl, idx)
+    _check_1d_i32("sector_reads", "tbl", tbl)
+    _check_1d_i32("sector_reads", "idx", idx)
+    out = torch.empty_like(idx)
+    if idx.numel():
+        _call("sector_reads", tbl, idx, out, idx.numel())
     return out
 
 
@@ -266,4 +289,31 @@ def l2_stream(tbl: torch.Tensor, reps: int, random: bool = False) -> torch.Tenso
     blocks = wave_blocks("l2_stream", tbl.device)
     part = torch.empty(blocks, ROW, dtype=torch.int32, device=tbl.device)
     _call("l2_stream", tbl, rows.bit_length() - 1, reps, int(random), part, blocks)
+    return part
+
+
+def l2_sectors_plain(tbl: torch.Tensor, reps: int) -> torch.Tensor:
+    """What ``l2_sectors``'s words fold to: the table's XOR once for odd
+    ``reps``, else zero; as one word."""
+    words = tbl.reshape(-1, 1) if reps % 2 else tbl[:0].reshape(0, 1)
+    return xor_fold(words).reshape(1)
+
+
+def l2_sectors(tbl: torch.Tensor, reps: int) -> torch.Tensor:
+    """Read every word of ``tbl`` (int32 [2^k], k >= 3) ``reps`` times in
+    one launch, each pass in a fresh random permutation, with 4-byte
+    ``ld.global.cg`` loads (one 32-byte L2 sector each, no L1); returns the
+    blocks' XORs [blocks], which fold to ``l2_sectors_plain`` (its one word
+    on the CPU). The L2's random-sector rate, timed by ``chip_smoke.py``;
+    no TPU kernel, not counted in ``LAUNCHES``."""
+    if not _on_card("l2_sectors", tbl):
+        return l2_sectors_plain(tbl, reps)
+    _check_1d_i32("l2_sectors", "tbl", tbl)
+    words = tbl.numel()
+    if words & (words - 1) or words < 8 or reps <= 0:
+        raise ValueError(f"l2_sectors: {words} words is not a power of two >= 8, or reps "
+                         f"{reps} < 1")
+    blocks = wave_blocks("l2_sectors", tbl.device)
+    part = torch.empty(blocks, dtype=torch.int32, device=tbl.device)
+    _call("l2_sectors", tbl, words.bit_length() - 1, reps, part, blocks)
     return part

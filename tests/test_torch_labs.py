@@ -36,17 +36,21 @@ def _vmem(shape, index_map):
     return pl.BlockSpec(shape, index_map, memory_space=pltpu.VMEM)
 
 
-@pytest.mark.parametrize("n,m", [(64, 16), (256, 1000), (1024, 4096)])
+@pytest.mark.parametrize("n,m", [(64, 16), (256, 1000), (1024, 4096),
+                                 (64, 37), (64, 1000), (67, 37), (67, 1000)])
 def test_gather_u32_plain_equals_pallas(n, m):
+    """Ragged tables (37, 1000 words) and a batch that is no multiple of 4
+    (67: one block of the whole batch) beside the lab's kind."""
     tbl = _u32(m, 1)
     idx = np.random.default_rng(2).integers(0, m, n, dtype=np.int32)
     idx[:8] = m - 1  # the last entry, and one index many times
+    blk = BLK if n % BLK == 0 else n
     kernel = pl.pallas_call(
         pallas_probe.gather_kernel,
         out_shape=jax.ShapeDtypeStruct((n,), jnp.uint32),
-        grid=(n // BLK,),
-        in_specs=[_vmem((m,), lambda i: (0,)), _vmem((BLK,), lambda i: (i,))],
-        out_specs=_vmem((BLK,), lambda i: (i,)),
+        grid=(n // blk,),
+        in_specs=[_vmem((m,), lambda i: (0,)), _vmem((blk,), lambda i: (i,))],
+        out_specs=_vmem((blk,), lambda i: (i,)),
         interpret=True,
     )
     want = np.asarray(kernel(tbl, idx))
@@ -295,3 +299,77 @@ def test_l2_stream_on_the_card_is_no_counted_kernel(fake_card, monkeypatch):
         gather_lab.l2_stream(torch.zeros(12, 128, dtype=torch.int32), 3)
     with pytest.raises(ValueError, match=r"\[T, 128\]"):
         gather_lab.l2_stream(torch.zeros(16, 64, dtype=torch.int32), 3)
+
+
+def test_sector_reads_plain_is_the_gather():
+    """L1's frozen first design takes the same plain version on the CPU,
+    unaligned index views included."""
+    tbl = torch.from_numpy(_u32(37, 4).view(np.int32))
+    idx = torch.from_numpy(np.random.default_rng(4).integers(0, 37, 65, dtype=np.int32))
+    for ii in (idx, idx[1:]):
+        np.testing.assert_array_equal(gather_lab.sector_reads(tbl, ii).numpy(),
+                                      tbl.numpy()[ii.numpy()])
+
+
+def test_gather_u32_on_the_card_allocates_only_its_output(fake_card, monkeypatch):
+    """L1's wrapper hands the kernel the table, the indices (an unaligned
+    view as it is), a fresh output and the count, counts one launch, and
+    allocates nothing but the output."""
+    tbl = torch.arange(100, dtype=torch.int32)
+    idx = torch.arange(65, dtype=torch.int32)[1:]
+    calls, made = [], []
+    monkeypatch.setattr(gather_lab, "_fn", lambda name: fake_entry(
+        name, lambda *a: calls.append((name, *a)) or 0))
+    empty_like = torch.empty_like
+
+    def recording_empty_like(*a, **k):
+        made.append(empty_like(*a, **k))
+        return made[-1]
+
+    monkeypatch.setattr(torch, "empty_like", recording_empty_like)
+    for name in ("empty", "zeros", "zeros_like", "full", "full_like"):
+        monkeypatch.setattr(torch, name, lambda *a, **k: pytest.fail("another allocation"))
+    got = gather_lab.gather_u32(tbl, idx)
+    [(name, t, i, out, n, stream)] = calls
+    assert name == "gather_u32" and (t, i, n) == (tbl.data_ptr(), idx.data_ptr(), 64)
+    assert [m.data_ptr() for m in made] == [out] and got.data_ptr() == out
+    assert got.dtype == torch.int32 and tuple(got.shape) == (64,)
+    assert gather_lab.LAUNCHES == {**dict.fromkeys(gather_lab.NAMES, 0), "gather_u32": 1}
+    gather_lab.gather_u32(tbl, idx[:0])  # nothing to launch
+    assert len(calls) == 1 and gather_lab.LAUNCHES["gather_u32"] == 1
+
+
+@pytest.mark.parametrize("reps", [1, 2, 3])
+def test_l2_sectors_plain_folds_to_the_table(reps):
+    tbl = np.random.default_rng(reps).integers(-(1 << 31), 1 << 31, 64).astype(np.int32)
+    got = gather_lab.l2_sectors(torch.from_numpy(tbl), reps)
+    want = np.bitwise_xor.reduce(np.concatenate([tbl] * reps))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (1,)
+    assert int(got[0]) == int(want)
+
+
+@pytest.mark.parametrize("yardstick", ["sector_reads", "l2_sectors"])
+def test_yardsticks_on_the_card_are_no_counted_kernel(fake_card, monkeypatch, yardstick):
+    """``sector_reads`` (the frozen L1 over the 1 GB table) and
+    ``l2_sectors`` (the L2's random-sector rate) launch their entries and
+    count no launch of the lab kernels; ``l2_sectors`` reads a power-of-two
+    table of at least 8 words with one wave of blocks."""
+    calls = []
+    monkeypatch.setattr(gather_lab, "_fn", lambda name: fake_entry(
+        name, lambda *a: calls.append((name, *a)) or 0))
+    tbl = torch.zeros(16, dtype=torch.int32)
+    if yardstick == "sector_reads":
+        idx = torch.arange(5, dtype=torch.int32)
+        out = gather_lab.sector_reads(tbl, idx)
+        assert [c[:2] + c[3:5] for c in calls] == [("sector_reads", tbl.data_ptr(),
+                                                    out.data_ptr(), 5)]
+    else:
+        part = gather_lab.l2_sectors(tbl, 3)
+        assert part.dtype == torch.int32 and tuple(part.shape) == (FAKE_BLOCKS,)
+        [(name, _, bits, reps, out, blocks, _)] = calls
+        assert (name, bits, reps, out, blocks) == ("l2_sectors", 4, 3, part.data_ptr(),
+                                                   FAKE_BLOCKS)
+        for bad in (torch.zeros(12, dtype=torch.int32), torch.zeros(4, dtype=torch.int32)):
+            with pytest.raises(ValueError, match="power of two"):
+                gather_lab.l2_sectors(bad, 3)
+    assert gather_lab.LAUNCHES == dict.fromkeys(gather_lab.NAMES, 0)
