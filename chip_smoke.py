@@ -67,15 +67,40 @@ Phases, each printing its own lines; any failure exits non-zero:
    chunk 0 as run_serve does; the pass as one CUDA graph (capture seconds,
    pool bytes, K1's launches) and eagerly, both equal to the oracle chunk
    for chunk, and again with chunks 0 and 1 swapped; 3 passes of each timed
-   in turns, end to end (FASTQ parse and pack, upload, pass, read-back)
-   and the device pass alone, in read k-mers/s; chunk 0 through the union
-   and threshold (tau 0.7) policies and the class ids, card against CPU,
-   and the host threshold count against the device count;
+   in turns, end to end (``pack_fastq``, the fused parse and pack of the
+   host library, then upload, pass, read-back) and the device pass alone,
+   in read k-mers/s; the host's share split (``[serve host]``: gunzip,
+   the fused parse and pack, the upload) and ``pack_fastq`` beside the
+   Python reader and ``pack_reads`` on the same file; chunk 0 through the
+   union and threshold (tau 0.7) policies and the class ids, card against
+   CPU, and the host threshold count against the device count;
 6b. the validation oracles on the card: ``validate_self`` over every k-mer
    of the 5,000 references through ``get_ref_pos_compact(merge=True)`` in
    chunks of 2^20 (K1 in the main phase), ``validate_fasta`` on a FASTA of
    the first 64 references, ``validate_k2u_self`` through ``k2u_batch``,
-   each timed; then the index leaves the card;
+   each timed;
+6c. the streaming index (``index.streaming.StreamingIndex``) on that index
+   over phase 6a's reads (k-merized on the host): ``flat`` mode's
+   ``k2u_reads`` and ``k2u_reads_packed`` replayed as CUDA graphs and
+   eagerly, equal to each other with the same cold fraction (capture
+   seconds and pools printed), then 3 passes of each and of the device
+   pass alone timed in turns, in k-mers/s; ``scan`` mode once replayed;
+   ``host`` mode on the first 2,048 reads; all equal to the flat pass, cold
+   fractions too, and the first 512 reads equal to the plain path on CPU
+   tensors; ``get_ref_pos_reads`` (flat), where every valid k-mer of every
+   read drawn from the genome inside one reference (no N, not foreign)
+   hits its true (ref, pos, orient); ``validate_fasta_streaming`` over all
+   5,000 references, 4,096 lanes a batch, timed;
+6d. the read mapper (``index.mapping.ReadMapper.map_file``) on a gzipped
+   FASTQ of 8 x 2,048 reads drawn from the index's genome (``serve_reads``),
+   on the card's copy of the index: the CSR hits of the first and the last
+   512 reads (the first batch and the ragged last one) and of every foreign,
+   N-holding or straddling read equal to the plain padded query on CPU
+   tensors, every genome read's k-mers at
+   their true (ref, pos, orient), K1 launched and counted; 3 runs timed
+   (reads/s, k-mers/s); the same on the capacity index after phase 12 (K2)
+   and on the MPHF index after phase 17 (K3); then the mono2 index leaves
+   the card;
 7. the pufferfish dense index (PFHash over a 64-bit BooPHF, the pf1
    occurrence table) over phase 4's genome, its MPHF lookup on the card;
    the 64-bit ``boophf_lookup`` on the card against the CPU on phase 5's
@@ -126,8 +151,10 @@ Phases, each printing its own lines; any failure exits non-zero:
     deferred validation, middle phase 4, checked against a CPU oracle and
     replayed and eager as in phase 12;
 18. one profiled replayed pass and one profiled eager pass of each of the
-    paths of phases 6 and 6a (its index moved to the card again; the serve
-    pass's device pass alone), 7, 8, 12 and 17: device busy share and the kernels that take the time. It runs last
+    paths of phases 6, 6a and 6c (its index moved to the card again; the
+    serve pass's device pass alone; the flat streaming pass on the device),
+    7, 8, 12 and 17: device busy share and the kernels that take the time.
+    It runs last
     because a profiler session slows the host's launches for the rest of
     the process (measured: the MPHF pass took 1.6-2x longer after one).
 
@@ -149,7 +176,9 @@ output streams at that read rate; its ``before_ms`` is its frozen first
 design's time in the same turns. A kernel's ``launches`` on a path run as a
 graph count the eager warm-up's and the captured launches: a replay
 adds none; K1's are those of phase 6's and phase 6a's first replayed
-passes. The last two lines are the kernels' JSON record and the result
+passes and of phase 6d's first mapper run, K2's and K3's those of their
+main path's first replayed pass and of their mapper's first run. The last
+two lines are the kernels' JSON record and the result
 JSON. Imports nothing of JAX.
 """
 
@@ -180,8 +209,15 @@ from mazu_tpu_torch.index.pseudoalign import (
     classify_kmers, color_bitsets, count_threshold_host, pseudoalign_batch,
     pseudoalign_threshold_batch, tau_q32,
 )
+from mazu_tpu_torch.index.mapping import BatchHits, ReadMapper
+from mazu_tpu_torch.index.streaming import (
+    StreamingIndex, kmerize_reads, validate_fasta_streaming,
+)
 from mazu_tpu_torch.index.validate import validate_fasta, validate_k2u_self, validate_self
-from mazu_tpu_torch.io.reads import kmerize_device, pack_fastq, pack_reads
+from mazu_tpu_torch.io.fasta import open_binary
+from mazu_tpu_torch.io.fastq import read_fastq
+from mazu_tpu_torch.io.native import fastq_pack, kmerize_batch
+from mazu_tpu_torch.io.reads import kmerize_device, pack_fastq, pack_reads, pad_reads
 from mazu_tpu_torch.index.twophase import TwoPhaseIndexQuery
 from mazu_tpu_torch.ops.derived import derived
 from mazu_tpu_torch.kmer import canonical_minimizer_batch, mask2k, revcomp, revcomp_np
@@ -209,6 +245,11 @@ HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 INT_OPS = 67e12  # H100 SXM non-tensor rate (the guide's float32 figure), operations/s
 K2U_OUT = 6 * 8 + 3  # bytes of a lane's nine K1/K2 outputs (six int64, three u8/bool)
 SERVE_PASSES = 3  # timed serve passes of each kind
+STREAM_PASSES = 3  # timed flat streaming passes of each kind
+HOST_READS = 2048  # reads of the host-loop streaming pass
+ORACLE_READS = 512  # reads held to the CPU's plain path in phases 6c and 6d
+STREAM_LANES = 4096  # lanes a batch of validate_fasta_streaming
+MAP_PASSES = 3  # timed read-mapper runs an index
 TAU = 0.7  # the threshold policy's fraction on chunk 0
 VALIDATE_CHUNK = 1 << 20
 
@@ -570,13 +611,18 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, serve = serve_phase(index, host, gpu_index, dev, smi, tmp)
         validation_phase(index, gpu_index, dev, tmp)
+        # 6c-6d. the streaming index and the read mapper on this index
+        stream = streaming_phase(index, host, gpu_index, dev, smi, tmp)
+        map_launches = mapping_phase("map mono2", index, gpu_index,
+                                     QueryIndex(arrays_from_numpy(host, "cpu")), mono2_probe,
+                                     smi, tmp)
     log(f"[main] mono2_probe launches: {launches} on the main path, {serve_launches} on the "
-        f"serve pass")
+        f"serve pass, {map_launches} in the read mapper")
     k1 = record("mono2_probe", "mono2_probe.cu", "mazu_tpu/ops/pallas_query.py:46",
-                launches + serve_launches, max_err, k1_ms, plain_ms, k1_bound,
+                launches + serve_launches + map_launches, max_err, k1_ms, plain_ms, k1_bound,
                 sector_floor_ms=k1_floor, block_floor_ms=k1_block_floor)
     # the card's copy of the index goes now; phase 18 builds it again
-    profile_mono2 = mono2_profile(host, fw, M2, times, serve)
+    profile_mono2 = mono2_profile(host, fw, M2, times, serve, stream)
     del gpu_index, d, table, r
     torch.cuda.empty_cache()
 
@@ -683,6 +729,11 @@ def serve_phase(index, host: dict, gpu_index, dev, smi, tmp: str):
             log(f"[serve] {kind} {label}, {SERVE_PASSES} in turns: median "
                 f"{statistics.median(rates):.1f} read-kmers/s (min {rates[0]:.1f}, max "
                 f"{rates[-1]:.1f}) ({smi})")
+        host_s = statistics.median(t[kind]["e2e"]) - statistics.median(t[kind]["device"])
+        log(f"[serve] {kind}: median end to end {statistics.median(t[kind]['e2e']) * 1e3:.2f} ms "
+            f"a pass, device pass {statistics.median(t[kind]['device']) * 1e3:.2f} ms, the rest "
+            f"(host pack, upload, read-back) {host_s * 1e3:.2f} ms ({smi})")
+    host_split(fq, packed, dev, smi)
 
     # other policies on chunk 0, card against CPU
     t0 = time.perf_counter()
@@ -717,6 +768,286 @@ def serve_phase(index, host: dict, gpu_index, dev, smi, tmp: str):
     log("[serve] the pass's graphs left the index with it")
     return launches, {"cb": cb, "flat": flat, "meta": m, "m2": M2,
                       "times": {kind: statistics.median(t[kind]["device"]) for kind in t}}
+
+
+def same_packed(a: dict, b: dict) -> bool:
+    """Two ``pack_reads`` dicts hold the same Meta and bytes."""
+    return a["meta"] == b["meta"] and all(
+        (kk in a) == (kk in b) and (kk not in a or np.array_equal(a[kk], b[kk]))
+        for kk in ("words", "lengths", "bad"))
+
+
+def host_split(fq: str, packed: dict, dev, smi):
+    """Phase 6a's host share of a serve pass, split into its parts, each
+    timed SERVE_PASSES times (medians): decompression of the gzipped FASTQ,
+    the fused parse and pack (``io.native.fastq_pack``), and the upload of
+    the padded batch as one buffer; then ``pack_fastq`` (decompression and
+    the fused pass) beside the Python reader (``read_fastq`` and
+    ``pack_reads``) on the same file, both equal to the batch."""
+    k = packed["meta"].k
+    t = {kk: [] for kk in ("decompress", "parse and pack", "upload", "pack_fastq",
+                           "python reader")}
+    for _ in range(SERVE_PASSES):
+        t0 = time.perf_counter()
+        with open_binary(fq) as f:
+            buf = f.read()
+        t1 = time.perf_counter()
+        p = fastq_pack(buf, k)
+        t2 = time.perf_counter()
+        up = torch.from_numpy(serve_buffer(pad_reads(p, synth.READ_LEN))).to(dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        fused = pack_fastq(fq, k)
+        t4 = time.perf_counter()
+        py = pack_reads([sq for _, sq in read_fastq(fq)], k)
+        t5 = time.perf_counter()
+        for kk, v in zip(t, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            t[kk].append(v)
+        if not (same_packed(p, packed) and same_packed(fused, packed) and same_packed(py, packed)):
+            raise AssertionError("[serve host] a packing differs from the batch")
+    med = {kk: statistics.median(v) for kk, v in t.items()}
+    log(f"[serve host] {len(buf)} bytes of FASTQ text ({os.path.getsize(fq)} gzipped), "
+        f"{up.numel() * 8} bytes uploaded; medians of {SERVE_PASSES}: decompress "
+        f"{med['decompress'] * 1e3:.2f} ms, parse and pack (fused) "
+        f"{med['parse and pack'] * 1e3:.2f} ms, upload {med['upload'] * 1e3:.2f} ms ({smi})")
+    log(f"[serve host] pack_fastq {med['pack_fastq'] * 1e3:.2f} ms, the Python reader and "
+        f"pack_reads {med['python reader'] * 1e3:.2f} ms on the same file: "
+        f"{med['python reader'] / med['pack_fastq']:.2f}x; all equal to the batch ({smi})")
+
+
+def read_truth(refs, start, rc, foreign, with_n, read_len: int, k: int):
+    """(ok, ref, first k-mer's position, orient) a read of
+    ``synth.serve_reads_truth``: ``ok`` for a read drawn from the genome
+    (not foreign, no N) inside one reference, whose k-mer at read position p
+    then lies on ``ref`` at ``pos0 + p`` (forward) or ``pos0 - p`` (reverse-
+    complemented), on the reference's own unitig, which occurs there
+    forward."""
+    prefix = np.asarray(refs.prefix_sum, dtype=np.int64)
+    ref = np.searchsorted(prefix, start, side="right") - 1
+    ok = ~foreign & ~with_n & (ref == np.searchsorted(prefix, start + read_len - 1,
+                                                      side="right") - 1)
+    pos0 = np.where(rc, start + read_len - k, start) - prefix[ref]
+    return ok, ref, pos0, np.where(rc, 0, 1)
+
+
+def streaming_phase(index, host: dict, gpu_index, dev, smi, tmp: str) -> dict:
+    """Phase 6c: the streaming index on the mono2 index over phase 6a's
+    8 x 2,048 reads. Returns what phase 18 needs to profile a flat pass."""
+    k, n = synth.K, synth.SERVE_READS * synth.SERVE_CHUNKS
+    phase_t0 = t0 = time.perf_counter()
+    reads, start, rc, foreign, with_n = synth.serve_reads_truth(index.refs, n, seed=1)
+    kms, valid, positions = kmerize_reads(reads, k)
+    packed = pack_reads(reads, k)
+    nv = int(valid.sum())
+    log(f"[stream] {n} reads k-merized on the host in {time.perf_counter() - t0:.2f} s: "
+        f"[{kms.shape[0]}, {kms.shape[1]}] k-mer matrix, {nv} valid k-mers")
+    fields = ("unitig_id", "unitig_len", "pos", "mt")
+
+    def same(a, b, rows=None):
+        return all(np.array_equal(a[kk][:rows], b[kk][:rows]) for kk in fields)
+
+    def graph_of(si):
+        return [g for key, g in gpu_index.graphs.items() if key[0][:2] == ("stream", si._key)]
+
+    flat = StreamingIndex(gpu_index, mode="flat")
+    flat_eager = StreamingIndex(gpu_index, mode="flat", graph=False)
+    t0 = time.perf_counter()
+    want = flat.k2u_reads(kms, valid)
+    first_s = time.perf_counter() - t0
+    cold = flat.last_cold_fraction
+    t0 = time.perf_counter()
+    got = flat.k2u_reads_packed(packed)
+    first_packed_s = time.perf_counter() - t0
+    if not (same(got, want) and flat.last_cold_fraction == cold):
+        raise AssertionError("[stream] k2u_reads_packed differs from k2u_reads")
+    for run in (lambda: flat_eager.k2u_reads(kms, valid),
+                lambda: flat_eager.k2u_reads_packed(packed)):
+        if not (same(run(), want) and flat_eager.last_cold_fraction == cold):
+            raise AssertionError("[stream] an eager flat pass differs from the replayed one")
+    caps = graph_of(flat)
+    log(f"[stream] flat: first replayed k2u_reads {first_s:.3f} s, k2u_reads_packed "
+        f"{first_packed_s:.3f} s; captures {[round(g.capture_s, 3) for g in caps]} s, graph "
+        f"pools {[g.pool_bytes for g in caps]} bytes; replayed == eager, matrix == packed; "
+        f"cold fraction {cold:.6f}; {int((want['mt'] > 0).sum())} hits")
+    t = {kk: [] for kk in ("matrix graph", "matrix eager", "packed graph", "packed eager",
+                           "device graph", "device eager")}
+    kmat = torch.from_numpy(kms.view(np.int64)).to(dev)
+    vt = torch.from_numpy(valid).to(dev)
+    runs = (("matrix graph", lambda: flat.k2u_reads(kms, valid)),
+            ("matrix eager", lambda: flat_eager.k2u_reads(kms, valid)),
+            ("packed graph", lambda: flat.k2u_reads_packed(packed)),
+            ("packed eager", lambda: flat_eager.k2u_reads_packed(packed)),
+            ("device graph", lambda: (flat.k2u_device(kmat, vt), torch.cuda.synchronize())),
+            ("device eager", lambda: (flat_eager.k2u_device(kmat, vt),
+                                      torch.cuda.synchronize())))
+    for _ in range(STREAM_PASSES):
+        for kind, run in runs:
+            t0 = time.perf_counter()
+            out = run()
+            t[kind].append(time.perf_counter() - t0)
+            if isinstance(out, dict) and not same(out, want):
+                raise AssertionError(f"[stream] a timed {kind} pass differs")
+    for kind, v in t.items():
+        rates = sorted(nv / x for x in v)
+        log(f"[stream] flat {kind}, {STREAM_PASSES} in turns: median "
+            f"{statistics.median(rates):.1f} k-mers/s (min {rates[0]:.1f}, max {rates[-1]:.1f}); "
+            f"{statistics.median(v) * 1e3:.2f} ms a pass ({smi})")
+
+    scan = StreamingIndex(gpu_index, mode="scan")
+    t0 = time.perf_counter()
+    out = scan.k2u_reads(kms, valid)
+    scan_first = time.perf_counter() - t0
+    if not (same(out, want) and scan.last_cold_fraction == cold):
+        raise AssertionError("[stream] the scan pass differs from the flat one")
+    t0 = time.perf_counter()
+    scan.k2u_reads(kms, valid)
+    scan_s = time.perf_counter() - t0
+    cap = graph_of(scan)[0]
+    log(f"[stream] scan over {kms.shape[1]} columns: first replayed pass {scan_first:.2f} s "
+        f"(capture {cap.capture_s:.2f} s, graph pool {cap.pool_bytes} bytes), then {scan_s:.3f} s "
+        f"= {nv / scan_s:.1f} k-mers/s ({smi}); == flat, same cold fraction")
+    del scan, cap
+
+    h = HOST_READS
+    host_si = StreamingIndex(gpu_index, mode="host")
+    t0 = time.perf_counter()
+    out = host_si.k2u_reads(kms[:h], valid[:h])
+    host_s = time.perf_counter() - t0
+    flat_eager.k2u_reads(kms[:h], valid[:h])
+    if not (same(out, want, h) and host_si.last_cold_fraction == flat_eager.last_cold_fraction):
+        raise AssertionError(f"[stream] the host loop on the first {h} reads differs")
+    log(f"[stream] host loop on the first {h} reads: {host_s:.2f} s = "
+        f"{int(valid[:h].sum()) / host_s:.1f} k-mers/s ({smi}); == flat, cold fraction "
+        f"{host_si.last_cold_fraction:.6f} == flat's on those reads")
+
+    o = ORACLE_READS
+    cpu_si = StreamingIndex(QueryIndex(arrays_from_numpy(host, "cpu")), mode="flat")
+    out = cpu_si.k2u_reads(kms[:o], valid[:o])
+    flat_eager.k2u_reads(kms[:o], valid[:o])
+    if not (same(out, want, o) and cpu_si.last_cold_fraction == flat_eager.last_cold_fraction):
+        raise AssertionError(f"[stream] the first {o} reads differ from the plain path on the CPU")
+    log(f"[stream] the first {o} reads == the plain path on CPU tensors, cold fraction too")
+
+    t0 = time.perf_counter()
+    g = flat.get_ref_pos_reads(kms, valid)
+    grp_s = time.perf_counter() - t0
+    ok, ref, pos0, orient = read_truth(index.refs, start, rc, foreign, with_n, synth.READ_LEN, k)
+    exp_pos = pos0[:, None] + np.where(rc, -1, 1)[:, None] * positions
+    hit = (g["valid"] & (g["ref_id"] == ref[:, None, None]) & (g["ref_pos"] == exp_pos[..., None])
+           & (g["orient"] == orient[:, None, None])).any(axis=2)
+    need = valid & ok[:, None]
+    if not (hit | ~need).all():
+        raise AssertionError(f"[stream] {int((need & ~hit).sum())} k-mers of genome reads lack "
+                             f"their true (ref, pos)")
+    log(f"[stream] get_ref_pos_reads (flat) {grp_s:.3f} s: every one of the {int(need.sum())} "
+        f"valid k-mers of the {int(ok.sum())} genome reads inside one reference hits its true "
+        f"(ref, pos, orient)")
+
+    refs = index.refs
+    fa = os.path.join(tmp, "genome.fa")
+    with open(fa, "w") as f:
+        for i in range(refs.n_refs):
+            s0, s1 = int(refs.prefix_sum[i]), int(refs.prefix_sum[i + 1])
+            f.write(f">{refs.names[i]}\n{refs.seq.to_str(s0, s1)}\n")
+    t0 = time.perf_counter()
+    validate_fasta_streaming(gpu_index, fa, lanes=STREAM_LANES)
+    log(f"[stream] validate_fasta_streaming over all {refs.n_refs} references "
+        f"({int(refs.prefix_sum[-1])} bases), {STREAM_LANES} lanes of 2048 bases a batch, flat: "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    del flat, flat_eager, host_si, cpu_si, runs, run
+    if any(key[0][0] == "stream" for key in gpu_index.graphs):
+        raise AssertionError("[stream] the streaming graphs outlived their objects")
+    log(f"[stream] phase 6c in {time.perf_counter() - phase_t0:.1f} s; its graphs left the index "
+        f"with their objects")
+    return {"kms": kms, "valid": valid,
+            "times": {"graph": statistics.median(t["device graph"]),
+                      "eager": statistics.median(t["device eager"])}}
+
+
+def mapping_phase(tag: str, index, qi, cpu_qi, probe, smi, tmp: str, seed: int = 1) -> int:
+    """Phase 6d on one index: ``ReadMapper.map_file`` over a gzipped FASTQ
+    of 8 x 2,048 reads drawn from the index's genome (``serve_reads``),
+    querying ``qi`` (the index's arrays on the card in the mapper's layout)
+    with ``probe``'s kernel in its main phase. The CSR hits of the first
+    and the last ORACLE_READS reads (the first batch and the ragged last
+    one) and of every read that is not a genome read inside one reference
+    (foreign, with an N, across two references) must equal the plain padded
+    query on ``cpu_qi`` (CPU tensors), and every valid k-mer of every
+    genome read inside one reference must hit its true (ref, pos, orient).
+    Returns the kernel's launches in the first run."""
+    k, n = index.k, synth.SERVE_READS * synth.SERVE_CHUNKS
+    phase_t0 = time.perf_counter()
+    reads, start, rc, foreign, with_n = synth.serve_reads_truth(index.refs, n, seed=seed)
+    fq = os.path.join(tmp, f"{tag.replace(' ', '_')}.fastq.gz")
+    synth.write_fastq(fq, reads)
+    mapper = ReadMapper(index, query_index=qi)
+    reset_launches()
+    t0 = time.perf_counter()
+    hits = mapper.map_file(fq)
+    first_s = time.perf_counter() - t0
+    launches = probe.LAUNCHES
+    if launches == 0:
+        raise AssertionError(f"[{tag}] the mapper never launched the {probe.SOURCE.stem} kernel")
+    n_kmers = sum(h.n_kmers for h in hits)
+    times = []
+    for _ in range(MAP_PASSES):
+        t0 = time.perf_counter()
+        again = mapper.map_file(fq)
+        times.append(time.perf_counter() - t0)
+    bh = again[0]._batch
+    if not all(np.array_equal(getattr(bh, kk), getattr(hits[0]._batch, kk))
+               for kk in ("mt", "offsets", "ref_id", "ref_pos", "orient")):
+        raise AssertionError(f"[{tag}] two runs of the mapper differ")
+
+    o = ORACLE_READS
+    ok, ref, pos0, orient = read_truth(index.refs, start, rc, foreign, with_n, synth.READ_LEN, k)
+    held = np.unique(np.concatenate([np.arange(o), np.arange(n - o, n), np.flatnonzero(~ok)]))
+    _, _, words = kmerize_batch([reads[i] for i in held], k)
+    out = get_ref_pos_padded(cpu_qi.arrays(), torch.from_numpy(words.view(np.int64)),
+                             cpu_qi.max_occs)
+    want = BatchHits.from_padded({kk: v.numpy() for kk, v in out.items()})
+    bounds = np.concatenate([[0], np.cumsum([h.n_kmers for h in hits])])
+    lanes = np.concatenate([np.arange(bounds[i], bounds[i + 1]) for i in held])
+    got = lane_hits(bh, lanes)
+    if not all(np.array_equal(a, b) for a, b in zip(got, lane_hits(want, np.arange(len(lanes))))):
+        raise AssertionError(f"[{tag}] {len(held)} held reads differ from the padded CPU query")
+    from_foreign = foreign[np.repeat(held, np.diff(bounds)[held])]
+    held_log = (f"the first and last {o} reads (batches 0 and {(bounds[-1] - 1) // mapper.batch}) "
+                f"and all {int((~ok).sum())} others ({int(foreign.sum())} foreign, "
+                f"{int(with_n.sum())} with an N), {len(lanes)} lanes, == the padded query on CPU "
+                f"tensors ({int((got[0][from_foreign] > 0).sum())} of the foreign reads' "
+                f"{int(from_foreign.sum())} lanes hit)")
+
+    lane_read = np.repeat(np.arange(n), [h.n_kmers for h in hits])
+    read_pos = np.concatenate([h.read_pos for h in hits])
+    exp_pos = pos0[lane_read] + np.where(rc[lane_read], -1, 1) * read_pos
+    hit_lane = np.repeat(np.arange(len(bh.mt)), np.diff(bh.offsets))
+    match = ((bh.ref_id == ref[lane_read][hit_lane]) & (bh.ref_pos == exp_pos[hit_lane])
+             & (bh.orient == orient[lane_read][hit_lane]))
+    found = np.bincount(hit_lane[match], minlength=len(bh.mt)) > 0
+    need = ok[lane_read]
+    if not (found | ~need).all():
+        raise AssertionError(f"[{tag}] {int((need & ~found).sum())} k-mers of genome reads lack "
+                             f"their true (ref, pos)")
+    med = statistics.median(times)
+    log(f"[{tag}] ReadMapper.map_file, {n} reads, {n_kmers} k-mers, driver "
+        f"{type(mapper.tp).__name__}: first run {first_s:.2f} s ({probe.SOURCE.stem} launches "
+        f"{launches}); {held_log}; all "
+        f"{int(need.sum())} k-mers of the {int(ok.sum())} genome reads inside one reference hit "
+        f"their true (ref, pos, orient)")
+    log(f"[{tag}] {MAP_PASSES} runs: median {med:.3f} s = {n / med:.1f} reads/s, "
+        f"{n_kmers / med:.1f} k-mers/s (min {min(times):.3f} s, max {max(times):.3f} s) ({smi}); "
+        f"phase 6d on this index in {time.perf_counter() - phase_t0:.1f} s")
+    return launches
+
+
+def lane_hits(bh, lanes: np.ndarray) -> tuple:
+    """(mt, hit counts, ref_id, ref_pos, orient) of the lanes ``lanes`` of
+    the CSR hits ``bh``, their hits in lane order."""
+    start = bh.offsets[lanes]
+    cnt = bh.offsets[lanes + 1] - start
+    idx = np.repeat(start - np.concatenate([[0], np.cumsum(cnt)[:-1]]), cnt) + np.arange(cnt.sum())
+    return (bh.mt[lanes], cnt, bh.ref_id[idx], bh.ref_pos[idx], bh.orient[idx])
 
 
 def validation_phase(index, gpu_index, dev, tmp: str):
@@ -1503,6 +1834,10 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
     log(f"[cap main] residue phase alone (full mode, static loop to probe_bound={m.probe_bound}) "
         f"on {m2c} lanes: {res_ms:.3f} ms ({smi})")
     capacity_drivers(cpu_index, gpu_index, work, fw)
+    # 6d on the capacity index: the read mapper, K2 in its main phase
+    with tempfile.TemporaryDirectory() as tmp:
+        launches += mapping_phase("map capacity", index, gpu_index, cpu_index, bpos_probe, smi,
+                                  tmp)
 
     # 13. K3 build report
     log(f"[k3 build] {lib3}")
@@ -1723,17 +2058,23 @@ def mphf(args, dev, smi, sector_rate: float):
     # 17. the MPHF main path
     launches, _, profile = sshash_path("mphf main", cpu_index, gpu_index, work, uid, upos, fw,
                                        synth.MPHF_QUERY, capacity_probe, smi)
+    # 6d on the MPHF index: the read mapper, K3 in its main phase
+    with tempfile.TemporaryDirectory() as tmp:
+        launches += mapping_phase("map mphf", index, gpu_index, cpu_index, capacity_probe, smi,
+                                  tmp)
     return record("capacity_probe", "capacity_probe.cu", "mazu_tpu/ops/pallas_capacity.py:56",
                   launches, max_err, k3_ms, k3_plain_ms, k3_bound,
                   sector_floor_ms=k3_floor), profile
 
 
-def mono2_profile(host: dict, fw: torch.Tensor, m2: int, times: dict, serve: dict):
+def mono2_profile(host: dict, fw: torch.Tensor, m2: int, times: dict, serve: dict,
+                  stream: dict):
     """Phase 18's mono2 passes: the index moved to the card again from its
-    host arrays, a replayed and an eager pass of the main path and of the
+    host arrays, a replayed and an eager pass of the main path, of the
     serve pass (``serve``: its bitsets, batch buffer, Meta, capacity and
-    pass times) to warm it (the first of each captures its graph again),
-    each profiled, and the index freed."""
+    pass times) and of the flat streaming pass (``stream``: its k-mer
+    matrix, validity and pass times) to warm it (the first of each captures
+    its graph again), each profiled, and the index freed."""
     def run():
         index = QueryIndex(arrays_from_numpy(host, "cpu")).to(fw.device)
         og = OneGraphIndexQuery(index, BATCH, n_chunks=CH, m2=m2)
@@ -1753,7 +2094,17 @@ def mono2_profile(host: dict, fw: torch.Tensor, m2: int, times: dict, serve: dic
         for p in (sp, sp_eager):
             device_pass(p)()
         profile_both("serve", device_pass(sp), device_pass(sp_eager), serve["times"])
-        del og, og_eager, sp, sp_eager, index
+        kmat = torch.from_numpy(stream["kms"].view(np.int64)).to(fw.device)
+        vt = torch.from_numpy(stream["valid"]).to(fw.device)
+        flat, flat_eager = (StreamingIndex(index, mode="flat", graph=g) for g in (True, False))
+
+        def flat_pass(si):
+            return lambda: (si.k2u_device(kmat, vt), torch.cuda.synchronize())
+
+        for si in (flat, flat_eager):
+            flat_pass(si)()
+        profile_both("stream flat", flat_pass(flat), flat_pass(flat_eager), stream["times"])
+        del og, og_eager, sp, sp_eager, flat, flat_eager, index
         torch.cuda.empty_cache()
     return run
 

@@ -42,3 +42,9 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the host")
     return dev
+
+
+def words_to(words, device) -> torch.Tensor:
+    """u64 k-mer words (any array-like) as int64 bit patterns on ``device``."""
+    w = np.ascontiguousarray(np.asarray(words, dtype=np.uint64)).view(np.int64)
+    return torch.from_numpy(w).to(device)

@@ -1,12 +1,38 @@
-"""Query results in CSR form (counterpart of ``BatchHits`` in
-``mazu_tpu.index.mapping``): the type that
-``TwoPhaseIndexQuery.get_ref_pos_batch`` returns. Host NumPy arrays."""
+"""Read mapping, the serving driver (counterpart of
+``mazu_tpu.index.mapping``): reads -> k-merization in the host library
+(``io.native.kmerize_batch``) -> a batched exact query on the card -> each
+read's k-mer windows with their reference hits.
+
+``BatchHits`` holds the query results of a flat batch in CSR form (host
+NumPy arrays); ``ReadHits`` is one read's view of it. ``CompactQuery`` is
+the SSHash capacity-tier driver and ``ReadMapper`` the entry point.
+
+The reference picks each dictionary's driver from measured TPU settings
+(its ``index/tuning.py``), which are not ported. The port's choices for the
+H100 are ``ReadMapper``'s, in ``query_driver``:
+
+- a mono2 KCDict: ``TwoPhaseIndexQuery``, kernel K1 in its main phase
+  (the reference answers it with the eager padded query);
+- a direct SSHash: ``CompactQuery`` on ``synth.CAPACITY_LAYOUT`` at probe
+  limit 2 with a middle phase at 4, kernel K2 in the main phase;
+- a fast32 SSHash: ``CompactQuery`` on ``synth.MPHF_LAYOUT`` with
+  ``synth.MPHF_QUERY``, kernel K3 in the main phase;
+- pufferfish's dense and sparse dictionaries: ``PaddedQuery``.
+
+The reference sends a small SSHash to its speed tier, fused inline rows,
+which the port has not yet; an SSHash here always takes the capacity
+layouts. The results are the same whichever driver answers.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from ..convert import words_to
+from .twophase import _host
 
 
 @dataclass
@@ -103,3 +129,178 @@ class BatchHits:
 
     def to_lists(self) -> list:
         return self.lane_lists()
+
+
+class ReadHits:
+    """The hits of one read: its valid k-mer windows' positions in the read
+    (``read_pos``), and their hits, lanes ``lane_lo`` onward of the batch's
+    CSR ``BatchHits``. ``hits`` decodes the per-window lists, (ref_id,
+    ref_pos, orient) tuples or None for a miss, at first use. (The
+    reference also builds one from such lists; the port's mapper never
+    does.)"""
+
+    def __init__(self, read_pos, batch: BatchHits, lane_lo: int):
+        self.read_pos = read_pos
+        self._hits = None
+        self._batch = batch
+        self._lo = int(lane_lo)
+
+    @property
+    def hits(self) -> list:
+        if self._hits is None:
+            self._hits = self._batch.lane_lists(self._lo, self._lo + len(self.read_pos))
+        return self._hits
+
+    def csr(self):
+        """(offsets, ref_id, ref_pos, orient) over this read's windows, the
+        offsets rebased to 0."""
+        b, lo, hi = self._batch, self._lo, self._lo + len(self.read_pos)
+        o = b.offsets[lo : hi + 1]
+        return o - o[0], b.ref_id[o[0]:o[-1]], b.ref_pos[o[0]:o[-1]], b.orient[o[0]:o[-1]]
+
+    @property
+    def n_kmers(self) -> int:
+        return len(self.read_pos)
+
+    @property
+    def n_hit(self) -> int:
+        lo, hi = self._lo, self._lo + len(self.read_pos)
+        return int((self._batch.mt[lo:hi] > 0).sum())
+
+
+class _Driver:
+    """An index's query arrays on a device, and its upload of host words.
+    ``query_index``: a ``QueryIndex`` of ``index.device_arrays(**layout)``
+    already on its device, queried where it lies; else the arrays go to
+    ``device``."""
+
+    def __init__(self, index, layout: dict, device, query_index=None):
+        from ..convert import arrays_from_numpy, resolve_device
+        from .modindex import QueryIndex
+
+        self.max_occs = max(1, index.max_occs())
+        if query_index is not None:
+            self.index = query_index
+            return
+        host = index.device_arrays(**layout)
+        self.index = QueryIndex(arrays_from_numpy(host, "cpu")).to(resolve_device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.index.buffers()).device
+
+    def _words(self, fw_words: np.ndarray) -> torch.Tensor:
+        return words_to(fw_words, self.device)
+
+    def get_ref_pos_eager(self, fw_words: np.ndarray) -> list:
+        return self.get_ref_pos_batch(fw_words).to_lists()
+
+
+class CompactQuery(_Driver):
+    """The capacity tier's driver: ``get_ref_pos_compact`` with its heavy
+    phase type-split, on ``index.device_arrays(**layout)`` on ``device``
+    (the card by default), with ``query``'s main and middle probe settings
+    (``probe_limit``, ``defer_valid``, ``mphf_level_limit``,
+    ``probe_limit2``)."""
+
+    def __init__(self, index, layout: dict, query: dict, device=None, query_index=None):
+        super().__init__(index, layout, device, query_index)
+        self.query = dict(query)
+
+    def _run(self, fw: torch.Tensor, m2: int, m2c: int | None) -> dict:
+        from .modindex import get_ref_pos_compact
+
+        return get_ref_pos_compact(self.index.arrays(), fw, self.max_occs, merge=True, m2=m2,
+                                   m2b=m2, m2c=m2c, **self.query)
+
+    def get_ref_pos_batch(self, fw_words: np.ndarray) -> BatchHits:
+        """The batch's exact hits in CSR form. Each compacted phase first
+        gets N // 4 slots (at least 1024; the residue of the middle phase an
+        eighth of that), as the reference budgets it; when a phase had more
+        lanes (``over_budget``, one host read), the batch runs again with
+        every phase at N slots, which always suffices."""
+        n = len(fw_words)
+        fw = self._words(fw_words)
+        out = self._run(fw, max(1024, n // 4), None)
+        if bool(out["over_budget"]):
+            m2 = max(1024, n)
+            out = self._run(fw, m2, m2)
+            if bool(out["over_budget"]):
+                raise RuntimeError("over budget with a slot for every lane")
+        return BatchHits.from_padded(_host(out))
+
+
+class PaddedQuery(_Driver):
+    """The exact one-phase ``get_ref_pos_padded`` (pufferfish's dense and
+    sparse dictionaries), padded to the index's maximum occurrence count."""
+
+    def __init__(self, index, device=None, query_index=None):
+        super().__init__(index, {}, device, query_index)
+
+    def get_ref_pos_batch(self, fw_words: np.ndarray) -> BatchHits:
+        from .modindex import get_ref_pos_padded
+
+        out = get_ref_pos_padded(self.index.arrays(), self._words(fw_words), self.max_occs)
+        return BatchHits.from_padded(_host(out))
+
+
+# a direct SSHash's main and middle probe settings on the card
+CAPACITY_QUERY = dict(probe_limit=2, defer_valid=True, probe_limit2=4)
+
+
+def query_driver(index, device=None, query_index=None):
+    """The driver ``ReadMapper`` queries ``index`` with on ``device`` (see
+    the module): each has ``get_ref_pos_batch``. ``query_index``: the
+    index's arrays in the driver's layout, already on a device."""
+    from .. import synth
+    from .twophase import TwoPhaseIndexQuery
+
+    k2u = index.k2u
+    if type(k2u).__name__ == "KCDict":
+        return TwoPhaseIndexQuery(query_index or index, device=None if query_index else device)
+    if type(k2u).__name__ == "SSHash":
+        if k2u.direct_T:
+            return CompactQuery(index, synth.CAPACITY_LAYOUT, CAPACITY_QUERY, device, query_index)
+        return CompactQuery(index, synth.MPHF_LAYOUT, synth.MPHF_QUERY, device, query_index)
+    return PaddedQuery(index, device, query_index)
+
+
+
+class ReadMapper:
+    """Maps reads to their k-mer windows' reference hits: ``map_reads``
+    (sequences), ``map_fasta`` and ``map_file`` (FASTA or FASTQ, gzipped or
+    not). The windows of all reads are k-merized in one call of the host
+    library and queried ``batch`` at a time on ``device`` (the card by
+    default) through ``query_driver(index)``; ``query_index`` lends it
+    the index's arrays already on a device, in that driver's layout."""
+
+    def __init__(self, index, batch: int = 1 << 18, device=None, query_index=None):
+        self.index = index
+        self.k = index.k
+        self.batch = int(batch)
+        self.tp = query_driver(index, device, query_index)
+
+    def map_reads(self, reads: list) -> list:
+        """One ``ReadHits`` a read, views into one CSR batch."""
+        from ..io.native import kmerize_batch
+
+        bounds, flat_pos, flat = kmerize_batch(reads, self.k)
+        if len(flat) == 0:
+            z = np.zeros(0, dtype=np.int64)
+            bh = BatchHits(np.zeros(0, np.uint8), np.zeros(1, np.int64), z, z, z)
+        else:
+            bh = BatchHits.concat([self.tp.get_ref_pos_batch(flat[s : s + self.batch])
+                                   for s in range(0, len(flat), self.batch)])
+        return [ReadHits(flat_pos[bounds[i] : bounds[i + 1]], bh, bounds[i])
+                for i in range(len(reads))]
+
+    def map_fasta(self, path: str) -> list:
+        from ..io.fasta import read_fasta
+
+        return self.map_reads([seq for _, seq in read_fasta(path)])
+
+    def map_file(self, path: str) -> list:
+        """FASTA or FASTQ, gzipped or not, told apart by the first character."""
+        from ..io.fastq import read_seqs
+
+        return self.map_reads([seq for _, seq in read_seqs(path)])

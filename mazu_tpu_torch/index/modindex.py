@@ -594,8 +594,10 @@ class QueryIndex(torch.nn.Module):
         super().__init__()
         self.graphs = {}
         self._tree = self._register(arrays, ())
-        off = arrays["u2pos"]["offsets"]
-        self.max_occs = max(1, int((off[1:] - off[:-1]).max())) if off.numel() > 1 else 1
+        # a bare K2U (no occurrence table) has one "occurrence" a k-mer
+        off = arrays["u2pos"]["offsets"] if "u2pos" in arrays else None
+        self.max_occs = max(1, int((off[1:] - off[:-1]).max())) \
+            if off is not None and off.numel() > 1 else 1
 
     def _register(self, node, path):
         if isinstance(node, dict):

@@ -116,6 +116,17 @@ def replay(index: QueryIndex, key, x: torch.Tensor, fn) -> torch.Tensor:
     return g.out
 
 
+def replay_latest(index: QueryIndex, family: tuple, key, x: torch.Tensor, fn) -> torch.Tensor:
+    """``replay`` that holds one graph for ``family`` (a prefix of the
+    tuple ``key``): a graph of the family captured for another key or shape
+    is dropped first, so a caller whose batches change shape holds one
+    graph's memory pool, not one a shape, and pays a capture at each change."""
+    full = (key, tuple(x.shape), x.dtype)
+    for old in [g for g in index.graphs if g != full and g[0][:len(family)] == family]:
+        del index.graphs[old]
+    return replay(index, key, x, fn)
+
+
 class OneGraphIndexQuery:
     """Exact for every lane unless a chunk overflows a capacity (``m2``,
     ``m2b``, or the middle phase's residue ``m2c``): then the pass raises,
@@ -384,9 +395,9 @@ def serve_chunk(arrays: dict, cb: dict, packed: dict, row_start: int, rows: int,
                         out["n_ovf"].to(torch.int64)])
 
 
-def _drop_graphs(index: QueryIndex, token) -> None:
-    """Remove from ``index.graphs`` the serve graphs keyed by ``token``."""
-    for key in [key for key in index.graphs if key[0][:2] == ("serve", token)]:
+def _drop_graphs(index: QueryIndex, token, kind: str = "serve") -> None:
+    """Remove from ``index.graphs`` the ``kind`` graphs keyed by ``token``."""
+    for key in [key for key in index.graphs if key[0][:2] == (kind, token)]:
         del index.graphs[key]
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import MATCH_IDENTITY
+from ..convert import words_to
 from ..kphf.sshash import sshash_k2u
 from ..ops.bpos_probe import bpos_usrec_k2u
 from ..ops.capacity_probe import capacity_k2u
@@ -234,8 +235,7 @@ class TwoPhaseIndexQuery:
         return get_ref_pos_padded(self.index.arrays(), fw, self.max_occs)
 
     def _words(self, fw_words: np.ndarray) -> torch.Tensor:
-        w = np.ascontiguousarray(np.asarray(fw_words, dtype=np.uint64)).view(np.int64)
-        return torch.from_numpy(w).to(self.device)
+        return words_to(fw_words, self.device)
 
     def _overflow_phase(self, fw: torch.Tensor, overflow: torch.Tensor):
         """(lanes [n] on the device, phase 2 over them padded to

@@ -100,7 +100,22 @@ def pad_reads(packed: dict, length: int) -> dict:
 
 
 def pack_fastq(path: str, k: int) -> dict:
-    """A FASTQ(.gz) file's reads through ``pack_reads``."""
+    """A FASTQ(.gz) file's reads as ``pack_reads`` packs them, in one fused
+    pass: the file is decompressed once, and the host library
+    (``io.native.fastq_pack``) frames the records and writes the packed
+    words, with no Python object a read. Only text it does not take (a
+    malformed or truncated record, an empty sequence, a carriage return,
+    which the Python reader's universal newlines read as a line end) goes
+    through ``read_fastq`` and ``pack_reads``, which give the same result
+    where the text is valid and raise ``InvalidData`` where it is not."""
+    from .fasta import open_binary
+    from .native import fastq_pack
+
+    with open_binary(path) as f:
+        buf = f.read()
+    out = fastq_pack(buf, k)
+    if out is not None:
+        return out
     from .fastq import read_fastq
 
     return pack_reads([s for _, s in read_fastq(path)], k)

@@ -252,6 +252,14 @@ def serve_reads(refs: RefSeqCollection, n: int, seed: int = 1, n_share: float = 
     concatenated reference, a ``RC_SHARE`` reverse-complemented, a
     ``foreign_share`` replaced by random sequence, and a ``n_share`` with
     one base turned to N."""
+    return serve_reads_truth(refs, n, seed, n_share, foreign_share)[0]
+
+
+def serve_reads_truth(refs: RefSeqCollection, n: int, seed: int = 1, n_share: float = N_SHARE,
+                      foreign_share: float = FOREIGN_READS):
+    """(reads, start, rc, foreign, with_n) of ``serve_reads``: each read's
+    start in the concatenated reference and whether it was reverse-
+    complemented, replaced by random sequence or given an N."""
     rng = np.random.default_rng(seed)
     starts = rng.integers(0, int(refs.prefix_sum[-1]) - READ_LEN + 1, n)
     codes = refs.seq.get_base(starts[:, None] + np.arange(READ_LEN))
@@ -262,7 +270,9 @@ def serve_reads(refs: RefSeqCollection, n: int, seed: int = 1, n_share: float = 
     with_n = np.flatnonzero(rng.random(n) < n_share)
     codes[with_n, rng.integers(0, READ_LEN, len(with_n))] = 4
     text = np.frombuffer(b"ACGTN", dtype=np.uint8)[codes]
-    return [row.tobytes().decode() for row in text]
+    n_mask = np.zeros(n, dtype=bool)
+    n_mask[with_n] = True
+    return [row.tobytes().decode() for row in text], starts, rc, foreign, n_mask
 
 
 def write_fastq(path: str, reads: list) -> None:

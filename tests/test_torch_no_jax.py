@@ -1,9 +1,10 @@
 """The port runs where there is no JAX: every module imports, and tiny
 indexes (the mono2 KCDict, the SSHash capacity tier, the MPHF capacity
 tier and the pufferfish dense and sparse indexes) answer queries, a lab
-kernel's plain version runs, and a tiny serve pass (FASTQ, packing, device
-k-merization, map, pseudoalignment) and ``validate_self`` run, with
-``jax`` blocked from importing."""
+kernel's plain version runs, and a tiny serve pass (FASTQ, packing in the
+host library, device k-merization, map, pseudoalignment), ``validate_self``,
+a flat streaming pass and a read mapper run, with ``jax`` blocked from
+importing."""
 
 import os
 import pkgutil
@@ -82,6 +83,16 @@ with tempfile.TemporaryDirectory() as tmp:
             f.write(f"@r{i}\\n{sq[:70]}N{sq[71:]}\\n+\\n{'I' * 150}\\n")
     maps, pas, novf = RunServePass(qi, cb, 32, 2, 4096, 150, graph=False)(pack_fastq(fq, 31))
 assert all(c > 0 for c in maps) and all(p != 0 for p in pas)
+from mazu_tpu_torch.index.mapping import ReadMapper
+from mazu_tpu_torch.index.streaming import StreamingIndex, kmerize_reads
+from mazu_tpu_torch.io.native import library
+library()
+reads = [codes_to_seq(codes[s : s + 150]) for s in starts[:16]]
+kms, valid, _ = kmerize_reads(reads, 31)
+flat = StreamingIndex(index, mode="flat", device="cpu").k2u_reads(kms, valid)
+assert (flat["mt"][valid] > 0).all()
+hits = ReadMapper(index, device="cpu").map_reads(reads)
+assert all(h.n_hit == h.n_kmers == 120 for h in hits)
 leaked = sorted(m for m in sys.modules if m == "mazu_tpu" or m.startswith("mazu_tpu."))
 assert not leaked, leaked
 print("OK", len(mods))
@@ -109,7 +120,8 @@ def test_port_imports_and_queries_without_jax():
     for name in ("hashes", "kphf.boophf", "kphf.pfhash", "kphf.sampled", "io.pf1",
                  "io.pf1_index", "ops.gather_lab", "labs.gather_probe", "labs.dma_lab",
                  "io.fasta", "io.fastq", "io.cuttlefish", "io.reads", "index.streaming",
-                 "index.validate", "index.colors", "index.pseudoalign"):
+                 "index.validate", "index.colors", "index.pseudoalign", "io.native",
+                 "index.mapping"):
         assert f"mazu_tpu_torch.{name}" in mods, name
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, *mods], capture_output=True, text=True,
