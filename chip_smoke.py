@@ -57,6 +57,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    x the oracle, then 7 passes of each timed in turns (median, min, max);
    a tensor derived from the index first asked for inside a capture must
    raise;
+6e. phase 8b's reads1graph pass (the same read k-mers) on this index, K1
+   in its main phase, replayed and eager, 3 passes each, against a CPU
+   oracle of every chunk (listed here, it runs after phase 6);
 6a. the serve pass (``bench.py::run_serve``'s device half,
    ``index.pipeline.RunServePass``) on that index: its color classes and
    bitsets (host seconds, classes, W, bytes on the card); 8 x 2,048 reads
@@ -112,6 +115,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    in turns;
 8. the same for pufferfish's sparse index (SampledPFHash, sample 9,
    extension 4);
+8a. the SSHash speed tier's index over phase 4's genome (``bench.py``'s
+   direct build of its read paths: w=15, skew 4, load 0.25, the minimizer
+   scan on the card) in its fused inline2 rows (``synth.SPEED_LAYOUT``) and
+   its fused inline rows, their bytes on the card (held to
+   ``tuning.speed_bytes``);
+8b. ``bench.py``'s reads1graph pass: a stack of 8 distinct chunks of 2^18
+   k-mers of 150-base reads drawn over the whole genome
+   (``OneGraphIndexQuery.checksum_pass``), at probe limit 2 on the inline2
+   rows, M2 from the CPU oracle's overflow (``bench.py:991-1000``, here the
+   worst chunk's); replayed and eager equal to the sum of the chunks' CPU
+   oracles, 3 passes of each timed in turns (read k-mers/s);
+8c. ``bench.py``'s reads path (BASELINE config 3): 8,192 reads k-merized on
+   the host and padded to a power of two; ``TwoPhaseIndexQuery`` (fused
+   inline rows) and ``ReadBatchQuery`` (run sharing) on the same words,
+   both equal to the two-phase checksum on CPU tensors; the runs against
+   the reference's run budget (N / 2 slots; the port has one a lane); 3 of
+   each timed in turns;
+8d. phase 5's 2^20 uniform queries through ``OneGraphIndexQuery`` on the
+   inline2 rows, 16 rolled chunks, checked and timed as in phase 6;
+8e. phase 6d's read mapper on the speed index: the speed tier by the tier
+   rule, ``TwoPhaseIndexQuery`` on the fused inline rows, no kernel; in
+   turns with it the capacity tier asked for (``CompactQuery``, K2), its
+   hits equal;
 9. the bpos probe kernel's (K2) ptxas report;
 10. the synthetic capacity index: an SSHash direct engine (w=15, skew 64,
     load 0.5) over a random genome with a planted skew bucket, its
@@ -129,7 +155,16 @@ Phases, each printing its own lines; any failure exits non-zero:
     eager as in phase 6, 3 passes of each; then ``TwoPhaseIndexQuery`` (K2
     in the main phase) and ``get_ref_pos_compact`` on these arrays without
     bpos rows and window records (K3 on the direct layout, the main phase
-    projected through the offsets table), each equal to CPU tensors';
+    projected through the offsets table), each equal to CPU tensors'; the
+    mapper (6d), which the tier rule puts in the capacity tier (probe bound
+    64), and in turns with it the speed tier asked for on the fused inline
+    rows (12b, their host seconds printed), its hits equal;
+12a. the same build laid out as the reference's tier rule lays it out on
+    this card, fused inline2 rows (the host's fusion seconds and the bytes
+    printed; the port's rule keeps it in the capacity tier), its 8 x 2^20
+    queries through ``OneGraphIndexQuery`` at probe limit 2 against a CPU
+    oracle for chunk 0, replayed and eager, 3 passes each, and its phase 2
+    alone timed;
 13. the capacity probe kernel's (K3) ptxas report;
 14. K3 on the direct layout: phase 10's arrays on the card without bpos and
     useqrec, plus the per-unitig ``uproj`` records; against its plain
@@ -150,10 +185,17 @@ Phases, each printing its own lines; any failure exits non-zero:
     rolled chunks of 2^20 queries at probe limit 2, level limit 4,
     deferred validation, middle phase 4, checked against a CPU oracle and
     replayed and eager as in phase 12;
+17a. reference fault C10 on the card: the fast32 index at its default
+    fused inline layout through ``TwoPhaseIndexQuery``'s default on phase
+    16's 2^20 queries, its skew lanes among them, equal lane for lane to the
+    padded query on the capacity layout; then the mapper (6d) in the
+    capacity tier by the rule and, in turns with it, the speed tier on those
+    rows (17b), as in phase 12;
 18. one profiled replayed pass and one profiled eager pass of each of the
     paths of phases 6, 6a and 6c (its index moved to the card again; the
     serve pass's device pass alone; the flat streaming pass on the device),
-    7, 8, 12 and 17: device busy share and the kernels that take the time.
+    7, 8, 8b, 8d, 12 and 17: device busy share and the kernels that take
+    the time.
     It runs last
     because a profiler session slows the host's launches for the rest of
     the process (measured: the MPHF pass took 1.6-2x longer after one).
@@ -175,7 +217,7 @@ L2's random-sector rate (``l2_sectors``) plus its 8N bytes of index and
 output streams at that read rate; its ``before_ms`` is its frozen first
 design's time in the same turns. A kernel's ``launches`` on a path run as a
 graph count the eager warm-up's and the captured launches: a replay
-adds none; K1's are those of phase 6's and phase 6a's first replayed
+adds none; K1's are those of phase 6's, 6e's and 6a's first replayed
 passes and of phase 6d's first mapper run, K2's and K3's those of their
 main path's first replayed pass and of their mapper's first run. The last
 two lines are the kernels' JSON record and the result
@@ -210,6 +252,7 @@ from mazu_tpu_torch.index.pseudoalign import (
     pseudoalign_threshold_batch, tau_q32,
 )
 from mazu_tpu_torch.index.mapping import BatchHits, ReadMapper
+from mazu_tpu_torch.index.tuning import query_tier, speed_bytes
 from mazu_tpu_torch.index.streaming import (
     StreamingIndex, kmerize_reads, validate_fasta_streaming,
 )
@@ -218,7 +261,9 @@ from mazu_tpu_torch.io.fasta import open_binary
 from mazu_tpu_torch.io.fastq import read_fastq
 from mazu_tpu_torch.io.native import fastq_pack, kmerize_batch
 from mazu_tpu_torch.io.reads import kmerize_device, pack_fastq, pack_reads, pad_reads
-from mazu_tpu_torch.index.twophase import TwoPhaseIndexQuery
+from mazu_tpu_torch.index.twophase import ReadBatchQuery, TwoPhaseIndexQuery, _host
+from mazu_tpu_torch.bits.seqvector import SeqVector
+from mazu_tpu_torch.kphf.runshare import run_starts
 from mazu_tpu_torch.ops.derived import derived
 from mazu_tpu_torch.kmer import canonical_minimizer_batch, mask2k, revcomp, revcomp_np
 from mazu_tpu_torch.kphf.boophf import boophf_lookup
@@ -252,6 +297,9 @@ STREAM_LANES = 4096  # lanes a batch of validate_fasta_streaming
 MAP_PASSES = 3  # timed read-mapper runs an index
 TAU = 0.7  # the threshold policy's fraction on chunk 0
 VALIDATE_CHUNK = 1 << 20
+SPEED_CH = 8  # rolled chunks of a reads1graph pass (bench.py:946-1010, MAZU_BENCH_CHUNKS)
+READ_BATCH = 1 << 18  # read k-mers a reads1graph chunk (MAZU_BENCH_BATCH)
+READS = 8192  # reads of the reads path (bench.py:637-657, MAZU_BENCH_READS)
 
 
 def log(*a):
@@ -606,6 +654,8 @@ def main():
         raise AssertionError(f"worst overflow {worst} > M2 {M2}")
     derived_capture_raises(dev)
     del og, og_eager
+    # 6e. bench.py's reads1graph traffic on this index, beside phase 8b's
+    reads_launches = mono2_reads(index, host, gpu_index, smi)
 
     # 6a-6b. the serve pass and the validation oracles on this index
     with tempfile.TemporaryDirectory() as tmp:
@@ -616,11 +666,11 @@ def main():
         map_launches = mapping_phase("map mono2", index, gpu_index,
                                      QueryIndex(arrays_from_numpy(host, "cpu")), mono2_probe,
                                      smi, tmp)
-    log(f"[main] mono2_probe launches: {launches} on the main path, {serve_launches} on the "
-        f"serve pass, {map_launches} in the read mapper")
+    log(f"[main] mono2_probe launches: {launches} on the main path, {reads_launches} on "
+        f"reads1graph, {serve_launches} on the serve pass, {map_launches} in the read mapper")
     k1 = record("mono2_probe", "mono2_probe.cu", "mazu_tpu/ops/pallas_query.py:46",
-                launches + serve_launches + map_launches, max_err, k1_ms, plain_ms, k1_bound,
-                sector_floor_ms=k1_floor, block_floor_ms=k1_block_floor)
+                launches + reads_launches + serve_launches + map_launches, max_err, k1_ms,
+                plain_ms, k1_bound, sector_floor_ms=k1_floor, block_floor_ms=k1_block_floor)
     # the card's copy of the index goes now; phase 18 builds it again
     profile_mono2 = mono2_profile(host, fw, M2, times, serve, stream)
     del gpu_index, d, table, r
@@ -628,6 +678,9 @@ def main():
 
     # 7-8. the pufferfish dense and sparse paths over this genome
     profile_pf1 = [pf1_path(kind, genome, n_bases, truth, dev, smi) for kind in ("dense", "sparse")]
+    torch.cuda.empty_cache()
+    # 8a-8e. the SSHash speed tier over this genome
+    profile_speed = speed(genome, n_bases, truth, dev, smi)
     del genome, index
     torch.cuda.empty_cache()
 
@@ -641,7 +694,7 @@ def main():
     k3, profile_mphf = mphf(args, dev, smi, sector_rate)
 
     # 18. profiled passes
-    for profile in (profile_mono2, *profile_pf1, profile_cap, profile_mphf):
+    for profile in (profile_mono2, *profile_pf1, profile_speed, profile_cap, profile_mphf):
         profile()
     log(json.dumps({"kernels": [k1, k2, k3, *labs]}))
     log(json.dumps({"ok": True, "device": {
@@ -964,11 +1017,17 @@ def streaming_phase(index, host: dict, gpu_index, dev, smi, tmp: str) -> dict:
                       "eager": statistics.median(t["device eager"])}}
 
 
-def mapping_phase(tag: str, index, qi, cpu_qi, probe, smi, tmp: str, seed: int = 1) -> int:
+def mapping_phase(tag: str, index, qi, cpu_qi, probe, smi, tmp: str, seed: int = 1,
+                  driver: str = "TwoPhaseIndexQuery", rival: dict | None = None) -> int:
     """Phase 6d on one index: ``ReadMapper.map_file`` over a gzipped FASTQ
     of 8 x 2,048 reads drawn from the index's genome (``serve_reads``),
     querying ``qi`` (the index's arrays on the card in the mapper's layout)
-    with ``probe``'s kernel in its main phase. The CSR hits of the first
+    through ``driver`` (the mapper's choice must be it), with ``probe``'s
+    kernel in its main phase (None: no kernel; the speed tier's probe is
+    plain torch), the tier rule's tier on an SSHash. ``rival``: an SSHash's
+    other tier, asked of a second mapper (``qi``, ``driver``, ``tier`` and
+    ``probe`` as above), whose hits must equal the first's and which is
+    timed in turns with it. The CSR hits of the first
     and the last ORACLE_READS reads (the first batch and the ragged last
     one) and of every read that is not a genome read inside one reference
     (foreign, with an N, across two references) must equal the plain padded
@@ -980,24 +1039,43 @@ def mapping_phase(tag: str, index, qi, cpu_qi, probe, smi, tmp: str, seed: int =
     reads, start, rc, foreign, with_n = synth.serve_reads_truth(index.refs, n, seed=seed)
     fq = os.path.join(tmp, f"{tag.replace(' ', '_')}.fastq.gz")
     synth.write_fastq(fq, reads)
-    mapper = ReadMapper(index, query_index=qi)
-    reset_launches()
-    t0 = time.perf_counter()
-    hits = mapper.map_file(fq)
-    first_s = time.perf_counter() - t0
-    launches = probe.LAUNCHES
-    if launches == 0:
-        raise AssertionError(f"[{tag}] the mapper never launched the {probe.SOURCE.stem} kernel")
-    n_kmers = sum(h.n_kmers for h in hits)
-    times = []
-    for _ in range(MAP_PASSES):
+    runs = [dict(qi=qi, driver=driver, tier=None, probe=probe)] + ([rival] if rival else [])
+    for r in runs:
+        r["mapper"] = ReadMapper(index, query_index=r["qi"], tier=r["tier"])
+        if type(r["mapper"].tp).__name__ != r["driver"]:
+            raise AssertionError(f"[{tag}] the mapper took {type(r['mapper'].tp).__name__}, not "
+                                 f"{r['driver']}")
+        took = {"TwoPhaseIndexQuery": "speed", "CompactQuery": "capacity"}.get(r["driver"], "-")
+        if type(index.k2u).__name__ != "SSHash":
+            took = "-"
+        elif r["tier"] is None and took != query_tier(index, device=next(qi.buffers()).device):
+            raise AssertionError(f"[{tag}] the mapper's tier is not the rule's")
+        r["took"] = f"{took} ({'the rule' if r['tier'] is None else 'asked for'})"
+        log(f"[{tag}] tier {r['took']}: driver {r['driver']}")
+        reset_launches()
         t0 = time.perf_counter()
-        again = mapper.map_file(fq)
-        times.append(time.perf_counter() - t0)
-    bh = again[0]._batch
-    if not all(np.array_equal(getattr(bh, kk), getattr(hits[0]._batch, kk))
-               for kk in ("mt", "offsets", "ref_id", "ref_pos", "orient")):
-        raise AssertionError(f"[{tag}] two runs of the mapper differ")
+        r["hits"] = r["mapper"].map_file(fq)
+        r["first_s"] = time.perf_counter() - t0
+        r["launches"] = r["probe"].LAUNCHES if r["probe"] else 0
+        if r["probe"] and r["launches"] == 0:
+            raise AssertionError(f"[{tag}] the mapper never launched the "
+                                 f"{r['probe'].SOURCE.stem} kernel")
+        r["times"] = []
+    mapper, hits, first_s, launches = (runs[0][kk] for kk in ("mapper", "hits", "first_s",
+                                                              "launches"))
+    n_kmers = sum(h.n_kmers for h in hits)
+    for _ in range(MAP_PASSES):
+        for r in runs:
+            t0 = time.perf_counter()
+            r["again"] = r["mapper"].map_file(fq)
+            r["times"].append(time.perf_counter() - t0)
+    bh = runs[0]["again"][0]._batch
+    for r in runs:
+        for other in (r["again"][0]._batch, r["hits"][0]._batch):
+            if not all(np.array_equal(getattr(bh, kk), getattr(other, kk))
+                       for kk in ("mt", "offsets", "ref_id", "ref_pos", "orient")):
+                raise AssertionError(f"[{tag}] two runs of the mappers differ")
+    times = runs[0]["times"]
 
     o = ORACLE_READS
     ok, ref, pos0, orient = read_truth(index.refs, start, rc, foreign, with_n, synth.READ_LEN, k)
@@ -1031,13 +1109,21 @@ def mapping_phase(tag: str, index, qi, cpu_qi, probe, smi, tmp: str, seed: int =
                              f"their true (ref, pos)")
     med = statistics.median(times)
     log(f"[{tag}] ReadMapper.map_file, {n} reads, {n_kmers} k-mers, driver "
-        f"{type(mapper.tp).__name__}: first run {first_s:.2f} s ({probe.SOURCE.stem} launches "
-        f"{launches}); {held_log}; all "
+        f"{type(mapper.tp).__name__}: first run {first_s:.2f} s "
+        f"({f'{probe.SOURCE.stem} launches {launches}' if probe else 'no kernel'}); {held_log}; all "
         f"{int(need.sum())} k-mers of the {int(ok.sum())} genome reads inside one reference hit "
         f"their true (ref, pos, orient)")
     log(f"[{tag}] {MAP_PASSES} runs: median {med:.3f} s = {n / med:.1f} reads/s, "
         f"{n_kmers / med:.1f} k-mers/s (min {min(times):.3f} s, max {max(times):.3f} s) ({smi}); "
         f"phase 6d on this index in {time.perf_counter() - phase_t0:.1f} s")
+    if rival:
+        t, rp = rival["times"], rival["probe"]
+        rmed = statistics.median(t)
+        kernel = f"{rp.SOURCE.stem} launches {rival['launches']}" if rp else "no kernel"
+        log(f"[{tag}] in turns with it, the same hits from tier {rival['took']}, driver "
+            f"{rival['driver']}: first run {rival['first_s']:.2f} s ({kernel}); {MAP_PASSES} "
+            f"runs: median {rmed:.3f} s = {n / rmed:.1f} reads/s (min {min(t):.3f} s, max "
+            f"{max(t):.3f} s); the rule's tier {rmed / med:.3f}x as fast ({smi})")
     return launches
 
 
@@ -1749,6 +1835,302 @@ def pf1_path(kind: str, genome, n_bases: int, truth, dev, smi):
         lambda: checksum_padded_rolled(gpu_index, fw, CH, graph=False), times)
 
 
+def read_kmers(refs, n_reads: int, k: int, seed: int) -> np.ndarray:
+    """Every k-mer of ``n_reads`` reads of ``READ_LEN`` bases, in read order:
+    their starts uniform over the whole concatenated genome (``bench.py``
+    draws them over its first 8 references; here those would be 80 kb,
+    whose rows the L2 would hold)."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, int(refs.prefix_sum[-1]) - synth.READ_LEN + 1, n_reads)
+    codes = refs.seq.get_base(starts[:, None] + np.arange(synth.READ_LEN)).reshape(-1)
+    per = synth.READ_LEN - k + 1
+    kpos = (np.arange(per)[None, :] + (np.arange(n_reads) * synth.READ_LEN)[:, None]).reshape(-1)
+    return SeqVector.from_codes(codes.astype(np.uint8)).get_kmer_u64(kpos, k)
+
+
+def reads1graph_stack(refs, k: int) -> torch.Tensor:
+    """``bench.py``'s reads1graph input: ``SPEED_CH`` distinct chunks of
+    ``READ_BATCH`` read k-mers (``read_kmers``, seed 1) as an int64
+    [SPEED_CH, READ_BATCH] stack on the CPU."""
+    n = SPEED_CH * READ_BATCH
+    words = read_kmers(refs, -(-n // (synth.READ_LEN - k + 1)), k, seed=1)[:n]
+    return torch.from_numpy(words.view(np.int64)).reshape(SPEED_CH, READ_BATCH)
+
+
+def reads1graph_oracle(tag: str, cpu_index, stack: torch.Tensor, **kw) -> tuple[int, int]:
+    """(pass checksum, M2) of a reads1graph stack: the sum of each chunk's
+    checksum by the port's plain path on CPU tensors, M2 sized from the
+    worst chunk's overflow as ``bench.py:991-1000`` sizes it from chunk 0's."""
+    t0 = time.perf_counter()
+    total, worst, chunk0 = 0, 0, None
+    for i, chunk in enumerate(stack):
+        out = get_ref_pos_compact(cpu_index.arrays(), chunk, cpu_index.max_occs, merge=False,
+                                  m2=max(8192, READ_BATCH // 4), **kw)
+        if bool(out["over_budget"]):
+            raise AssertionError(f"[{tag}] CPU oracle over budget on chunk {i}")
+        n_hit = int((merge_compact_k2u(out)["mt"] > 0).sum())
+        if n_hit < READ_BATCH * 0.9:
+            raise AssertionError(f"[{tag}] only {n_hit} of {READ_BATCH} read k-mers of chunk "
+                                 f"{i} hit")
+        chk = int(OneGraphIndexQuery.checksum(out))
+        total += chk
+        worst = max(worst, int(out["n_ovf"]))
+        chunk0 = chunk0 or (chk, n_hit, int(out["n_ovf"]))
+    M2 = max(2048, -(-int(worst * 1.4 + 1024) // 1024) * 1024)
+    log(f"[{tag}] {READ_BATCH} read k-mers a chunk, {SPEED_CH} distinct chunks; CPU oracle "
+        f"{time.perf_counter() - t0:.1f} s: pass checksum {total}; chunk 0 checksum "
+        f"{chunk0[0]}, {chunk0[1]} hits, overflow {chunk0[2]} = {chunk0[2] / READ_BATCH:.4f}; "
+        f"worst overflow {worst} -> M2={M2}")
+    return total, M2
+
+
+def mono2_reads(index, host: dict, gpu_index, smi) -> int:
+    """Phase 6e: the reads1graph pass of phase 8b (the same read k-mers) on
+    the mono2 index, so SSHash's read rate stands beside mono2's on the same
+    traffic. Returns K1's launches in the first replayed pass."""
+    stack_cpu = reads1graph_stack(index.refs, index.k)
+    stack = stack_cpu.to(next(gpu_index.buffers()).device)
+    want, M2 = reads1graph_oracle("mono2 reads1graph",
+                                  QueryIndex(arrays_from_numpy(host, "cpu")), stack_cpu)
+    og = OneGraphIndexQuery(gpu_index, READ_BATCH, n_chunks=SPEED_CH, m2=M2)
+    og_e = OneGraphIndexQuery(gpu_index, READ_BATCH, n_chunks=SPEED_CH, m2=M2, graph=False)
+    launches, _, _ = graph_and_eager(
+        "mono2 reads1graph", gpu_index, og.checksum_pass, og_e.checksum_pass, stack, want,
+        READ_BATCH * SPEED_CH, 3, mono2_probe, smi)
+    del og, og_e
+    return launches
+
+
+def speed(genome, n_bases: int, truth, dev, smi):
+    """Phases 8a-8e: the SSHash speed tier over phase 4's genome. Returns a
+    function that runs the profiled passes of 8b and 8d."""
+    # 8a. the speed index, in its two fused layouts
+    t0 = time.perf_counter()
+    index = synth.build_speed_index(n_bases, seed=0, device=dev, chunk=1 << 22, genome=genome)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host2 = index.device_arrays(**synth.SPEED_LAYOUT)
+    t_arr2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host1 = index.device_arrays(fused=True)
+    t_arr1 = time.perf_counter() - t0
+    cpu2, cpu1 = (QueryIndex(arrays_from_numpy(h, "cpu")) for h in (host2, host1))
+    gpu2, gpu1 = (QueryIndex(arrays_from_numpy(h, "cpu")).to(dev) for h in (host2, host1))
+    torch.cuda.synchronize()
+    del host2, host1
+    k = index.k
+    ss, us = index.k2u, index.k2u.unitigs
+    k2u = gpu2.arrays()["k2u"]
+    m = k2u["meta"]
+    log(f"[speed index] {us.total_len} bases, {us.n_kmers} k-mers; direct engine w={ss.w}, skew "
+        f"{ss.skew_param}, load {synth.SPEED_LOAD}: T={m.direct_t} buckets, {len(ss.pos)} "
+        f"minimizer occurrences (rows), probe_bound={m.probe_bound}, max bucket "
+        f"{ss.max_bucket()}, {ss.n_kmers_in_skew_index} skew k-mers "
+        f"({getattr(m, 'skew_kind', 'no skew table')}); "
+        f"max_occs={gpu2.max_occs}")
+    log(f"[speed index] host build {t_build:.1f} s (minimizer scan on the card); inline2 fused "
+        f"arrays {t_arr2:.1f} s: {gpu2.nbytes()} bytes on the card (rows "
+        f"{k2u['pos']['inline'].numel() * 4}, flat2 {k2u['prefix']['flat2'].numel() * 4}, skew "
+        f"rows {tree_bytes({'s': k2u.get('skew_inline')})}, unitig set {tree_bytes(k2u['us'])}, "
+        f"occurrences {tree_bytes(gpu2.arrays()['u2pos'])}, references "
+        f"{tree_bytes(gpu2.arrays()['refs'])}); inline fused arrays {t_arr1:.1f} s: "
+        f"{gpu1.nbytes()} bytes ({smi})")
+    if gpu2.nbytes() != speed_bytes(index):
+        raise AssertionError(f"speed_bytes {speed_bytes(index)} != the layout's {gpu2.nbytes()}")
+
+    # 8b. bench.py's reads1graph pass: the k-mers of reads of READ_LEN bases
+    stack_cpu = reads1graph_stack(index.refs, k)
+    fw_r = stack_cpu.to(dev)
+    want_r, M2 = reads1graph_oracle("reads1graph", cpu2, stack_cpu, probe_limit=PLIM)
+    og_r = OneGraphIndexQuery(gpu2, READ_BATCH, n_chunks=SPEED_CH, m2=M2, probe_limit=PLIM)
+    og_re = OneGraphIndexQuery(gpu2, READ_BATCH, n_chunks=SPEED_CH, m2=M2, probe_limit=PLIM,
+                               graph=False)
+    _, worst, times_r = graph_and_eager(
+        "reads1graph", gpu2, og_r.checksum_pass, og_re.checksum_pass, fw_r, want_r,
+        READ_BATCH * SPEED_CH, 3, None, smi)
+    log(f"[reads1graph] worst overflow {worst} within M2; the rates above are read k-mers/s")
+
+    # 8c. bench.py's reads path (BASELINE config 3)
+    reads_phase(index, cpu1, gpu1, dev, smi)
+
+    # 8d. uniform queries: phase 5's batch through the speed layout
+    t0 = time.perf_counter()
+    work, uid, off, foreign = truth
+    work_cpu = torch.from_numpy(work.view(np.int64))
+    fw_u = work_cpu.to(dev)
+    out0 = get_ref_pos_compact(cpu2.arrays(), work_cpu, cpu2.max_occs, merge=False,
+                               probe_limit=PLIM, m2=BATCH // 4)
+    if bool(out0["over_budget"]):
+        raise AssertionError("[speed uniform] CPU oracle over budget")
+    host_chk_u = int(OneGraphIndexQuery.checksum(out0))
+    merged = merge_compact_k2u(out0)
+    hit = merged["mt"].numpy() > 0
+    if not (hit[~foreign].all() and not hit[foreign].any()
+            and np.array_equal(merged["unitig_id"].numpy()[~foreign], uid[~foreign])
+            and np.array_equal(merged["pos"].numpy()[~foreign], off[~foreign])):
+        raise AssertionError("[speed uniform] CPU oracle disagrees with the sampled lanes")
+    n_ovf = int(out0["n_ovf"])
+    M2u = max(1024, -(-(n_ovf + 128) // 256) * 256)
+    log(f"[speed uniform] CPU oracle {time.perf_counter() - t0:.1f} s: chunk checksum "
+        f"{host_chk_u}; every sampled lane at its unitig and offset, no foreign lane hit; "
+        f"overflow {n_ovf}/{BATCH} = {n_ovf / BATCH:.4f} -> M2={M2u}")
+    del out0, merged
+    og_u = OneGraphIndexQuery(gpu2, BATCH, n_chunks=CH, m2=M2u, probe_limit=PLIM)
+    og_ue = OneGraphIndexQuery(gpu2, BATCH, n_chunks=CH, m2=M2u, probe_limit=PLIM, graph=False)
+    _, worst, times_u = graph_and_eager(
+        "speed uniform", gpu2, og_u.checksum_pass_rolled, og_ue.checksum_pass_rolled, fw_u,
+        CH * host_chk_u, BATCH * CH, PASSES, None, smi)
+
+    # 8e. the read mapper, in the speed tier by the rule, then in the
+    # capacity tier asked for (its K2 launches not counted: a comparison)
+    qc = QueryIndex(arrays_from_numpy(index.device_arrays(**synth.CAPACITY_LAYOUT), "cpu")).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        mapping_phase("map speed", index, gpu1, cpu1, None, smi, tmp, driver="TwoPhaseIndexQuery",
+                      rival=dict(qi=qc, driver="CompactQuery", tier="capacity", probe=bpos_probe))
+    del cpu1, cpu2, qc
+
+    def profile():
+        profile_both("reads1graph", lambda: og_r.checksum_pass(fw_r),
+                     lambda: og_re.checksum_pass(fw_r), times_r)
+        profile_both("speed uniform", lambda: og_u.checksum_pass_rolled(fw_u),
+                     lambda: og_ue.checksum_pass_rolled(fw_u), times_u)
+    return profile
+
+
+def reads_phase(index, cpu_qi, gpu_qi, dev, smi):
+    """Phase 8c: ``bench.py``'s reads path on the speed index's fused
+    inline rows: ``READS`` reads k-merized on the host and padded to a power
+    of two (pad lanes each a read), through ``TwoPhaseIndexQuery`` and
+    ``ReadBatchQuery`` (run sharing), both equal to the two-phase checksum
+    on CPU tensors, then 3 of each timed in turns."""
+    k = index.k
+    per = synth.READ_LEN - k + 1
+    words = read_kmers(index.refs, READS, k, seed=1)
+    n_real = len(words)
+    n = 1 << (n_real - 1).bit_length()
+    words = np.concatenate([words, np.zeros(n - n_real, dtype=np.uint64)])
+    new_read = np.zeros(n, dtype=bool)
+    new_read[:n_real:per] = True
+    new_read[n_real:] = True
+    fw = torch.from_numpy(words.view(np.int64)).to(dev)
+    nr = torch.from_numpy(new_read).to(dev)
+    t0 = time.perf_counter()
+    want = TwoPhaseIndexQuery(cpu_qi).checksum_query(torch.from_numpy(words.view(np.int64)))
+    cpu_s = time.perf_counter() - t0
+    n_runs = int(run_starts(gpu_qi.arrays()["k2u"], fw, nr)[0].sum())
+    tp, rb = TwoPhaseIndexQuery(gpu_qi), ReadBatchQuery(gpu_qi)
+    runs = {"twophase": lambda: tp.checksum_query(fw),
+            "runshare": lambda: rb.checksum_query(fw, words, nr)}
+    got = {kind: run() for kind, run in runs.items()}
+    if not got["twophase"] == got["runshare"] == want:
+        raise AssertionError(f"[reads] checksums: {got}, CPU {want}")
+    log(f"[reads] {READS} reads of {synth.READ_LEN} bases k-merized on the host: {n_real} read "
+        f"k-mers padded to {n}; (checksum, overflow lanes) {want} from TwoPhaseIndexQuery and "
+        f"ReadBatchQuery on the card == TwoPhaseIndexQuery on CPU tensors ({cpu_s:.1f} s); "
+        f"{n_runs} runs ({n_runs / n_real:.3f} a read k-mer with the {n - n_real} pad lanes) "
+        f"in {n} run slots, the reference's budget {n // 2} "
+        f"({'exceeded' if n_runs > n // 2 else 'not exceeded'}: C11)")
+    t = {kind: [] for kind in runs}
+    for _ in range(3):
+        for kind, run in runs.items():
+            t0 = time.perf_counter()
+            if run() != want:
+                raise AssertionError(f"[reads] timed {kind} checksum differs")
+            t[kind].append(time.perf_counter() - t0)
+    for kind, v in t.items():
+        rates = sorted(n_real / x for x in v)
+        log(f"[reads] {kind}, 3 in turns (eager: the overflow count comes back mid-pass): median "
+            f"{statistics.median(rates):.1f} read k-mers/s (min {rates[0]:.1f}, max "
+            f"{rates[-1]:.1f}) ({smi})")
+
+
+def capacity_speed(index, work: np.ndarray, uid, upos, fw: torch.Tensor, smi):
+    """Phase 12a: the 300 Mbp capacity build laid out as the reference's
+    tier rule lays it out on this card (fused inline2 rows), its 8 x 2^20
+    queries through ``OneGraphIndexQuery`` at probe limit 2, checked
+    against a CPU oracle for chunk 0, replayed and eager."""
+    tag = "cap speed"
+    t0 = time.perf_counter()
+    host = index.device_arrays(pos_kind="inline2")
+    t_rows = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index.fuse(host["k2u"])
+    t_fuse = time.perf_counter() - t0
+    cpu_index = QueryIndex(arrays_from_numpy(host, "cpu"))
+    gpu_index = QueryIndex(arrays_from_numpy(host, "cpu")).to(fw.device)
+    torch.cuda.synchronize()
+    del host
+    log(f"[{tag}] the port's tier rule gives {query_tier(index, device=fw.device)} (probe "
+        f"bound {index.k2u.probe_bound()}), the reference's speed; inline2 rows and "
+        f"flat32 bounds {t_rows:.1f} s, fusion pass {t_fuse:.1f} s on the host; "
+        f"{gpu_index.nbytes()} bytes on the card (speed_bytes {speed_bytes(index)})")
+    t0 = time.perf_counter()
+    work_cpu = torch.from_numpy(work.view(np.int64))
+    out0 = get_ref_pos_compact(cpu_index.arrays(), work_cpu, cpu_index.max_occs, merge=False,
+                               probe_limit=PLIM, m2=BATCH // 4)
+    if bool(out0["over_budget"]):
+        raise AssertionError(f"[{tag}] CPU oracle over budget")
+    merged = merge_compact_k2u(out0)
+    if not (bool((merged["mt"] > 0).all()) and np.array_equal(merged["unitig_id"].numpy(), uid)
+            and np.array_equal(merged["pos"].numpy(), upos)):
+        raise AssertionError(f"[{tag}] CPU oracle disagrees with the sampled unitigs and offsets")
+    host_chk, n_ovf = int(OneGraphIndexQuery.checksum(out0)), int(out0["n_ovf"])
+    M2 = fit(n_ovf * 1.3)
+    log(f"[{tag}] CPU oracle {time.perf_counter() - t0:.1f} s: chunk checksum {host_chk}, every "
+        f"lane at its sampled unitig and offset; overflow {n_ovf} -> M2={M2}")
+    del cpu_index, out0, merged
+    og = OneGraphIndexQuery(gpu_index, BATCH, n_chunks=CAP_CH, m2=M2, probe_limit=PLIM)
+    og_e = OneGraphIndexQuery(gpu_index, BATCH, n_chunks=CAP_CH, m2=M2, probe_limit=PLIM,
+                              graph=False)
+    _, _, times = graph_and_eager(tag, gpu_index, og.checksum_pass_rolled,
+                                  og_e.checksum_pass_rolled, fw, CAP_CH * host_chk,
+                                  BATCH * CAP_CH, 3, None, smi)
+    m = gpu_index.arrays()["k2u"]["meta"]
+    p2_ms = cuda_ms(lambda: get_ref_pos_padded(gpu_index.arrays(), fw[:M2], gpu_index.max_occs), 3)
+    log(f"[{tag}] phase 2 alone (full mode, static loop to probe_bound={m.probe_bound}) on {M2} "
+        f"lanes: {p2_ms:.3f} ms, x {CAP_CH} chunks = {CAP_CH * p2_ms:.1f} ms of the replayed "
+        f"pass's {times['graph'] * 1e3:.1f} ms ({smi})")
+    del og, og_e, gpu_index
+    torch.cuda.empty_cache()
+
+
+def c10_on_card(index, cap_index, work: np.ndarray, fw: torch.Tensor) -> QueryIndex:
+    """Phase 17a: reference fault C10 on the card. The fast32 index at its
+    default fused inline layout through ``TwoPhaseIndexQuery``'s default
+    must equal, lane for lane, the padded query on the capacity layout
+    ``cap_index``, skew lanes included. Returns that layout on the card."""
+    qi = QueryIndex(arrays_from_numpy(index.device_arrays(fused=True), "cpu")).to(fw.device)
+    tp = TwoPhaseIndexQuery(qi)
+    skew = sshash_k2u(qi.arrays()["k2u"], fw, mode="main")["use_skew"]
+    n_skew = int(skew.sum())
+    got = tp.get_ref_pos_batch(work)
+    out = get_ref_pos_padded(cap_index.arrays(), fw, cap_index.max_occs)
+    want = BatchHits.from_padded(_host(out))
+    skew_hit = int((skew & (out["mt"] > 0)).sum())
+    for key in ("mt", "offsets", "ref_id", "ref_pos", "orient"):
+        if not np.array_equal(getattr(got, key), getattr(want, key)):
+            raise AssertionError(f"[c10] TwoPhaseIndexQuery on fused fast32 rows differs from the "
+                                 f"padded query in {key}")
+    if skew_hit == 0:
+        raise AssertionError("[c10] the batch has no skew lane that hits")
+    log(f"[c10] fast32 index, fused inline rows, TwoPhaseIndexQuery's default on {len(work)} "
+        f"queries == the padded query on the capacity layout, lane for lane: {n_skew} skew "
+        f"lanes, {skew_hit} of them hits with their occurrences ({qi.nbytes()} bytes on the card)")
+    del tp, skew, out
+    return qi
+
+
+def speed_rows(tag: str, index, dev) -> QueryIndex:
+    """A 300 Mbp SSHash's speed-tier arrays, ``index.device_arrays(fused=True)``
+    (fused inline rows), on the card, their host seconds printed: the
+    rival of phase 12's mapper (12b)."""
+    t0 = time.perf_counter()
+    qi = QueryIndex(arrays_from_numpy(index.device_arrays(fused=True), "cpu")).to(dev)
+    log(f"[{tag}] fused inline rows for the speed tier {time.perf_counter() - t0:.1f} s on the "
+        f"host: {qi.nbytes()} bytes on the card")
+    return qi
+
+
 def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
     """Phases 10-14; returns K2's record for the kernels line and the
     capacity path's profiled pass. ``sector_rate``: phase 3's random-sector
@@ -1834,10 +2216,19 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
     log(f"[cap main] residue phase alone (full mode, static loop to probe_bound={m.probe_bound}) "
         f"on {m2c} lanes: {res_ms:.3f} ms ({smi})")
     capacity_drivers(cpu_index, gpu_index, work, fw)
-    # 6d on the capacity index: the read mapper, K2 in its main phase
+    # 6d on the capacity index: the read mapper in the capacity tier by the
+    # rule, K2 in its main phase; 12b. in turns with it, the speed tier
+    qs = speed_rows("map capacity", index, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches += mapping_phase("map capacity", index, gpu_index, cpu_index, bpos_probe, smi,
-                                  tmp)
+        launches += mapping_phase(
+            "map capacity", index, gpu_index, cpu_index, bpos_probe, smi, tmp,
+            driver="CompactQuery",
+            rival=dict(qi=qs, driver="TwoPhaseIndexQuery", tier="speed", probe=None))
+    del qs
+    torch.cuda.empty_cache()
+
+    # 12a. the speed layout of this build
+    capacity_speed(index, work, uid, upos, fw, smi)
 
     # 13. K3 build report
     log(f"[k3 build] {lib3}")
@@ -2058,10 +2449,18 @@ def mphf(args, dev, smi, sector_rate: float):
     # 17. the MPHF main path
     launches, _, profile = sshash_path("mphf main", cpu_index, gpu_index, work, uid, upos, fw,
                                        synth.MPHF_QUERY, capacity_probe, smi)
-    # 6d on the MPHF index: the read mapper, K3 in its main phase
+    # 17a. C10 on the card
+    qs = c10_on_card(index, gpu_index, work, fw)
+    # 6d on the MPHF index: the read mapper in the capacity tier by the
+    # rule, K3 in its main phase; 17b. in turns with it, the speed tier on
+    # the fused inline rows of 17a
     with tempfile.TemporaryDirectory() as tmp:
-        launches += mapping_phase("map mphf", index, gpu_index, cpu_index, capacity_probe, smi,
-                                  tmp)
+        launches += mapping_phase(
+            "map mphf", index, gpu_index, cpu_index, capacity_probe, smi, tmp,
+            driver="CompactQuery",
+            rival=dict(qi=qs, driver="TwoPhaseIndexQuery", tier="speed", probe=None))
+    del qs
+    torch.cuda.empty_cache()
     return record("capacity_probe", "capacity_probe.cu", "mazu_tpu/ops/pallas_capacity.py:56",
                   launches, max_err, k3_ms, k3_plain_ms, k3_bound,
                   sector_floor_ms=k3_floor), profile

@@ -7,21 +7,23 @@ read's k-mer windows with their reference hits.
 NumPy arrays); ``ReadHits`` is one read's view of it. ``CompactQuery`` is
 the SSHash capacity-tier driver and ``ReadMapper`` the entry point.
 
-The reference picks each dictionary's driver from measured TPU settings
-(its ``index/tuning.py``), which are not ported. The port's choices for the
-H100 are ``ReadMapper``'s, in ``query_driver``:
+Each dictionary's driver is ``query_driver``'s:
 
 - a mono2 KCDict: ``TwoPhaseIndexQuery``, kernel K1 in its main phase
   (the reference answers it with the eager padded query);
-- a direct SSHash: ``CompactQuery`` on ``synth.CAPACITY_LAYOUT`` at probe
-  limit 2 with a middle phase at 4, kernel K2 in the main phase;
-- a fast32 SSHash: ``CompactQuery`` on ``synth.MPHF_LAYOUT`` with
-  ``synth.MPHF_QUERY``, kernel K3 in the main phase;
+- an SSHash in its speed tier (``tuning.query_tier``: the reference's
+  rule, its speed layout fits the device, and the port's probe-bound
+  limit): ``TwoPhaseIndexQuery`` on its fused inline rows, as the
+  reference's mapper takes it;
+- else, in its capacity tier, a direct SSHash: ``CompactQuery`` on
+  ``synth.CAPACITY_LAYOUT`` at probe limit 2 with a middle phase at 4,
+  kernel K2 in the main phase;
+- else a fast32 SSHash: ``CompactQuery`` on ``synth.MPHF_LAYOUT`` with
+  ``synth.MPHF_QUERY``, kernel K3 in the main phase (the reference's
+  capacity settings were measured on a TPU; these are the port's);
 - pufferfish's dense and sparse dictionaries: ``PaddedQuery``.
 
-The reference sends a small SSHash to its speed tier, fused inline rows,
-which the port has not yet; an SSHash here always takes the capacity
-layouts. The results are the same whichever driver answers.
+The results are the same whichever driver answers.
 """
 
 from __future__ import annotations
@@ -248,22 +250,43 @@ class PaddedQuery(_Driver):
 CAPACITY_QUERY = dict(probe_limit=2, defer_valid=True, probe_limit2=4)
 
 
-def query_driver(index, device=None, query_index=None):
+def query_driver(index, device=None, query_index=None, tier: str | None = None):
     """The driver ``ReadMapper`` queries ``index`` with on ``device`` (see
-    the module): each has ``get_ref_pos_batch``. ``query_index``: the
-    index's arrays in the driver's layout, already on a device."""
+    the module): each has ``get_ref_pos_batch``. ``tier``: an SSHash's,
+    ``"speed"`` or ``"capacity"``; None takes ``tuning.query_tier``'s.
+    ``query_index``: the index's arrays in the driver's layout, already on
+    a device (an SSHash's speed tier: ``index.device_arrays(fused=True)``;
+    its capacity tier: packed positions); a layout of the other tier
+    raises."""
     from .. import synth
+    from .tuning import query_tier
     from .twophase import TwoPhaseIndexQuery
 
     k2u = index.k2u
-    if type(k2u).__name__ == "KCDict":
+    kind = type(k2u).__name__
+    if kind != "SSHash":
+        if tier is not None:
+            raise ValueError(f"a {kind} has no query tier")
+        if kind == "KCDict":
+            return TwoPhaseIndexQuery(query_index or index,
+                                      device=None if query_index else device)
+        return PaddedQuery(index, device, query_index)
+    if tier is None:
+        on = device if query_index is None else next(query_index.buffers()).device
+        tier = query_tier(index, device=on)
+    if tier not in ("speed", "capacity"):
+        raise ValueError(f"tier must be 'speed' or 'capacity', not {tier!r}")
+    if query_index is not None:
+        pos_kind = query_index.arrays()["k2u"]["meta"].pos_kind
+        held = "speed" if pos_kind in ("inline", "inline2") else "capacity"
+        if held != tier:
+            raise ValueError(f"query_index holds {pos_kind!r} positions, the {held} tier's "
+                             f"layout; the index's tier is {tier!r}")
+    if tier == "speed":
         return TwoPhaseIndexQuery(query_index or index, device=None if query_index else device)
-    if type(k2u).__name__ == "SSHash":
-        if k2u.direct_T:
-            return CompactQuery(index, synth.CAPACITY_LAYOUT, CAPACITY_QUERY, device, query_index)
-        return CompactQuery(index, synth.MPHF_LAYOUT, synth.MPHF_QUERY, device, query_index)
-    return PaddedQuery(index, device, query_index)
-
+    if k2u.direct_T:
+        return CompactQuery(index, synth.CAPACITY_LAYOUT, CAPACITY_QUERY, device, query_index)
+    return CompactQuery(index, synth.MPHF_LAYOUT, synth.MPHF_QUERY, device, query_index)
 
 
 class ReadMapper:
@@ -271,14 +294,16 @@ class ReadMapper:
     (sequences), ``map_fasta`` and ``map_file`` (FASTA or FASTQ, gzipped or
     not). The windows of all reads are k-merized in one call of the host
     library and queried ``batch`` at a time on ``device`` (the card by
-    default) through ``query_driver(index)``; ``query_index`` lends it
-    the index's arrays already on a device, in that driver's layout."""
+    default) through ``query_driver(index, tier=tier)``; ``query_index``
+    lends it the index's arrays already on a device, in that driver's
+    layout."""
 
-    def __init__(self, index, batch: int = 1 << 18, device=None, query_index=None):
+    def __init__(self, index, batch: int = 1 << 18, device=None, query_index=None,
+                 tier: str | None = None):
         self.index = index
         self.k = index.k
         self.batch = int(batch)
-        self.tp = query_driver(index, device, query_index)
+        self.tp = query_driver(index, device, query_index, tier)
 
     def map_reads(self, reads: list) -> list:
         """One ``ReadHits`` a read, views into one CSR batch."""

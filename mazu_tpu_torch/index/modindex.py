@@ -453,15 +453,24 @@ class ModIndex:
     def max_occs(self) -> int:
         return self.u2pos.max_occs()
 
-    def device_arrays(self, pos_kind: str | None = None, prefix_kind: str | None = None,
-                      bucket_inline: bool = False, uproj: bool = False,
-                      useqrec: bool = False) -> dict:
+    def device_arrays(self, fused: bool = False, pos_kind: str | None = None,
+                      prefix_kind: str | None = None, bucket_inline: bool = False,
+                      uproj: bool = False, useqrec: bool = False) -> dict:
         """NumPy arrays in the reference's layout. A KCDict takes no knobs
-        (its rows already carry the fused occurrence words: the reference's
-        ``fused=True``). ``pos_kind``, ``prefix_kind`` and ``bucket_inline``
-        are SSHash layout knobs; ``uproj`` adds the per-unitig projection
-        records (``build_uproj``) and ``useqrec`` the window records
-        (``build_useqrec``) to the SSHash unitig set."""
+        (its rows already carry the fused occurrence words: ``fused=True``
+        returns them unchanged). ``pos_kind``, ``prefix_kind`` and
+        ``bucket_inline`` are SSHash layout knobs (an SSHash with none takes
+        inline rows with flat32 bounds); ``uproj`` adds the per-unitig
+        projection records (``build_uproj``) and ``useqrec`` the window
+        records (``build_useqrec``) to the SSHash unitig set.
+
+        ``fused=True`` runs the fusion pass on an SSHash's inline rows: each
+        row gets its unitig's first occurrence word (two u32 columns), its
+        occurrence count and its first occurrence index (``occ_start``), and
+        an inline2 row also the second occurrence word (zero for a unitig
+        with one), so a lane whose unitig has at most that many occurrences
+        projects with no further read. The direct engine's skew rows get the
+        first three the same way."""
         if pos_kind is not None or prefix_kind is not None or bucket_inline:
             k2u = self.k2u.device_arrays(prefix_kind=prefix_kind, pos_kind=pos_kind,
                                          bucket_inline=bucket_inline)
@@ -479,7 +488,41 @@ class ModIndex:
             d["k2u"]["us"]["uproj"] = build_uproj(self.u2pos, self.k2u.unitigs)
         if useqrec:
             d["k2u"]["us"]["useqrec"] = build_useqrec(self.u2pos, self.k2u.unitigs)
+        if fused and d["k2u"]["meta"].kind != "kcdict":
+            self.fuse(d["k2u"])
         return d
+
+    def fuse(self, k2u: dict) -> None:
+        """The fusion pass over the inline rows and skew rows of an SSHash's
+        arrays ``k2u`` (from ``device_arrays``), in place: see
+        ``device_arrays(fused=True)``."""
+        pos_d = k2u.get("pos", {})
+        if "inline" not in pos_d:
+            raise ValueError("fused arrays need an inline row layout")
+        ct = self.u2pos.ctable
+        cwords = ct.to_array() if hasattr(ct, "to_array") else np.asarray(ct)
+        off = np.asarray(self.u2pos.offsets, dtype=np.int64)
+        hi = max(len(cwords) - 1, 0)
+        us = self.k2u.unitigs
+
+        def occ_cols(uid, second: bool) -> list:
+            first = cwords[np.clip(off[uid], 0, hi)]
+            cnt = (off[uid + 1] - off[uid]).astype(np.uint64)
+            cols = [first & np.uint64(0xFFFFFFFF), first >> np.uint64(32), cnt, off[uid]]
+            if second:
+                w2 = cwords[np.clip(off[uid] + 1, 0, hi)] * (cnt >= 2)
+                cols += [w2 & np.uint64(0xFFFFFFFF), w2 >> np.uint64(32)]
+            return [c.astype(np.uint32)[:, None] for c in cols]
+
+        rows = pos_d["inline"]
+        # a row's unitig is its own uid column
+        uid = np.minimum(rows[:, 1].astype(np.int64), us.n_unitigs - 1)
+        pos_d["inline"] = np.concatenate([rows, *occ_cols(uid, rows.shape[1] == 8)], axis=1)
+        if "skew_inline" in k2u:
+            spos = self.k2u.skew_direct["pos"]
+            suid = us.pos_to_id(np.where(spos >= 0, spos, 0))  # cuckoo empties: unitig 0
+            k2u["skew_inline"] = np.concatenate([k2u["skew_inline"], *occ_cols(suid, False)],
+                                                axis=1)
 
     def _host_arrays(self) -> dict:
         from ..convert import arrays_from_numpy

@@ -21,6 +21,7 @@ import torch
 
 from .. import MATCH_IDENTITY
 from ..convert import words_to
+from ..kphf.runshare import sshash_k2u_reads_runshare
 from ..kphf.sshash import sshash_k2u
 from ..ops.bpos_probe import bpos_usrec_k2u
 from ..ops.capacity_probe import capacity_k2u
@@ -37,8 +38,10 @@ def _main_probe(arrays: dict, fw: torch.Tensor, probe_limit: int | None = None,
     """The dictionary's main-phase probe: ``(r, probe_start)``.
 
     On a mono2 KCDict the probe is ``mono2_k2u`` (kernel K1). On an SSHash
-    it is ``sshash_k2u(mode="main")`` at depth ``probe_limit``, run by a
-    kernel where one fits: ``bpos_usrec_k2u`` (K2) on a direct SSHash with
+    it is ``sshash_k2u(mode="main")`` at depth ``probe_limit`` (plain torch
+    on inline rows: the reference computes that probe in plain ``jnp``), run
+    by a kernel on packed positions where one fits: ``bpos_usrec_k2u`` (K2)
+    on a direct SSHash with
     the ``bpos`` rows and ``useqrec`` records (``probe_limit`` <= 3;
     ``defer_valid`` changes nothing there, the records carry the extent
     check), and ``capacity_k2u`` (K3) with ``defer_valid`` on the paired
@@ -55,10 +58,11 @@ def _main_probe(arrays: dict, fw: torch.Tensor, probe_limit: int | None = None,
     if m_.kind != "sshash":
         raise ValueError(f"the port has no {m_.kind!r} main probe yet")
     us = k2u["us"]
-    if (m_.direct_t and "bpos" in k2u and "useqrec" in us and probe_limit is not None
-            and 0 < probe_limit <= 3):
+    packed = m_.pos_kind == "packed"
+    if (packed and m_.direct_t and "bpos" in k2u and "useqrec" in us
+            and probe_limit is not None and 0 < probe_limit <= 3):
         r = bpos_usrec_k2u(k2u, fw, probe_limit)
-    elif (probe_limit is not None and defer_valid and "useqrec" not in us
+    elif (packed and probe_limit is not None and defer_valid and "useqrec" not in us
           and "words2" in us["useq"] and "wb2" in us["bv"]):
         r = capacity_k2u(k2u, fw, probe_limit, mphf_level_limit=mphf_level_limit)
     else:
@@ -135,7 +139,9 @@ def _project_offsets(arrays: dict, r: dict, small_occs: int) -> dict:
 
 
 def _project_fused(arrays: dict, r: dict) -> dict:
-    """Project the (up to two) occurrence words that the K2U row carried.
+    """Project the occurrence words that the K2U row carried: two where it
+    gave ``occ_word2`` (a KCDict's rows, inline2 rows, the capacity
+    records), else one.
 
     Lanes whose unitig has more occurrences than the row carries, or that
     need the skew structure, are flagged ``overflow`` for phase 2. The
@@ -146,7 +152,8 @@ def _project_fused(arrays: dict, r: dict) -> dict:
     k = arrays["meta"].k
     hit = r["mt"] > 0
     cnt = torch.where(hit, r["occ_cnt"], 0)
-    overflow = r["use_skew"] | (cnt > 2)
+    words = [r["occ_word"], r["occ_word2"]] if "occ_word2" in r else [r["occ_word"]]
+    overflow = r["use_skew"] | (cnt > len(words))
     kpos = r["pos"]
     ulen = r["unitig_len"]
     o_match = (r["mt"] == MATCH_IDENTITY).to(torch.int32)
@@ -157,16 +164,15 @@ def _project_fused(arrays: dict, r: dict) -> dict:
         ref_pos = torch.where(fw, kpos + occ_pos, occ_pos + (ulen - kpos) - k)
         return ref_id, ref_pos, torch.where(fw, o_match, 1 - o_match)
 
-    r1, p1, o1 = proj(r["occ_word"])
-    r2, p2, o2 = proj(r["occ_word2"])
+    cols = [proj(wd) for wd in words]
     base_valid = hit & ~overflow
     return {
         **{kk: r[kk] for kk in _K2U_FIELDS},
         "n_occs": cnt,
-        "ref_id": torch.stack([r1, r2], dim=1),
-        "ref_pos": torch.stack([p1, p2], dim=1),
-        "orient": torch.stack([o1, o2], dim=1),
-        "valid": torch.stack([base_valid & (cnt >= 1), base_valid & (cnt >= 2)], dim=1),
+        "ref_id": torch.stack([c[0] for c in cols], dim=1),
+        "ref_pos": torch.stack([c[1] for c in cols], dim=1),
+        "orient": torch.stack([c[2] for c in cols], dim=1),
+        "valid": torch.stack([base_valid & (cnt > j) for j in range(len(words))], dim=1),
         "overflow": overflow,
     }
 
@@ -183,15 +189,105 @@ def _host(out: dict) -> dict:
     return {kk: v.cpu().numpy() for kk, v in out.items()}
 
 
+def _padded_checksum(out: dict, n_real: int) -> torch.Tensor:
+    """ref_pos and ref_id over the valid occurrences and unitig_id over the
+    first ``n_real`` lanes of a padded result: phase 2's share of a
+    two-phase checksum."""
+    lane_ok = torch.arange(out["mt"].shape[0], device=out["mt"].device) < n_real
+    v = out["valid"] & lane_ok[:, None]
+    return (torch.where(v, out["ref_pos"], 0).sum() + torch.where(v, out["ref_id"], 0).sum()
+            + torch.where(lane_ok, out["unitig_id"], 0).sum())
+
+
+def _main_checksum(p: dict) -> torch.Tensor:
+    """ref_pos and ref_id over the valid main occurrences, unitig_id over
+    every main lane: phase 1's share of a two-phase checksum."""
+    return (torch.where(p["valid"], p["ref_pos"], 0).sum()
+            + torch.where(p["valid"], p["ref_id"], 0).sum() + p["unitig_id"].sum())
+
+
+class ReadBatchQuery:
+    """The read pipeline's two-phase query (``mazu_tpu``'s
+    ``ReadBatchQuery``): phase 1 through run sharing
+    (``kphf.runshare.sshash_k2u_reads_runshare``: consecutive k-mers that
+    share a bucket share its row fetch) on fused inline rows, projected by
+    ``_project_fused``; phase 2 the exact padded query on the overflow
+    lanes. The results equal ``TwoPhaseIndexQuery``'s.
+
+    ``index``: a direct-engine SSHash ``ModIndex``, whose
+    ``device_arrays(fused=True)`` go to ``device`` (the card by default),
+    or a ``QueryIndex`` of those arrays."""
+
+    def __init__(self, index, device=None):
+        self.index = _query_index(index, device, {"fused": True})
+        self.max_occs = self.index.max_occs
+
+    def main_chk(self, fw: torch.Tensor, new_read: torch.Tensor):
+        """Phase 1 of int64 words ``fw`` with bool ``new_read`` (True where a
+        read begins) on the device: (its checksum, its ``overflow`` flags,
+        ``run_overflow``), all tensors."""
+        arrays = self.index.arrays()
+        r = sshash_k2u_reads_runshare(arrays["k2u"], fw, new_read)
+        p = _project_fused(arrays, r)
+        return _main_checksum(p), p["overflow"], r["run_overflow"]
+
+    def checksum_query(self, fw_words_dev: torch.Tensor, fw_words_host: np.ndarray | None,
+                       new_read_dev: torch.Tensor):
+        """The whole query reduced on the device: (checksum, number of
+        overflow lanes), the checksum as ``TwoPhaseIndexQuery``'s, phase 2
+        on the overflow lanes compacted on the device. Raises if the batch
+        had more runs than run slots (it has a slot a lane: never).
+        ``fw_words_host`` is accepted for the reference's signature and not
+        read."""
+        chk, overflow, run_ovf = self.main_chk(fw_words_dev, new_read_dev)
+        if bool(run_ovf):
+            raise RuntimeError("run budget exceeded (not a read batch?)")
+        lanes, s2 = _overflow_phase(self.index.arrays(), self.max_occs, fw_words_dev, overflow)
+        if s2 is not None:
+            chk = chk + _padded_checksum(s2, lanes.shape[0])
+        return int(chk), int(lanes.shape[0])
+
+
+def _overflow_phase(arrays: dict, max_occs: int, fw: torch.Tensor, overflow: torch.Tensor):
+    """(lanes [n] on the device, phase 2 over them padded to
+    ``_pow2_slots(n)``, or None when no lane overflows): the flagged lanes
+    compacted on the device, their count read back once, then
+    ``get_ref_pos_padded``."""
+    lanes, n = flagged_lanes(overflow, fw.shape[0])
+    n = int(n)
+    if n == 0:
+        return lanes[:0], None
+    padded = torch.zeros(_pow2_slots(n), dtype=fw.dtype, device=fw.device)
+    padded[:n] = fw[lanes[:n]]
+    return lanes[:n], get_ref_pos_padded(arrays, padded, max_occs)
+
+
+def _query_index(index, device, layout: dict) -> QueryIndex:
+    """``index``'s arrays on a device: a ``ModIndex``'s
+    ``device_arrays(**layout)`` moved to ``device`` (the card by default),
+    or a ``QueryIndex``, which has its layout and device already (a
+    ``device`` raises)."""
+    from ..convert import arrays_from_numpy, resolve_device
+
+    if isinstance(index, ModIndex):
+        host = index.device_arrays(**layout)
+        return QueryIndex(arrays_from_numpy(host, "cpu")).to(resolve_device(device))
+    if isinstance(index, QueryIndex):
+        if device is not None:
+            raise ValueError("a QueryIndex has its layout and device already")
+        return index
+    raise TypeError(f"index must be a ModIndex or a QueryIndex, not {type(index).__name__}")
+
+
 class TwoPhaseIndexQuery:
     """The two-phase query of one index (``mazu_tpu``'s serving path).
 
-    ``index``: a ``ModIndex``, whose ``device_arrays(**layout)`` go to
-    ``device`` (the card by default), or a ``QueryIndex``, queried where it
-    lies. ``fused=True`` asks for an SSHash's inline rows with fused
-    occurrence fields, which the port lacks (ROADMAP A6); a KCDict's rows
-    carry them already. ``fused=None`` is the reference's default: True for
-    a hash32 SSHash.
+    ``index``: a ``ModIndex``, whose ``device_arrays(fused=fused, **layout)``
+    go to ``device`` (the card by default), or a ``QueryIndex``, queried
+    where it lies. ``fused=None`` is the reference's default: fused rows on
+    an SSHash (every SSHash of the port is hash32) laid out in inline rows,
+    which an SSHash takes unless ``layout`` names another ``pos_kind``; a
+    KCDict's rows carry the fused occurrence words already.
 
     ``main(fw)`` is phase 1 (``_main_phase`` at width ``small_occs``) and
     ``full(fw)`` the exact padded query, both on int64 word tensors on the
@@ -199,29 +295,14 @@ class TwoPhaseIndexQuery:
 
     def __init__(self, index, small_occs: int = 2, device=None, fused: bool | None = None,
                  probe_limit: int | None = None, **layout):
-        from ..convert import arrays_from_numpy, resolve_device
-
-        if isinstance(index, ModIndex):
-            sshash = hasattr(index.k2u, "pos")  # every SSHash of the port is hash32
-            if fused is None:
-                fused = sshash
-            if fused and sshash:
-                raise ValueError("fused=True on an SSHash needs an inline row layout, which "
-                                 "the port has not yet (ROADMAP A6): pass fused=False and the "
-                                 "capacity layout")
-            host = index.device_arrays(**layout)
-            qi = QueryIndex(arrays_from_numpy(host, "cpu")).to(resolve_device(device))
-        elif isinstance(index, QueryIndex):
-            if layout or device is not None:
-                raise ValueError("a QueryIndex has its layout and device already")
-            if fused and index.arrays()["k2u"]["meta"].kind == "sshash":
-                raise ValueError("fused=True on an SSHash needs an inline row layout (ROADMAP A6)")
-            qi = index
-        else:
-            raise TypeError(f"index must be a ModIndex or a QueryIndex, not {type(index).__name__}")
-        self.index = qi
+        if isinstance(index, QueryIndex) and (layout or fused is not None):
+            raise ValueError("a QueryIndex has its layout and device already")
+        if isinstance(index, ModIndex) and fused is None:
+            fused = hasattr(index.k2u, "pos") and layout.get("pos_kind") in (None, "inline",
+                                                                             "inline2")
+        self.index = _query_index(index, device, dict(layout, fused=bool(fused)))
         self.small_occs = int(small_occs)
-        self.max_occs = qi.max_occs
+        self.max_occs = self.index.max_occs
         self.probe_limit = probe_limit
 
     @property
@@ -237,20 +318,6 @@ class TwoPhaseIndexQuery:
     def _words(self, fw_words: np.ndarray) -> torch.Tensor:
         return words_to(fw_words, self.device)
 
-    def _overflow_phase(self, fw: torch.Tensor, overflow: torch.Tensor):
-        """(lanes [n] on the device, phase 2 over them padded to
-        ``_pow2_slots(n)``, or None when no lane overflows): the flagged
-        lanes compacted on the device, their count read back once."""
-        n_all = fw.shape[0]
-        lanes, n = flagged_lanes(overflow, n_all)
-        n = int(n)
-        if n == 0:
-            return lanes[:0], None
-        b = _pow2_slots(n)
-        padded = torch.zeros(b, dtype=fw.dtype, device=fw.device)
-        padded[:n] = fw[lanes[:n]]
-        return lanes[:n], self.full(padded)
-
     def checksum_query(self, fw_words_dev: torch.Tensor, fw_words_host: np.ndarray | None = None):
         """The whole two-phase query reduced on the device: (checksum,
         number of overflow lanes). The checksum sums ref_pos and ref_id over
@@ -259,16 +326,11 @@ class TwoPhaseIndexQuery:
         lanes of phase 2. ``fw_words_host`` is accepted for the reference's
         signature and not read: the lanes are compacted on the device."""
         r = self.main(fw_words_dev)
-        s = (torch.where(r["valid"], r["ref_pos"], 0).sum()
-             + torch.where(r["valid"], r["ref_id"], 0).sum()
-             + r["unitig_id"].sum())
-        lanes, s2 = self._overflow_phase(fw_words_dev, r["overflow"])
+        s = _main_checksum(r)
+        lanes, s2 = _overflow_phase(self.index.arrays(), self.max_occs, fw_words_dev,
+                                    r["overflow"])
         if s2 is not None:
-            n = lanes.shape[0]
-            v = s2["valid"][:n]
-            s = s + (torch.where(v, s2["ref_pos"][:n], 0).sum()
-                     + torch.where(v, s2["ref_id"][:n], 0).sum()
-                     + s2["unitig_id"][:n].sum())
+            s = s + _padded_checksum(s2, lanes.shape[0])
         return int(s), int(lanes.shape[0])
 
     def query(self, fw_words: np.ndarray):
@@ -279,7 +341,7 @@ class TwoPhaseIndexQuery:
         order, padded to the index's maximum occurrence count."""
         fw = self._words(fw_words)
         r = self.main(fw)
-        lanes, s = self._overflow_phase(fw, r["overflow"])
+        lanes, s = _overflow_phase(self.index.arrays(), self.max_occs, fw, r["overflow"])
         n = lanes.shape[0]
         return (_host(r), lanes.cpu().numpy(),
                 None if s is None else {kk: v[:n] for kk, v in _host(s).items()})

@@ -18,15 +18,21 @@ verifies the candidate k-mers at ``mm_pos - offset`` and
 
 The build is NumPy (byte-identical to the reference's) except the
 minimizer scan, and for fast32 the MPHF lookup of every minimizer, which
-run on the given device in chunks. The ported device layout is the
-capacity tier's: packed positions (IntVector), grouped16 bucket bounds and
-the unitig set's paired arrays, with the direct engine's ``bpos`` rows and
-``useqrec`` window records, or the per-unitig ``uproj`` records
+run on the given device in chunks. Two device layouts are ported, both
+with the unitig set's paired arrays: the speed tier's (the default), one
+inline row per minimizer occurrence that holds the candidate window's
+words and its unitig's id and extent (``inline`` or the pre-aligned
+``inline2``), with flat32 bucket bounds, which
+``ModIndex.device_arrays(fused=True)`` extends with occurrence fields; and
+the capacity tier's, packed positions (IntVector) with grouped16 bucket
+bounds, and the direct engine's ``bpos`` rows and ``useqrec`` window
+records, or the per-unitig ``uproj`` records
 (``index.modindex.build_uproj``) for the deferred-validation probe.
-``sshash_k2u`` is the plain torch query; on the main path
-``ops.bpos_probe.bpos_usrec_k2u`` (direct, useqrec) and
+``sshash_k2u`` is the plain torch query of both; on the capacity tier's
+main path ``ops.bpos_probe.bpos_usrec_k2u`` (direct, useqrec) and
 ``ops.capacity_probe.capacity_k2u`` (deferred validation) run its main
-probe as kernels.
+probe as kernels. The speed tier's probe is plain torch, as the
+reference's is plain ``jnp``.
 """
 
 from __future__ import annotations
@@ -344,17 +350,39 @@ class SSHash:
 
     def device_arrays(self, prefix_kind: str | None = None, pos_kind: str | None = None,
                       bucket_inline: bool = False) -> dict:
-        """The capacity-tier layout: ``pos_kind="packed"``,
-        ``prefix_kind="grouped16"`` (an int64 base per 1024-bucket group and
-        a u16 in-group delta per bucket), and with ``bucket_inline`` the
-        ``bpos`` u32[T, 4] rows (first three positions of the bucket, then
-        its count). The direct engine's skew rows are u32[., 8]: pos, uid,
-        start, end and the two useq words that hold the k-mer; fast32 adds
-        its ``mphf``, ``skew_mphf`` and ``skew_pos``."""
-        if pos_kind != "packed":
+        """The reference's device layouts of two tiers (``SSHash.device_arrays``
+        in ``mazu_tpu``; both with the unitig set's paired arrays):
+
+        - the speed tier, the default: ``pos_kind="inline"``, one u32[., 10]
+          row per minimizer occurrence (mm_pos, uid, start, end, then the
+          three useq words that hold both candidate k-mers), or
+          ``"inline2"``, u32[., 8] rows whose two words hold the candidate
+          window pre-aligned to bit 0; with ``prefix_kind="flat32"`` bounds
+          (the default), a [T, 2] int32 ``flat2`` pair per bucket (the fast32
+          engine also keeps the [T + 1] ``flat`` prefix, as the reference
+          does without its native library), or grouped16 bounds. Both row
+          kinds need ``total_len < 2^31``.
+        - the capacity tier: ``pos_kind="packed"`` (an IntVector) with
+          ``prefix_kind="grouped16"`` (an int64 base per 1024-bucket group and
+          a u16 in-group delta per bucket), and with ``bucket_inline`` the
+          ``bpos`` u32[T, 4] rows (first three positions of the bucket, then
+          its count).
+
+        The direct engine's skew rows are u32[., 8]: pos, uid, start, end and
+        the two useq words that hold the k-mer; fast32 adds its ``mphf``,
+        ``skew_mphf`` and ``skew_pos``. ``ModIndex.device_arrays(fused=True)``
+        appends each row's occurrence fields."""
+        pos_kind = "inline" if pos_kind is None else pos_kind
+        if prefix_kind is None:
+            prefix_kind = "grouped16" if pos_kind == "packed" else "flat32"
+        if pos_kind not in ("packed", "inline", "inline2"):
             raise ValueError(f"the port has no {pos_kind!r} SSHash position layout yet")
-        if prefix_kind != "grouped16":
-            raise ValueError(f"the port has no {prefix_kind!r} SSHash bucket bounds yet")
+        bounds = ("grouped16",) if pos_kind == "packed" else ("flat32", "grouped16")
+        if prefix_kind not in bounds:
+            raise ValueError(f"the port has no {prefix_kind!r} SSHash bucket bounds for "
+                             f"{pos_kind!r} positions yet")
+        if bucket_inline and pos_kind != "packed":
+            raise ValueError(f"bucket_inline requires pos_kind='packed', got {pos_kind!r}")
         us = self.unitigs
         d = {
             "us": us.device_arrays(paired=True),
@@ -365,20 +393,32 @@ class SSHash:
                 probe_bound=max(1, self.probe_bound()), prefix_kind=prefix_kind,
                 pos_kind=pos_kind,
             ),
-            "pos": self.pos.device_arrays(),
         }
         if self.mphf is not None:
             d["mphf"] = self.mphf.device_arrays()
         if self.skew_mphf is not None:
             d["skew_mphf"] = self.skew_mphf.device_arrays()
             d["skew_pos"] = self.skew_pos.device_arrays()
+        if pos_kind == "packed":
+            d["pos"] = self.pos.device_arrays()
+        else:
+            d["pos"] = {"inline": self._inline_rows(pos_kind == "inline2"),
+                        "meta": meta(length=len(self.pos))}
         p = self.occs_prefix_sum
-        base = np.ascontiguousarray(p[::1024]).astype(np.int64)
-        delta = p - base[np.arange(len(p), dtype=np.int64) >> 10]
-        if int(delta.max(initial=0)) >= (1 << 16):
-            raise ValueError("grouped16 prefix overflow: a 1024-bucket group holds >= 2^16 "
-                             "occurrences")
-        d["prefix"] = {"gbase": base, "gdelta": delta.astype(np.uint16)}
+        if prefix_kind == "grouped16":
+            base = np.ascontiguousarray(p[::1024]).astype(np.int64)
+            delta = p - base[np.arange(len(p), dtype=np.int64) >> 10]
+            if int(delta.max(initial=0)) >= (1 << 16):
+                raise ValueError("grouped16 prefix overflow: a 1024-bucket group holds >= 2^16 "
+                                 "occurrences")
+            d["prefix"] = {"gbase": base, "gdelta": delta.astype(np.uint16)}
+        else:
+            p32 = p.astype(np.int32)
+            pairs = np.stack([p32[:-1], p32[1:]], axis=1)
+            # the direct build keeps its bounds sparse, as the reference's
+            # native pass reads them: flat2 alone; fast32 keeps both
+            d["prefix"] = ({"flat2": pairs} if self._sparse_prefix is not None
+                           else {"flat": p32, "flat2": pairs})
         if bucket_inline:
             if us.total_len >= (1 << 31):
                 raise ValueError("bucket_inline positions ride in u32: total_len must be < 2^31")
@@ -415,6 +455,33 @@ class SSHash:
                                               skew_kind="bucket")
         return d
 
+    def _inline_rows(self, aligned: bool) -> np.ndarray:
+        """u32 occurrence rows: (mm_pos, uid, start, end) and the useq words
+        that hold the candidate window [mm_pos - (k - w), mm_pos + k), three
+        words from the window's word (``inline``, u32[., 10]) or two words
+        pre-aligned so the window starts at bit 0 (``inline2``, u32[., 8])."""
+        us = self.unitigs
+        if us.total_len >= (1 << 31):
+            raise AssertionError("inline rows carry u32 positions: total_len must be < 2^31")
+        pos_arr = self.pos.to_array().astype(np.int64)
+        uid = us.pos_to_id(pos_arr)
+        base = np.maximum(pos_arr - (self.k - self.w), 0)
+        wi = (base * 2) >> 6
+        wp = np.concatenate([us.useq.words, np.zeros(2, dtype=U64)])
+        cols = [pos_arr.astype(U64) | (uid.astype(U64) << U64(32)),
+                us.accum[uid].astype(U64) | (us.accum[uid + 1].astype(U64) << U64(32))]
+        if aligned:
+            r = ((base * 2) & 63).astype(U64)
+            hs = (U64(64) - r) & U64(63)
+            nz = r != 0
+            q0, q1, q2 = wp[wi], wp[wi + 1], wp[wi + 2]
+            cols += [(q0 >> r) | np.where(nz, q1 << hs, U64(0)),
+                     (q1 >> r) | np.where(nz, q2 << hs, U64(0))]
+        else:
+            cols += [wp[wi], wp[wi + 1], wp[wi + 2]]
+        rows = np.stack(cols, axis=1)
+        return np.ascontiguousarray(rows).view(U32).reshape(len(rows), -1)
+
 
 # ---------------------------------------------------------------------------
 # Batched query (plain torch)
@@ -428,7 +495,11 @@ def _prefix_get(d: dict, i: torch.Tensor) -> torch.Tensor:
 
 
 def _prefix_pair(d: dict, i: torch.Tensor):
-    """Both bounds (p[i], p[i+1]) of bucket(s) ``i``."""
+    """Both bounds (p[i], p[i+1]) of bucket(s) ``i``: one ``flat2`` pair
+    where the layout has them, else two grouped16 reads."""
+    if "flat2" in d["prefix"]:
+        pair = d["prefix"]["flat2"][i].to(torch.int64)
+        return pair[..., 0], pair[..., 1]
     return _prefix_get(d, i), _prefix_get(d, i + 1)
 
 
@@ -482,6 +553,80 @@ def _extract(q0, q1, q2, dbit, k: int) -> torch.Tensor:
     return (srl_var(lo, r) | hi) & mask2k(k)
 
 
+def _w64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The u64 bit pattern of two u32 row columns (int32 bit patterns)."""
+    return mask32(lo) | (hi.to(torch.int64) << 32)
+
+
+def fused_kind(pos_kind: str, width: int) -> tuple[bool, bool]:
+    """(fused, fused14) of inline rows ``width`` u32 wide: whether the rows
+    carry the fusion pass's occurrence columns (first occurrence word and
+    count), and whether they also carry the unitig's ``occ_start``."""
+    aligned = pos_kind == "inline2"
+    fused = width >= (14 if aligned else 13)
+    return fused, fused and width >= (12 if aligned else 14)
+
+
+def inline_hits(rows: torch.Tensor, active: torch.Tensor, fw: torch.Tensor, rc: torch.Tensor,
+                offsets, k: int, w: int, aligned: bool, fused: bool, fused14: bool):
+    """The first hit among candidate inline rows ``rows`` (int32 [N, J, C],
+    rows in probe order), each checked at the lane's two candidate offsets
+    against the row's own unitig extent; ``active`` [N, J] masks rows past a
+    lane's count. Returns (any_hit [N], the winner's fields [N]: unitig_id,
+    unitig_len, pos, mt and, on fused rows, occ_word, occ_oc (count, with
+    ``occ_start << 32`` when the rows carry it) and on ``aligned`` (inline2)
+    rows occ_word2)."""
+    def col(c):
+        return mask32(rows[..., c])
+
+    mm_pos, start, end = col(0), col(2), col(3)
+    base = torch.clamp(mm_pos - (k - w), min=0)
+    q0, q1 = _w64(rows[..., 4], rows[..., 5]), _w64(rows[..., 6], rows[..., 7])
+    if aligned:  # the window starts at bit 0 of its two words
+        q2, woff = q1, 0
+    else:
+        q2, woff = _w64(rows[..., 8], rows[..., 9]), (base * 2) & 63
+    cands = []
+    for off in offsets:
+        km_pos = mm_pos - off[:, None]
+        dbit = woff + 2 * torch.clamp(km_pos - base, min=0)
+        mt = word_equivalency(fw[:, None], rc[:, None], _extract(q0, q1, q2, dbit, k), k)
+        hit = active & (km_pos >= start) & (km_pos + k <= end) & (mt > 0)
+        cands.append((hit, km_pos - start, mt))
+
+    def flat(i):  # candidate order: row j, then its two offsets
+        return torch.stack([cands[0][i], cands[1][i]], dim=2).flatten(1)
+
+    first, any_hit = _first(flat(0))
+    row = torch.div(first, 2, rounding_mode="floor")
+    win = {"unitig_id": _take(col(1), row), "unitig_len": _take(end - start, row),
+           "pos": _take(flat(1), first), "mt": _take(flat(2), first)}
+    if fused:
+        c = 8 if aligned else 10
+        win["occ_word"] = _take(_w64(rows[..., c], rows[..., c + 1]), row)
+        oc = col(c + 2)
+        if fused14:
+            oc = oc | (col(c + 3) << 32)
+        win["occ_oc"] = _take(oc, row)
+        if aligned:
+            win["occ_word2"] = _take(_w64(rows[..., 12], rows[..., 13]), row)
+    return any_hit, win
+
+
+def occ_fields(out: dict, fused14: bool) -> dict:
+    """The fused occurrence outputs of a probe's ``occ_word``/``occ_oc``
+    (and ``occ_word2``) state: occ_word, occ_cnt, occ_start (fused14),
+    occ_word2 (inline2)."""
+    res = {"occ_word": out["occ_word"]}
+    if fused14:
+        res.update(occ_cnt=out["occ_oc"] & M32, occ_start=srl(out["occ_oc"], 32))
+    else:
+        res["occ_cnt"] = out["occ_oc"]
+    if "occ_word2" in out:
+        res["occ_word2"] = out["occ_word2"]
+    return res
+
+
 def _first(flags: torch.Tensor):
     """Index of the first set flag along dim 1, and whether there is one."""
     n = flags.shape[1]
@@ -515,9 +660,10 @@ def mphf_lookup(d: dict, keys: torch.Tensor, level_limit: int | None = None):
 def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int | None = None,
                probe_start: int = 0, defer_valid: bool = False,
                mphf_level_limit: int | None = None) -> dict:
-    """Batched SSHash K2U on the capacity layout (packed positions, grouped16
-    bounds, paired unitig-set arrays), direct or fast32 engine (plain
-    torch; ``mazu_tpu.kphf.sshash.sshash_k2u``).
+    """Batched SSHash K2U, direct or fast32 engine, on the capacity layout
+    (packed positions, grouped16 bounds) or the speed tier's inline rows
+    (flat32 bounds; ``_inline_k2u``), plain torch
+    (``mazu_tpu.kphf.sshash.sshash_k2u``).
 
     ``fw``: int64 bit patterns of forward k-mer words. Returns int64
     unitig_id, unitig_len, pos and uint8 mt (0 miss, 1 identity, 2 twin).
@@ -555,11 +701,18 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
       With ``uproj``, adds occ_word, occ_word2, occ_cnt and occ_start.
 
     Unresolved lanes of the records, of ``defer_valid`` or of
-    ``mphf_level_limit`` must be re-probed from row 0."""
+    ``mphf_level_limit`` must be re-probed from row 0.
+
+    On inline rows each row is one gather that also carries the unitig's
+    id and extent, against which the candidates are checked; fused rows add
+    occ_word, occ_cnt, occ_start and (inline2) occ_word2. ``defer_valid``
+    changes nothing there."""
     m = d["meta"]
     us = d["us"]
-    if m.pos_kind != "packed" or m.prefix_kind != "grouped16":
-        raise ValueError("the port's SSHash query covers packed positions with grouped16 bounds")
+    if m.pos_kind not in ("packed", "inline", "inline2") or \
+            m.prefix_kind not in ("grouped16", "flat32"):
+        raise ValueError("the port's SSHash query covers packed, inline and inline2 positions "
+                         "with grouped16 or flat32 bounds")
     usrec = mode == "main" and probe_start == 0 and "useqrec" in us
     if defer_valid and mode != "main":
         raise ValueError("defer_valid is a main-mode contract: its caller re-probes failed lanes")
@@ -600,6 +753,9 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
     bound = m.probe_bound
     if mode == "main" and probe_limit is not None:
         bound = min(bound, int(probe_limit))
+    if m.pos_kind != "packed":
+        return _inline_k2u(d, fw, rc, canon, (offset, rc_offset), ps, n_occs, use_skew, bound,
+                           mode, probe_start, mphf_unres)
     pos_win = None
     if use_bpos:
         pos_win = brow[:, :bound]
@@ -720,8 +876,9 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
     if mode == "main":
         return {"unitig_id": uid, "unitig_len": ulen, "pos": pos, "mt": mt,
                 "use_skew": use_skew, "unresolved": unresolved, **occ}
-    uid, ulen, pos, mt = skew_resolve(d, fw, rc, canon, use_skew, (uid, ulen, pos, mt))
-    res = {"unitig_id": uid, "unitig_len": ulen, "pos": pos, "mt": mt}
+    res = skew_resolve(d, fw, rc, canon, use_skew,
+                       {"unitig_id": uid, "unitig_len": ulen, "pos": pos, "mt": mt})
+    uid, mt = res["unitig_id"], res["mt"]
     if uproj is not None:
         # one record over the final unitig, skew lanes included
         hit = mt > 0
@@ -733,7 +890,53 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
     return res
 
 
-def _skew_row(d, rows, fw, rc, k):
+def _inline_k2u(d: dict, fw, rc, canon, offsets, ps, n_occs, use_skew, bound: int, mode: str,
+                probe_start: int, mphf_unres) -> dict:
+    """``sshash_k2u`` on inline or inline2 rows (the reference's
+    ``probe_body_inline``/``probe_body_inline2``): rows [probe_start, bound)
+    of each bucket, a block of rows at a time, first hit in row order; then
+    the skew table in full mode. Fused rows add their occurrence fields
+    (``occ_fields``), except in full mode on a fast32 index: its skew table
+    (``skew_mphf``) carries none, so the projection of its skew lanes reads
+    the offsets table (the reference reports them with no occurrences, C10)."""
+    m = d["meta"]
+    rows = d["pos"]["inline"]
+    aligned = m.pos_kind == "inline2"
+    fused, fused14 = fused_kind(m.pos_kind, rows.shape[1])
+    last = max(rows.shape[0] - 1, 0)
+    z = torch.zeros_like(fw)
+    found = torch.zeros_like(fw, dtype=torch.bool)
+    out = {"unitig_id": z, "unitig_len": z, "pos": z, "mt": torch.zeros_like(fw, dtype=torch.uint8)}
+    if fused:
+        out.update(occ_word=z, occ_oc=z)
+        if aligned:
+            out["occ_word2"] = z
+    block = max(1, min(bound - probe_start, ROW_BUDGET // max(fw.shape[0], 1)))
+    for j0 in range(probe_start, bound, block):
+        js = torch.arange(j0, min(j0 + block, bound), device=fw.device)
+        active = (js[None, :] < n_occs[:, None]) & ~use_skew[:, None]
+        any_hit, win = inline_hits(rows[torch.clamp(ps[:, None] + js, 0, last)], active, fw, rc,
+                                   offsets, m.k, m.w, aligned, fused, fused14)
+        take = any_hit & ~found
+        for key, v in win.items():
+            out[key] = torch.where(take, v, out[key])
+        found = found | any_hit
+    if mode == "main":
+        unresolved = ~found & ~use_skew & (n_occs > bound)
+        if mphf_unres is not None:
+            unresolved = unresolved | mphf_unres
+        res = {kk: out[kk] for kk in ("unitig_id", "unitig_len", "pos", "mt")}
+        res.update(use_skew=use_skew, unresolved=unresolved)
+    else:
+        out = skew_resolve(d, fw, rc, canon, use_skew, out, fused14=fused14)
+        res = {kk: out[kk] for kk in ("unitig_id", "unitig_len", "pos", "mt")}
+        fused = fused and "skew_mphf" not in d
+    if fused:
+        res.update(occ_fields(out, fused14))
+    return res
+
+
+def _skew_row(rows, fw, rc, k):
     """(uid, ulen, upos, mt) of u32 skew rows: the k-mer sits at the row's
     position, within its two words."""
     r32 = mask32(rows)
@@ -745,15 +948,18 @@ def _skew_row(d, rows, fw, rc, k):
     return r32[..., 1], end - start, kpos - start, word_equivalency(fw, rc, kw, k)
 
 
-def skew_resolve(d: dict, fw, rc, canon, use_skew, state):
+def skew_resolve(d: dict, fw, rc, canon, use_skew, out: dict, fused14: bool = False) -> dict:
     """Resolve heavy-bucket lanes through the skew table: the direct
     engine's two-choice rows (``skew_kind="cuckoo"``) or bounded buckets
     (``skew_prefix2``), or fast32's ``skew_mphf`` over the canonical k-mer,
-    whose value indexes ``skew_pos``. ``state`` is (uid, ulen, pos, mt);
-    lanes not in ``use_skew`` pass through."""
+    whose value indexes ``skew_pos``. ``out`` holds unitig_id, unitig_len,
+    pos and mt, and on fused rows occ_word and occ_oc, which the direct
+    engine's fused skew rows set too (occ_oc with occ_start where
+    ``fused14``); lanes not in ``use_skew`` pass through. Returns the
+    updated dict."""
     m = d["meta"]
     k = m.k
-    uid, ulen, pos, mt = state
+    out = dict(out)
     if "skew_inline" in d:
         srows = d["skew_inline"]
         if m.skew_kind == "cuckoo":
@@ -766,14 +972,19 @@ def skew_resolve(d: dict, fw, rc, canon, use_skew, state):
             s2, c2 = spair[:, 0], spair[:, 1] - spair[:, 0]
             last = max(srows.shape[0] - 1, 0)
             probes = [(srows[torch.clamp(s2 + j, 0, last)], j < c2) for j in range(m.skew_bound)]
+        occ = "occ_word" in out and srows.shape[1] >= 11
         sfound = torch.zeros_like(use_skew)
         for rows, ok in probes:
-            r_uid, r_ulen, r_pos, r_mt = _skew_row(d, rows, fw, rc, k)
-            hit = use_skew & ~sfound & ok & (r_mt > 0)
-            uid = torch.where(hit, r_uid, uid)
-            ulen = torch.where(hit, r_ulen, ulen)
-            pos = torch.where(hit, r_pos, pos)
-            mt = torch.where(hit, r_mt, mt)
+            new = dict(zip(("unitig_id", "unitig_len", "pos", "mt"), _skew_row(rows, fw, rc, k)))
+            if occ:
+                new["occ_word"] = _w64(rows[:, 8], rows[:, 9])
+                oc = mask32(rows[:, 10])
+                if fused14 and srows.shape[1] >= 12:
+                    oc = oc | (mask32(rows[:, 11]) << 32)
+                new["occ_oc"] = oc
+            hit = use_skew & ~sfound & ok & (new["mt"] > 0)
+            for key, v in new.items():
+                out[key] = torch.where(hit, v, out[key])
             sfound = sfound | hit
     elif "skew_mphf" in d:
         h2 = mphf_lookup(d["skew_mphf"], canon).to(torch.int64)
@@ -783,8 +994,6 @@ def skew_resolve(d: dict, fw, rc, canon, use_skew, state):
         r_mt = word_equivalency(fw, rc, us_get_kmer(d["us"], sp), k)
         r_uid, r_ulen, r_pos, end_ok = _map_hit(d, sp)
         hit = use_skew & (h2 >= 0) & (r_mt > 0) & end_ok
-        uid = torch.where(hit, r_uid, uid)
-        ulen = torch.where(hit, r_ulen, ulen)
-        pos = torch.where(hit, r_pos, pos)
-        mt = torch.where(hit, r_mt, mt)
-    return uid, ulen, pos, mt
+        for key, v in (("unitig_id", r_uid), ("unitig_len", r_ulen), ("pos", r_pos), ("mt", r_mt)):
+            out[key] = torch.where(hit, v, out[key])
+    return out

@@ -8,7 +8,10 @@ window record) carries, and queries on it take a compacted phase.
 Occurrence positions lie inside the reference lengths, so the packed
 occurrence words stay below 2^32 and a KCDict keeps its occ32 layout.
 
-Five indexes: ``build_index``, the mono2-occ32 KCDict of the speed tier;
+Six indexes: ``build_index``, the mono2-occ32 KCDict of the speed tier;
+``build_speed_index``, the SSHash direct engine of ``bench.py``'s read
+paths over the same genome (w=15, skew 4, load 0.25), laid out in the
+SSHash speed tier's fused inline2 rows (``SPEED_LAYOUT``);
 ``build_capacity_index``, the SSHash direct engine of the capacity tier
 (w=15, skew 64, load 0.5, as the reference's 300 Mbp capacity build);
 ``build_mphf_index``, the SSHash fast32 engine of the MPHF capacity tier
@@ -52,6 +55,15 @@ HEAVY_SITES = 4096  # places of the planted w-mer: one bucket far past CAP_SKEW
 TAG = 6  # bases of each site tag (4^6 = HEAVY_SITES numbers)
 CAPACITY_LAYOUT = dict(prefix_kind="grouped16", pos_kind="packed", bucket_inline=True,
                        useqrec=True)
+
+# the SSHash speed tier: bench.py's direct build of its reads and
+# reads1graph paths (w=15, skew 4 at bench.py:543-546, load 0.25 at its
+# synthetic default, bench.py:95), laid out as its reads1graph pass and
+# tuned_query_config's speed tier lay it out (bench.py:964, :987)
+SPEED_W = 15
+SPEED_SKEW = 4
+SPEED_LOAD = 0.25
+SPEED_LAYOUT = dict(fused=True, pos_kind="inline2")
 
 # the MPHF capacity tier: the reference's fast32 engine at human scale
 # (w=19, skew 64, gamma 1.7), queried with deferred validation and a
@@ -179,6 +191,18 @@ def build_capacity_index(n_bases: int, seed: int = 0, device=None, chunk: int = 
     k2u = SSHash.from_unitig_set(unitigs, w=CAP_W, skew_param=CAP_SKEW, bucket_load=CAP_LOAD,
                                  chunk=chunk, device=device)
     return ModIndex(k2u, u2pos, refs, index_type="Piscem-synth")
+
+
+def build_speed_index(n_bases: int, seed: int = 0, device=None, chunk: int = 1 << 22,
+                      genome=None) -> ModIndex:
+    """The direct-engine SSHash of the speed tier over ``synthetic_spt`` (or
+    ``genome``, that function's result for these arguments: the genome of
+    ``build_index``); its minimizer scan runs on ``device`` (the card by
+    default). Its query arrays are ``index.device_arrays(**SPEED_LAYOUT)``."""
+    unitigs, refs, spt = genome or synthetic_spt(n_bases, seed)
+    k2u = SSHash.from_unitig_set(unitigs, w=SPEED_W, skew_param=SPEED_SKEW,
+                                 bucket_load=SPEED_LOAD, chunk=chunk, device=device)
+    return ModIndex(k2u, spt.piscem_table(), refs, index_type="Piscem-synth")
 
 
 def build_mphf_index(n_bases: int, seed: int = 0, device=None, chunk: int = 1 << 22,

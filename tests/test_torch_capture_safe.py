@@ -1,7 +1,9 @@
 """What keeps a pass capturable as one CUDA graph, checked on CPU tensors:
 one chunk of each ``OneGraphIndexQuery`` path (mono2 KCDict; direct SSHash
 with window records, and without records through K3's plain version and
-the offsets projection; fast32 SSHash) and of ``checksum_padded_rolled``
+the offsets projection; fast32 SSHash; the direct SSHash's speed tier,
+fused inline2 rows), ``ReadBatchQuery``'s run-sharing phase 1 and a chunk
+of ``checksum_padded_rolled``
 (pufferfish dense and sparse) and of the serve pass (``serve_chunk``, on
 a packed batch with and without non-ACGT bases) runs under a
 ``TorchDispatchMode`` that
@@ -78,6 +80,10 @@ def _compact_case(toy, name):
         ref, port = build_pair(toy_recipe(toy))
         return QueryIndex(arrays_from_numpy(port.device_arrays(), "cpu")), \
             queries(ref.k2u.unitigs, N, seed=1), {}
+    if name == "speed":
+        ref, port = build_capacity_pair(toy_recipe(toy))
+        qi = QueryIndex(arrays_from_numpy(port.device_arrays(**synth.SPEED_LAYOUT), "cpu"))
+        return qi, capacity_queries(ref.k2u.unitigs, N, seed=1), dict(probe_limit=2)
     if name.startswith("direct"):
         ref, port = build_capacity_pair(toy_recipe(toy))
         layout = dict(PACKED, bucket_inline=True, useqrec=True) if name == "direct_records" \
@@ -92,7 +98,7 @@ def _compact_case(toy, name):
     return qi, capacity_queries(ref.k2u.unitigs, N, seed=1), kw
 
 
-@pytest.mark.parametrize("name", ["mono2", "direct_records", "direct_bare", "fast32"])
+@pytest.mark.parametrize("name", ["mono2", "direct_records", "direct_bare", "fast32", "speed"])
 def test_compact_chunk_stays_on_device(toy, name):
     qi, work, kw = _compact_case(toy, name)
     og = OneGraphIndexQuery(qi, N, n_chunks=1, m2=N, **kw)
@@ -115,6 +121,27 @@ def test_padded_chunk_stays_on_device(toy, kind):
     assert not guard.bad, guard.bad
     assert pipeline.checksum_padded_rolled(qi, work, 2) == \
         pipeline.checksum_padded_rolled(qi, work, 2, graph=False)
+
+
+def test_runshare_main_phase_stays_on_device(toy):
+    """``ReadBatchQuery``'s phase 1 (run sharing, the fused projection, the
+    checksum and the overflow flags) on a read batch of the speed tier's
+    fused inline rows."""
+    from mazu_tpu_torch.index.twophase import ReadBatchQuery
+    from mazu_tpu_torch.index.validate import valid_kmer_windows
+
+    _, port = build_capacity_pair(toy_recipe(toy))
+    rb = ReadBatchQuery(port, device="cpu")
+    words, flags = [], []
+    for s in toy_recipe(toy)[0]:
+        w = valid_kmer_windows(s[:120], port.k)[1]
+        words.append(w)
+        flags.append(np.arange(len(w)) == 0)
+    fw = tensor(np.concatenate(words))
+    nr = torch.from_numpy(np.concatenate(flags))
+    guard = guarded(lambda: rb.main_chk(fw, nr))
+    assert not guard.bad, guard.bad
+    assert "aten.cummax" in guard.ops and "aten.scatter_reduce" in guard.ops
 
 
 def test_boophf_lookups_build_no_host_tensor_per_call(toy):

@@ -2,15 +2,17 @@
 ``ReadMapper.map_reads``, ``map_fasta`` and ``map_file`` (``read_pos``,
 ``hits``, ``n_hit``, ``n_kmers``, ``csr()``) on the mono2 KCDict, the
 direct SSHash and the fast32 SSHash pairs and the pufferfish dense and
-sparse pairs; ``CompactQuery.get_ref_pos_batch``, with the re-run at the
-full budget when a phase overflows N // 4; ``ReadHits``' lazy decoding.
+sparse pairs; ``CompactQuery.get_ref_pos_batch`` (the capacity tier, taken
+under a small ``MAZU_HBM_BUDGET``), with the re-run at the full budget when
+a phase overflows N // 4; ``ReadHits``' lazy decoding.
 
-The reference's ``ReadMapper`` answers a small SSHash with its speed tier,
-fused inline rows, which the port has not. On the fast32 pair that path
-reports hits with no occurrences (its phase 2 gives ``n_occs`` 0 where the
-exact padded query finds three): a reference fault the port does not
-mirror. So on an SSHash the reference's mapper is given its capacity-tier
-``CompactQuery``, whose layouts the port's driver uses too."""
+Both mappers answer these small SSHashes with the speed tier,
+``TwoPhaseIndexQuery`` on fused inline rows, and on the direct pair they
+are compared so. On the fast32 pair the reference's speed tier reports
+skew lanes' hits with no occurrences (its phase 2 gives ``n_occs`` 0 where
+the exact padded query finds three; C10): a reference fault the port does
+not mirror. So there the reference's mapper is given its capacity-tier
+``CompactQuery``, which answers exactly."""
 
 import numpy as np
 import pytest
@@ -36,8 +38,9 @@ CAPACITY = {  # the reference's capacity-tier settings of each SSHash engine
     "fast32": QueryConfig(tier="capacity", pos_kind="packed", prefix_kind="grouped16",
                           uproj=True, probe_limit=2, defer_valid=True, mphf_level_limit=4),
 }
-DRIVER = {"mono2": TwoPhaseIndexQuery, "direct": CompactQuery, "fast32": CompactQuery,
-          "pf1_dense": PaddedQuery, "pf1_sparse": PaddedQuery}
+DRIVER = {"mono2": TwoPhaseIndexQuery, "direct": TwoPhaseIndexQuery,
+          "fast32": TwoPhaseIndexQuery, "pf1_dense": PaddedQuery, "pf1_sparse": PaddedQuery}
+SMALL_BUDGET = "1"  # byte: no speed layout fits, the capacity tier answers
 _PAIRS = {}
 
 
@@ -79,7 +82,7 @@ def reference_mapper(name):
     if name not in _MAPPERS:
         ref = pair(name)[0]
         m = MReadMapper(ref)
-        if name in CAPACITY:
+        if name == "fast32":  # C10: the reference's speed tier drops occurrences
             m.tp = MCompactQuery(ref, CAPACITY[name])
         _MAPPERS[name] = m
     return _MAPPERS[name]
@@ -172,10 +175,14 @@ def same_batch(got, want):
 
 
 @pytest.mark.parametrize("name", ["direct", "fast32"])
-def test_compact_query_batch(name):
+def test_compact_query_batch(name, monkeypatch):
     ref, port, _ = pair(name)
     words = words_of(name, 3000, seed=5)
-    got = mapping.query_driver(port, "cpu").get_ref_pos_batch(words)
+    monkeypatch.setenv("MAZU_HBM_BUDGET", SMALL_BUDGET)
+    cq = mapping.query_driver(port, "cpu")
+    assert isinstance(cq, CompactQuery)
+    got = cq.get_ref_pos_batch(words)
+    same_batch(got, MCompactQuery(ref, CAPACITY[name]).get_ref_pos_batch(words))
     same_batch(got, reference_mapper(name).tp.get_ref_pos_batch(words))
     assert got.to_lists()[:64] == ref.get_ref_pos_eager(words[:64])
 
@@ -187,6 +194,7 @@ def test_compact_query_over_budget_reruns(name, monkeypatch):
     phase, and the answer equals the reference's."""
     ref, port, _ = pair(name)
     words = words_of(name, 2048, seed=7, multi_only=True)
+    monkeypatch.setenv("MAZU_HBM_BUDGET", SMALL_BUDGET)
     cq = mapping.query_driver(port, "cpu")
     budgets = []
     run = cq._run

@@ -1,6 +1,7 @@
 """The port runs where there is no JAX: every module imports, and tiny
 indexes (the mono2 KCDict, the SSHash capacity tier, the MPHF capacity
-tier and the pufferfish dense and sparse indexes) answer queries, a lab
+tier, the SSHash speed tier and the pufferfish dense and sparse indexes)
+answer queries, a lab
 kernel's plain version runs, and a tiny serve pass (FASTQ, packing in the
 host library, device k-merization, map, pseudoalignment), ``validate_self``,
 a flat streaming pass and a read mapper run, with ``jax`` blocked from
@@ -53,6 +54,19 @@ out = get_ref_pos_compact(mq.arrays(), torch.from_numpy(words.view(np.int64)), m
                           merge=True, m2=512, m2b=512, m2c=512, **synth.MPHF_QUERY)
 assert not bool(out["over_budget"]) and bool((out["mt"] > 0).all())
 assert (out["unitig_id"].numpy() == uid).all() and (out["pos"].numpy() == upos).all()
+
+from mazu_tpu_torch.index.twophase import ReadBatchQuery, TwoPhaseIndexQuery
+sp = synth.build_speed_index(8 * synth.PIECE, device="cpu")
+sq = QueryIndex(arrays_from_numpy(sp.device_arrays(**synth.SPEED_LAYOUT), "cpu"))
+words, uid, upos = synth.sample_capacity_queries(sp.k2u.unitigs, 512, seed=4)
+out = get_ref_pos_compact(sq.arrays(), torch.from_numpy(words.view(np.int64)), sq.max_occs,
+                          merge=True, m2=512, probe_limit=2)
+assert not bool(out["over_budget"]) and bool((out["mt"] > 0).all())
+assert (out["unitig_id"].numpy() == uid).all() and (out["pos"].numpy() == upos).all()
+fw = torch.from_numpy(words.view(np.int64))
+chk = TwoPhaseIndexQuery(sp, device="cpu").checksum_query(fw)
+nr = torch.ones(512, dtype=torch.bool)
+assert ReadBatchQuery(sp, device="cpu").checksum_query(fw, words, nr) == chk
 
 from mazu_tpu_torch.index.modindex import get_ref_pos_padded
 from mazu_tpu_torch.ops import gather_lab
@@ -121,7 +135,7 @@ def test_port_imports_and_queries_without_jax():
                  "io.pf1_index", "ops.gather_lab", "labs.gather_probe", "labs.dma_lab",
                  "io.fasta", "io.fastq", "io.cuttlefish", "io.reads", "index.streaming",
                  "index.validate", "index.colors", "index.pseudoalign", "io.native",
-                 "index.mapping"):
+                 "index.mapping", "index.tuning", "kphf.runshare"):
         assert f"mazu_tpu_torch.{name}" in mods, name
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, *mods], capture_output=True, text=True,

@@ -193,6 +193,18 @@ def test_port_layouts_not_ported_raise(pair):
     with pytest.raises(ValueError, match="the port has no"):
         port.k2u.device_arrays(prefix_kind="flat32", pos_kind="packed")
     with pytest.raises(ValueError, match="the port has no"):
-        port.k2u.device_arrays(prefix_kind="grouped16", pos_kind="inline")
+        port.k2u.device_arrays(pos_kind="fixedcap")
+    # inline rows are ported: with grouped16 bounds the whole tree is the
+    # reference's, and the query on it equals the reference's
+    want = ref.k2u.device_arrays(prefix_kind="grouped16", pos_kind="inline")
+    got = port.k2u.device_arrays(prefix_kind="grouped16", pos_kind="inline")
+    same_tree(got, want)
+    work = capacity_queries(ref.k2u.unitigs, 500, seed=9)
+    d = arrays_from_numpy(got, "cpu")
+    for mode in ("main", "full"):
+        w = msshash.sshash_k2u(want, work, np, mode=mode)
+        g = psshash.sshash_k2u(d, tensor(work), mode=mode)
+        for key in w:
+            assert_same(g[key], w[key], f"{mode} {key}")
     with pytest.raises(ValueError, match="the port has no"):
         psshash.SSHash.from_unitig_set(port.k2u.unitigs, 15, engine="parity", device="cpu")

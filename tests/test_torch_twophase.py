@@ -5,7 +5,8 @@ without ``uproj`` records; ``get_ref_pos_compact`` on a direct SSHash
 without records (the main projection through the offsets table);
 ``TwoPhaseIndexQuery``'s ``query``, ``checksum_query``,
 ``get_ref_pos_eager`` and ``get_ref_pos_batch`` against the reference
-class (jitted on the CPU) on the mono2 index and on the capacity layouts;
+class (jitted on the CPU) on the mono2 index, on the capacity layouts and
+with both classes' default SSHash layout (fused inline rows);
 and ``BatchHits``."""
 
 import jax
@@ -152,11 +153,18 @@ def test_compact_unsplit_reprobes_from_row0(toy):
 # ------------------------------------------------------- TwoPhaseIndexQuery
 
 
-@pytest.fixture(scope="module", params=["mono2", "direct_records", "direct_bare"])
+@pytest.fixture(scope="module", params=["mono2", "direct_records", "direct_bare",
+                                        "direct_speed"])
 def twophase(request, toy):
     """(name, reference TwoPhaseIndexQuery, port TwoPhaseIndexQuery, work):
-    the reference class over the same arrays as the port's (its own
-    default SSHash layout is the inline rows that the port lacks)."""
+    the reference class over the same arrays as the port's capacity
+    layouts, or both classes with their default SSHash layout, fused
+    inline rows (``direct_speed``)."""
+    if request.param == "direct_speed":
+        ref, port = build_capacity_pair(toy_recipe(toy))
+        return (request.param, ref, mtp.TwoPhaseIndexQuery(ref, probe_limit=2),
+                ptp.TwoPhaseIndexQuery(port, probe_limit=2, device="cpu"),
+                capacity_queries(ref.k2u.unitigs, N, seed=6))
     build, layout = LAYOUTS[request.param]
     ref, port = build(toy_recipe(toy))
     want_tp = mtp.TwoPhaseIndexQuery(ref, probe_limit=2, fused=False)
@@ -208,8 +216,9 @@ def test_twophase_batch_hits(twophase):
 
 
 def test_twophase_takes_a_query_index(toy):
-    """A QueryIndex is queried where it lies; fused=True on an SSHash and
-    an SSHash ModIndex by default (fused, as the reference) raise by name."""
+    """A QueryIndex is queried where it lies and takes no layout knob; an
+    SSHash ModIndex by default takes fused inline rows, as the reference,
+    and a named packed layout unfused."""
     ref, port = build_capacity_pair(toy_recipe(toy))
     layout = LAYOUTS["direct_records"][1]
     qi = QueryIndex(arrays_from_numpy(port.device_arrays(**layout), "cpu"))
@@ -218,9 +227,15 @@ def test_twophase_takes_a_query_index(toy):
     b = ptp.TwoPhaseIndexQuery(port, probe_limit=2, device="cpu", fused=False,
                                **layout).get_ref_pos_eager(work)
     assert a == b
+    named = ptp.TwoPhaseIndexQuery(port, probe_limit=2, device="cpu", **layout)
+    assert named.index.arrays()["k2u"]["meta"].pos_kind == "packed"
+    assert named.get_ref_pos_eager(work) == a
+    speed = ptp.TwoPhaseIndexQuery(port, probe_limit=2, device="cpu")
+    assert speed.index.arrays()["k2u"]["pos"]["inline"].shape[1] == 14
+    assert speed.get_ref_pos_eager(work) == a
     with pytest.raises(ValueError, match="inline row layout"):
-        ptp.TwoPhaseIndexQuery(port, device="cpu", **layout)
-    with pytest.raises(ValueError, match="inline row layout"):
+        ptp.TwoPhaseIndexQuery(port, device="cpu", fused=True, **layout)
+    with pytest.raises(ValueError, match="layout and device"):
         ptp.TwoPhaseIndexQuery(qi, fused=True)
     with pytest.raises(ValueError, match="layout and device"):
         ptp.TwoPhaseIndexQuery(qi, device="cpu")
