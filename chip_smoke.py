@@ -191,10 +191,28 @@ Phases, each printing its own lines; any failure exits non-zero:
     padded query on the capacity layout; then the mapper (6d) in the
     capacity tier by the rule and, in turns with it, the speed tier on those
     rows (17b), as in phase 12;
+19. the reference's own entry point, the CLI (``mazu_tpu_torch.cli.main``
+    in this process, with its defaults: the card, engine parity, w 15, skew
+    64): phase 4's genome written as cuttlefish files, a FASTA of its
+    references and a FASTQ of phase 6a's reads; ``index build piscem``
+    (timed, with the checkpoint's save time and bytes), ``index stats``
+    (bits/k-mer; once more as ``python -m mazu_tpu_torch.cli`` in a process
+    of its own, the same lines), ``index validate-fasta`` and ``index map``
+    (reads/s). Checks: ``load_index`` of the file gives arrays byte-identical
+    to the built index's; ``validate_self`` on the card over every k-mer of
+    the loaded index (its references read from the FASTA); the mapper's
+    hits on the card equal the CLI's count and, for the first 1,024 reads,
+    ``ReadMapper`` on CPU tensors read by read; phase 5's 2^20 uniform
+    queries through ``OneGraphIndexQuery`` on the layout the tier rule
+    picks, 16 rolled chunks, replayed and eager, against a CPU oracle of one
+    chunk. Then the same build, ``validate-fasta`` and ``map`` with
+    ``--engine mono2`` on a ``--cli-mono2-mbp`` genome (5 Mbp: the 50 Mbp
+    table would spend minutes compressed into the file), its K1 launches
+    counted into K1's and its first 1,024 reads' hits held to the CPU's;
 18. one profiled replayed pass and one profiled eager pass of each of the
     paths of phases 6, 6a and 6c (its index moved to the card again; the
     serve pass's device pass alone; the flat streaming pass on the device),
-    7, 8, 8b, 8d, 12 and 17: device busy share and the kernels that take
+    7, 8, 8b, 8d, 12, 17 and 19: device busy share and the kernels that take
     the time.
     It runs last
     because a profiler session slows the host's launches for the rest of
@@ -218,7 +236,8 @@ output streams at that read rate; its ``before_ms`` is its frozen first
 design's time in the same turns. A kernel's ``launches`` on a path run as a
 graph count the eager warm-up's and the captured launches: a replay
 adds none; K1's are those of phase 6's, 6e's and 6a's first replayed
-passes and of phase 6d's first mapper run, K2's and K3's those of their
+passes, of phase 6d's first mapper run and of phase 19's mono2 CLI
+calls, K2's and K3's those of their
 main path's first replayed pass and of their mapper's first run. The last
 two lines are the kernels' JSON record and the result
 JSON. Imports nothing of JAX.
@@ -232,6 +251,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -528,6 +548,8 @@ def main():
     ap.add_argument("--mbp", type=float, default=50.0, help="mono2 genome size in Mbp")
     ap.add_argument("--cap-mbp", type=float, default=300.0, help="capacity genome size in Mbp")
     ap.add_argument("--mphf-mbp", type=float, default=300.0, help="MPHF genome size in Mbp")
+    ap.add_argument("--cli-mono2-mbp", type=float, default=5.0,
+                    help="genome size in Mbp of the CLI's mono2 leg")
     args = ap.parse_args()
 
     # 1. card
@@ -692,14 +714,220 @@ def main():
     k2, profile_cap = capacity(args, dev, smi, lib3.name, ptxas3, sector_rate)
     torch.cuda.empty_cache()
     k3, profile_mphf = mphf(args, dev, smi, sector_rate)
+    torch.cuda.empty_cache()
+    # 19. the CLI
+    profile_cli = cli_phase(args, dev, smi, k1)
 
     # 18. profiled passes
-    for profile in (profile_mono2, *profile_pf1, profile_speed, profile_cap, profile_mphf):
+    for profile in (profile_mono2, *profile_pf1, profile_speed, profile_cap, profile_mphf,
+                    profile_cli):
         profile()
     log(json.dumps({"kernels": [k1, k2, k3, *labs]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
+
+
+def run_cli(tag: str, argv: list) -> tuple[str, float]:
+    """``mazu_tpu_torch.cli.main(argv)`` in this process: (its standard
+    output, echoed to the log, and its seconds). Raises unless it returns 0."""
+    import contextlib
+    import io
+
+    from mazu_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    dt = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"[{tag}] | {line}")
+    if rc != 0:
+        raise AssertionError(f"[{tag}] the CLI returned {rc} on {argv}")
+    return out.getvalue(), dt
+
+
+def same_arrays(got, want, path: str = "") -> None:
+    """Two ``device_arrays`` trees hold the same keys, records and bytes."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{path}: keys differ: {sorted(set(got) ^ set(want))}")
+        for key in want:
+            same_arrays(got[key], want[key], f"{path}/{key}")
+    elif isinstance(want, np.ndarray):
+        if got.dtype != want.dtype or got.shape != want.shape or got.tobytes() != want.tobytes():
+            raise AssertionError(f"{path}: arrays differ")
+    elif got != want:
+        raise AssertionError(f"{path}: {got} != {want}")
+
+
+def cli_maps(tag: str, index, reads: list, hits: int, dev) -> None:
+    """The mapper on the card gives the CLI's hit count over ``reads``, and
+    for the first 1,024 reads the hits of ``ReadMapper`` on CPU tensors,
+    read by read."""
+    card = ReadMapper(index, device=dev).map_reads(reads)
+    if sum(r.n_hit for r in card) != hits:
+        raise AssertionError(f"[{tag}] the card's mapper hits {sum(r.n_hit for r in card)} "
+                             f"k-mers, the CLI {hits}")
+    host = ReadMapper(index, device="cpu").map_reads(reads[:1024])
+    for i, (a, b) in enumerate(zip(card, host)):
+        if a.n_hit != b.n_hit or any(not np.array_equal(x, y) for x, y in zip(a.csr(), b.csr())):
+            raise AssertionError(f"[{tag}] read {i}: the card's hits differ from the CPU's")
+    log(f"[{tag}] the card's mapper: {hits} hits, as the CLI; the first 1024 reads' hits equal "
+        f"ReadMapper's on CPU tensors read by read")
+
+
+def cli_phase(args, dev, smi, k1: dict):
+    """Phase 19: the CLI with the reference's defaults over synth50's genome
+    from cuttlefish files (synth50-piscem-parity), then its mono2 leg.
+    Adds the leg's K1 launches to ``k1``. Returns a function that runs the
+    profiled passes of the parity index's uniform queries."""
+    from mazu_tpu_torch.containers.refseq import RefSeqCollection
+    from mazu_tpu_torch.io import checkpoint
+
+    phase_t0 = time.perf_counter()
+    n_bases = int(args.mbp * 1e6)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix, fa, fq, npz = (os.path.join(tmp, n) for n in ("g", "g.fa", "r.fq.gz", "g.npz"))
+        t0 = time.perf_counter()
+        genome = synth.synthetic_spt(n_bases, seed=0)
+        synth.write_cf(prefix, n_bases, fasta=fa, genome=genome)
+        reads = synth.serve_reads(genome[1], synth.SERVE_READS * synth.SERVE_CHUNKS, seed=1)
+        synth.write_fastq(fq, reads)
+        del genome
+        log(f"[cli] synth50's genome as cuttlefish files, a FASTA and a FASTQ of {len(reads)} "
+            f"reads in {time.perf_counter() - t0:.1f} s ({os.path.getsize(prefix + '.cf_seg')} "
+            f"bytes of .cf_seg)")
+
+        # the build, keeping the index it saves
+        built = {}
+        real_save = checkpoint.save_index
+
+        def keep(index, path, compress=True):
+            t = time.perf_counter()
+            real_save(index, path, compress)
+            built.update(index=index, save_s=time.perf_counter() - t)
+
+        checkpoint.save_index = keep
+        try:
+            _, build_s = run_cli("cli build", ["index", "build", "piscem", "-p", prefix, "-o", npz])
+        finally:
+            checkpoint.save_index = real_save
+        index = built["index"]
+        ss = index.k2u
+        n_bytes = os.path.getsize(npz)
+        log(f"[cli build] index build piscem (engine parity, w {ss.w}, skew {ss.skew_param}, "
+            f"k {ss.k}, ordering {ss.ordering}) from cuttlefish files {build_s:.2f} s, of it the "
+            f"save {built['save_s']:.2f} s; checkpoint {n_bytes} bytes; {ss.n_kmers} k-mers, "
+            f"{ss.n_minimizers} minimizers, {ss.n_minimizer_occs} minimizer occurrences, "
+            f"max bucket {ss.max_bucket()}, {ss.n_kmers_in_skew_index} skew k-mers ({smi})")
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_index(npz)
+        load_s = time.perf_counter() - t0
+        same_arrays(loaded.device_arrays(), index.device_arrays())
+        log(f"[cli build] load_index {load_s:.2f} s: every array byte-identical to the built "
+            f"index's")
+        del built, index
+
+        stats, _ = run_cli("cli stats", ["index", "stats", "-i", npz])
+        res = subprocess.run([sys.executable, "-m", "mazu_tpu_torch.cli", "index", "stats", "-i",
+                              npz], capture_output=True, text=True, timeout=300)
+        if res.returncode != 0 or res.stdout != stats:
+            raise AssertionError(f"[cli stats] python -m mazu_tpu_torch.cli: rc {res.returncode}, "
+                                 f"{res.stdout!r} {res.stderr[-2000:]}")
+        log("[cli stats] python -m mazu_tpu_torch.cli index stats in a process of its own: the "
+            "same lines")
+
+        _, val_s = run_cli("cli validate", ["index", "validate-fasta", "-i", npz, "-f", fa])
+        out, map_s = run_cli("cli map", ["index", "map", "-i", npz, "-f", fq])
+        n_reads, n_kmers, hits = (int(x) for x in re.match(
+            r"(\d+) reads, (\d+) k-mers, (\d+) hits", out).groups())
+        log(f"[cli] validate-fasta {val_s:.2f} s; map {map_s:.2f} s: {n_reads / map_s:.1f} reads/s, "
+            f"{n_kmers / map_s:.1f} k-mers/s ({smi})")
+        cli_maps("cli map", loaded, reads, hits, dev)
+        del reads
+
+        loaded.refs = RefSeqCollection.from_fasta(fa)
+        t0 = time.perf_counter()
+        validate_self(loaded, device=dev, chunk=VALIDATE_CHUNK)
+        log(f"[cli] validate_self on the card over all {loaded.refs.prefix_sum[-1]} reference "
+            f"bases of the loaded index in {time.perf_counter() - t0:.1f} s")
+
+        # the mono2 leg: K1 on the CLI's main path
+        m_bases = int(args.cli_mono2_mbp * 1e6)
+        p2, fa2, fq2, npz2 = (os.path.join(tmp, n) for n in ("m", "m.fa", "m.fq.gz", "m.npz"))
+        genome = synth.synthetic_spt(m_bases, seed=0)
+        synth.write_cf(p2, m_bases, fasta=fa2, genome=genome)
+        reads2 = synth.serve_reads(genome[1], synth.SERVE_READS * synth.SERVE_CHUNKS, seed=1)
+        synth.write_fastq(fq2, reads2)
+        del genome
+        reset_launches()
+        _, b2_s = run_cli("cli mono2", ["index", "build", "piscem", "-p", p2, "-o", npz2,
+                                        "--engine", "mono2"])
+        _, v2_s = run_cli("cli mono2", ["index", "validate-fasta", "-i", npz2, "-f", fa2])
+        out2, m2_s = run_cli("cli mono2", ["index", "map", "-i", npz2, "-f", fq2])
+        launches = mono2_probe.LAUNCHES
+        if launches == 0:
+            raise AssertionError("[cli mono2] the CLI's map never launched the mono2_probe kernel")
+        k1["launches"] += launches
+        m2 = checkpoint.load_index(npz2)
+        kc = m2.k2u.device_arrays()["meta"]
+        if not (kc.scheme == "mono2" and kc.occ32):
+            raise AssertionError(f"[cli mono2] the CLI built {kc.scheme} occ32={kc.occ32}")
+        hits2 = int(re.match(r"\d+ reads, \d+ k-mers, (\d+) hits", out2).group(1))
+        cli_maps("cli mono2", m2, reads2, hits2, dev)
+        log(f"[cli mono2] {m_bases} bases: build {b2_s:.2f} s, validate-fasta {v2_s:.2f} s, map "
+            f"{m2_s:.2f} s ({len(reads2) / m2_s:.1f} reads/s); mono2_probe launches {launches} "
+            f"({smi})")
+        del m2, reads2
+
+    # uniform queries on the layout of the tier rule
+    tier = query_tier(loaded, device=dev)
+    host = loaded.device_arrays() if tier == "speed" else loaded.device_arrays(**synth.MPHF_LAYOUT)
+    m = host["k2u"]["meta"]
+    cpu_qi = QueryIndex(arrays_from_numpy(host, "cpu"))
+    gpu_qi = QueryIndex(arrays_from_numpy(host, "cpu")).to(dev)
+    torch.cuda.synchronize()
+    del host
+    if tier == "speed" and gpu_qi.nbytes() != speed_bytes(loaded):
+        raise AssertionError(f"[cli uniform] speed_bytes {speed_bytes(loaded)} != the layout's "
+                             f"{gpu_qi.nbytes()}")
+    log(f"[cli uniform] tier {tier} by the rule: {m.pos_kind} positions, {m.prefix_kind} bounds, "
+        f"probe bound {m.probe_bound}; {gpu_qi.nbytes()} bytes on the card (speed_bytes "
+        f"{speed_bytes(loaded)})")
+    t0 = time.perf_counter()
+    work, uid, off, foreign = synth.sample_queries_truth(loaded.k2u.unitigs, BATCH, seed=1)
+    work_cpu = torch.from_numpy(work.view(np.int64))
+    fw = work_cpu.to(dev)
+    out0 = get_ref_pos_compact(cpu_qi.arrays(), work_cpu, cpu_qi.max_occs, merge=False,
+                               probe_limit=PLIM, m2=BATCH // 4)
+    if bool(out0["over_budget"]):
+        raise AssertionError("[cli uniform] CPU oracle over budget")
+    host_chk = int(OneGraphIndexQuery.checksum(out0))
+    merged = merge_compact_k2u(out0)
+    hit = merged["mt"].numpy() > 0
+    if not (hit[~foreign].all() and not hit[foreign].any()
+            and np.array_equal(merged["unitig_id"].numpy()[~foreign], uid[~foreign])
+            and np.array_equal(merged["pos"].numpy()[~foreign], off[~foreign])):
+        raise AssertionError("[cli uniform] CPU oracle disagrees with the sampled lanes")
+    n_ovf = int(out0["n_ovf"])
+    M2 = max(1024, -(-(n_ovf + 128) // 256) * 256)
+    log(f"[cli uniform] CPU oracle {time.perf_counter() - t0:.1f} s: chunk checksum {host_chk}; "
+        f"every sampled lane at its unitig and offset, no foreign lane hit; overflow "
+        f"{n_ovf}/{BATCH} -> M2={M2}")
+    del out0, merged, cpu_qi
+    og = OneGraphIndexQuery(gpu_qi, BATCH, n_chunks=CH, m2=M2, probe_limit=PLIM)
+    og_e = OneGraphIndexQuery(gpu_qi, BATCH, n_chunks=CH, m2=M2, probe_limit=PLIM, graph=False)
+    _, worst, times = graph_and_eager("cli uniform", gpu_qi, og.checksum_pass_rolled,
+                                      og_e.checksum_pass_rolled, fw, CH * host_chk, BATCH * CH,
+                                      3, None, smi)
+    log(f"[cli] phase 19 in {time.perf_counter() - phase_t0:.1f} s")
+
+    def profile():
+        profile_both("cli uniform", lambda: og.checksum_pass_rolled(fw),
+                     lambda: og_e.checksum_pass_rolled(fw), times)
+    return profile
 
 
 def serve_phase(index, host: dict, gpu_index, dev, smi, tmp: str):

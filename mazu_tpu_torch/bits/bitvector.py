@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._words import popcount64, read_window
+from .._words import popcount64, read_window, srl
 from .seqvector import read_window as read_window_np
 
 U64 = np.uint64
@@ -86,6 +86,9 @@ class BitVector:
     def count_ones(self) -> int:
         return self.n_ones
 
+    def num_bits(self) -> int:
+        return 64 * len(self.words) + 32 * len(self.blocks)
+
     def read_window(self, pos, width: int) -> np.ndarray:
         """Raw ``width``-bit window at bit offset(s) ``pos``."""
         return read_window_np(self.words, np.asarray(pos, dtype=np.int64), width)
@@ -117,6 +120,24 @@ def bv_rank(bv: dict, pos: torch.Tensor) -> torch.Tensor:
 def bv_get_bit(bv: dict, pos: torch.Tensor) -> torch.Tensor:
     """Bit ``pos`` as a bool."""
     return ((bv["words"][pos >> 6] >> (pos & 63)) & 1) != 0
+
+
+def bv_select(bv: dict, r: torch.Tensor) -> torch.Tensor:
+    """Position(s) of the r-th one: the word from a search of the block
+    counts (int64, as torch has no unsigned ``searchsorted``), then a
+    bisection inside it with logical shifts."""
+    blocks = bv["blocks"].to(torch.int64) & 0xFFFFFFFF
+    wi = torch.searchsorted(blocks, r + 1, side="left") - 1
+    rem = r - blocks[wi]
+    word = bv["words"][wi]
+    pos = wi * 64
+    for shift in (32, 16, 8, 4, 2, 1):
+        c = popcount64(word & ((1 << shift) - 1))
+        go = rem >= c
+        rem = torch.where(go, rem - c, rem)
+        pos = torch.where(go, pos + shift, pos)
+        word = torch.where(go, srl(word, shift), word)
+    return pos
 
 
 def bv_read_window(bv: dict, pos: torch.Tensor, width: int) -> torch.Tensor:

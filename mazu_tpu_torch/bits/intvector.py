@@ -62,6 +62,9 @@ class IntVector:
     def __len__(self) -> int:
         return self.length
 
+    def num_bits(self) -> int:
+        return 64 * len(self.words)
+
     def device_arrays(self) -> dict:
         from ..pytree import meta
 

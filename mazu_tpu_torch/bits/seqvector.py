@@ -69,6 +69,9 @@ class SeqVector:
         pos = np.asarray(pos, dtype=np.int64)
         return read_window(self.words, pos * 2, 2 * int(k))
 
+    def num_bits(self) -> int:
+        return 64 * len(self.words)
+
     def device_arrays(self) -> dict:
         from ..pytree import meta
 

@@ -86,6 +86,14 @@ class UnitigSet:
         within = np.arange(offsets[-1], dtype=np.int64) - np.repeat(offsets[:-1], counts)
         return np.repeat(starts, counts) + within
 
+    def num_bits(self) -> int:
+        """Size in bits, as the reference counts it: the packed sequence,
+        the Elias-Fano code of ``accum`` and the boundary bitvector."""
+        from ..bits.elias_fano import EFVector
+
+        ef = EFVector.from_array(self.accum.astype(np.uint64))
+        return 64 + self.useq.num_bits() + ef.num_bits() + self.bv.num_bits()
+
     def device_arrays(self, paired: bool = False) -> dict:
         """``paired=True`` adds the pair-packed views the capacity probes
         read with one gather each: ``useq.words2[i] = (words[i],

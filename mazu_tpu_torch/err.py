@@ -17,3 +17,15 @@ class InvalidData(MazuError, ValueError):
 
 class CfSeqTokenParseError(MazuError, ValueError):
     """Malformed cuttlefish tiling token."""
+
+
+class EFNotMonotone(MazuError, ValueError):
+    """Elias-Fano input sequence not monotone."""
+
+
+class EFEmpty(MazuError, ValueError):
+    """Elias-Fano of an empty sequence."""
+
+
+class IndexLoad(MazuError, IOError):
+    """Failed to load a serialized index."""

@@ -85,6 +85,11 @@ class ColorClasses:
     def num_bits(self) -> int:
         return 8 * (self.u2c.nbytes + self.offsets.nbytes + self.refs.nbytes)
 
+    def print_stats(self, log=print) -> None:
+        log(f"color classes: {self.n_classes} over {self.n_unitigs} unitigs")
+        log(f"  total class-refs: {len(self.refs)}")
+        log(f"  bits/unitig: {self.num_bits() / max(1, self.n_unitigs):.2f}")
+
     def device_arrays(self) -> dict:
         """NumPy arrays for ``colors_lookup`` (``refs`` with one pad entry
         for clipped windows)."""

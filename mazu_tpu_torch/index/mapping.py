@@ -13,14 +13,16 @@ Each dictionary's driver is ``query_driver``'s:
   (the reference answers it with the eager padded query);
 - an SSHash in its speed tier (``tuning.query_tier``: the reference's
   rule, its speed layout fits the device, and the port's probe-bound
-  limit): ``TwoPhaseIndexQuery`` on its fused inline rows, as the
-  reference's mapper takes it;
+  limit): ``TwoPhaseIndexQuery`` on its default layout, as the
+  reference's mapper takes it (fused inline rows for a 32-bit engine,
+  packed positions with Elias-Fano bounds for parity);
 - else, in its capacity tier, a direct SSHash: ``CompactQuery`` on
   ``synth.CAPACITY_LAYOUT`` at probe limit 2 with a middle phase at 4,
   kernel K2 in the main phase;
-- else a fast32 SSHash: ``CompactQuery`` on ``synth.MPHF_LAYOUT`` with
-  ``synth.MPHF_QUERY``, kernel K3 in the main phase (the reference's
-  capacity settings were measured on a TPU; these are the port's);
+- else an MPHF SSHash: ``CompactQuery`` on ``synth.MPHF_LAYOUT`` with
+  ``synth.MPHF_QUERY``, kernel K3 in a fast32 SSHash's main phase and
+  the plain probe in a parity SSHash's (the reference's capacity settings
+  were measured on a TPU; these are the port's);
 - pufferfish's dense and sparse dictionaries: ``PaddedQuery``.
 
 The results are the same whichever driver answers.
@@ -250,14 +252,23 @@ class PaddedQuery(_Driver):
 CAPACITY_QUERY = dict(probe_limit=2, defer_valid=True, probe_limit2=4)
 
 
+def layout_tier(m) -> str:
+    """The tier whose layout an SSHash's arrays (their meta ``m``) hold:
+    the speed tier's inline rows, or a parity SSHash's Elias-Fano bounds;
+    else the capacity tier's."""
+    if m.pos_kind in ("inline", "inline2") or m.prefix_kind == "ef":
+        return "speed"
+    return "capacity"
+
+
 def query_driver(index, device=None, query_index=None, tier: str | None = None):
     """The driver ``ReadMapper`` queries ``index`` with on ``device`` (see
     the module): each has ``get_ref_pos_batch``. ``tier``: an SSHash's,
     ``"speed"`` or ``"capacity"``; None takes ``tuning.query_tier``'s.
     ``query_index``: the index's arrays in the driver's layout, already on
-    a device (an SSHash's speed tier: ``index.device_arrays(fused=True)``;
-    its capacity tier: packed positions); a layout of the other tier
-    raises."""
+    a device (an SSHash's speed tier: ``TwoPhaseIndexQuery``'s default
+    layout; its capacity tier: grouped16 packed positions); a layout of
+    the other tier raises."""
     from .. import synth
     from .tuning import query_tier
     from .twophase import TwoPhaseIndexQuery
@@ -277,11 +288,10 @@ def query_driver(index, device=None, query_index=None, tier: str | None = None):
     if tier not in ("speed", "capacity"):
         raise ValueError(f"tier must be 'speed' or 'capacity', not {tier!r}")
     if query_index is not None:
-        pos_kind = query_index.arrays()["k2u"]["meta"].pos_kind
-        held = "speed" if pos_kind in ("inline", "inline2") else "capacity"
+        held = layout_tier(query_index.arrays()["k2u"]["meta"])
         if held != tier:
-            raise ValueError(f"query_index holds {pos_kind!r} positions, the {held} tier's "
-                             f"layout; the index's tier is {tier!r}")
+            raise ValueError(f"query_index holds the {held} tier's layout; the index's tier is "
+                             f"{tier!r}")
     if tier == "speed":
         return TwoPhaseIndexQuery(query_index or index, device=None if query_index else device)
     if k2u.direct_T:

@@ -423,11 +423,14 @@ class ModIndex:
     """Host-side index: K2U dictionary + U2Pos occurrence table + refs."""
 
     def __init__(self, k2u, u2pos, refs, index_type: str = "Custom", metadata: dict | None = None):
+        from .. import __version__
+
         self.k2u = k2u
         self.u2pos = u2pos
         self.refs = refs
         self.index_type = index_type
         self.metadata = metadata or {}
+        self.version = __version__
 
     @property
     def k(self) -> int:
@@ -460,7 +463,8 @@ class ModIndex:
         (its rows already carry the fused occurrence words: ``fused=True``
         returns them unchanged). ``pos_kind``, ``prefix_kind`` and
         ``bucket_inline`` are SSHash layout knobs (an SSHash with none takes
-        inline rows with flat32 bounds); ``uproj`` adds the per-unitig
+        its engine's default: inline rows with flat32 bounds, or parity's
+        packed positions with Elias-Fano bounds); ``uproj`` adds the per-unitig
         projection records (``build_uproj``) and ``useqrec`` the window
         records (``build_useqrec``) to the SSHash unitig set.
 

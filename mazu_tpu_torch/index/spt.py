@@ -1,11 +1,18 @@
 """Spectrum-preserving tiling: reference occurrences of each unitig (host;
-counterpart of ``mazu_tpu.index.spt:28-41,99-112``)."""
+counterpart of ``mazu_tpu.index.spt``).
+
+``SPT.from_cf`` reads cuttlefish output. A reference is a sequence of
+tiles: consecutive unitigs overlap by k - 1 bases, and a polyN gap of n
+bases advances the cursor by n, plus k - 1 when the tile before it was a
+unitig.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 
 from ..bits.intvector import IntVector
+from ..containers.refseq import RefSeqCollection
 from ..containers.unitig_set import UnitigSet
 from .unitig_table import (
     DenseUnitigTable, PiscemUnitigTable, encode_pf1, encode_piscem, required_num_bits,
@@ -27,9 +34,43 @@ class SPT:
             [[0], np.cumsum(np.bincount(occ_uid, minlength=unitigs.n_unitigs))]
         ).astype(np.int64)
 
+    @classmethod
+    def from_cf(cls, cf_files) -> "SPT":
+        """The unitigs and tilings of cuttlefish output
+        (``io.cuttlefish.CfFiles``)."""
+        from ..io.cuttlefish import iter_tiling
+
+        unitigs, cfid2uid = UnitigSet.from_cf(cf_files)
+        k = unitigs.k
+        ref_names, ref_lens = [], []
+        uids, refs, poss, os_ = [], [], [], []
+        for ref_id, (name, tokens) in enumerate(iter_tiling(cf_files)):
+            ref_names.append(name)
+            pos = 0
+            prev_was_unitig = False
+            for t in tokens:
+                if not t.is_unitig:
+                    pos += t.n + (k - 1 if prev_was_unitig else 0)
+                    prev_was_unitig = False
+                else:
+                    uid = cfid2uid[t.id]
+                    uids.append(uid)
+                    refs.append(ref_id)
+                    poss.append(pos)
+                    os_.append(t.o)
+                    pos += int(unitigs.unitig_len(uid)) - k + 1
+                    prev_was_unitig = True
+            ref_lens.append(pos + k - 1 if prev_was_unitig else pos)
+        arrays = (np.array(a, dtype=np.int64) for a in (uids, refs, poss, os_))
+        return cls(unitigs, ref_names, *arrays, ref_lens)
+
     @property
     def num_refs(self) -> int:
         return len(self.ref_lens)
+
+    def ref_seq_collection(self) -> RefSeqCollection:
+        """The references' lengths and names (no sequence)."""
+        return RefSeqCollection.from_lens(self.ref_lens, self.ref_names)
 
     def dense_table(self) -> DenseUnitigTable:
         """pf1-encoded u64 occurrence table (pufferfish's dense index)."""

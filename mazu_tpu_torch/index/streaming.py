@@ -209,8 +209,10 @@ class StreamingIndex:
     ``index``: a ``ModIndex`` or a bare K2U, whose ``device_arrays`` (with
     ``layout``'s keywords) go to ``device`` (the card by default), or a
     ``QueryIndex``, queried where it lies. ``layout`` is passed through:
-    with none an SSHash takes the reference's default, inline rows with
-    flat32 bounds; a bare SSHash takes only the K2U's own knobs
+    with none an SSHash takes the reference's default for its engine
+    (inline rows with flat32 bounds for direct and fast32, packed positions
+    with Elias-Fano bounds for parity); a bare SSHash takes only the K2U's
+    own knobs
     (``prefix_kind``, ``pos_kind``, ``bucket_inline``). The results do not
     depend on the layout.
 

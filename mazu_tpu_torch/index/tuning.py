@@ -1,11 +1,14 @@
 """The query tier rule (counterpart of the tier choice of
 ``mazu_tpu.index.tuning.tuned_query_config``).
 
-An SSHash is served by its speed tier, fused inline rows (the reference's
-``inline2`` rows at probe limit 2), when those arrays fit the device's
-budget and its probe bound is at most ``SPEED_MAX_PROBE_BOUND``, and by the
-capacity layouts otherwise. The bound is the port's rule, not the
-reference's (an H100 measurement, below). The reference's other settings
+An SSHash is served by its speed tier when that tier's arrays fit the
+device's budget and its probe bound is at most ``SPEED_MAX_PROBE_BOUND``,
+and by the capacity layouts otherwise. The speed tier of a 32-bit engine
+(direct, fast32) is fused inline rows (the reference's ``inline2`` rows at
+probe limit 2); that of a parity SSHash is its default layout, packed
+positions with Elias-Fano bounds, which the reference's mapper queries
+there. The bound is the port's rule, not the reference's (an H100
+measurement, below). The reference's other settings
 in that module were measured on a TPU and are not carried over: the port's
 capacity settings are ``mapping.query_driver``'s.
 
@@ -67,12 +70,17 @@ def _nbytes(tree) -> int:
 
 
 def speed_bytes(index) -> int:
-    """Bytes of an SSHash ``index``'s speed layout,
+    """Bytes of an SSHash ``index``'s speed layout. A 32-bit engine's is
     ``index.device_arrays(fused=True, pos_kind="inline2")``, counted
     without building its rows and bounds: 56 bytes a fused row, the bucket
     bounds, the skew table, and the unitig set's paired arrays, occurrence
-    table and references as they are laid out."""
+    table and references as they are laid out. A parity SSHash's is its
+    default layout, ``index.device_arrays()`` (packed positions, Elias-Fano
+    bounds, the 64-bit MPHFs), which the reference's speed tier queries,
+    counted from the built arrays."""
     ss = index.k2u
+    if not ss.hash32:
+        return _nbytes(index.device_arrays())
     n = 56 * len(ss.pos)
     if ss.direct_T:
         n += 8 * ss.direct_T

@@ -21,6 +21,7 @@ import torch
 
 from .. import MATCH_IDENTITY
 from ..convert import words_to
+from ..kphf.kcdict import kcdict_k2u
 from ..kphf.runshare import sshash_k2u_reads_runshare
 from ..kphf.sshash import sshash_k2u
 from ..ops.bpos_probe import bpos_usrec_k2u
@@ -37,16 +38,21 @@ def _main_probe(arrays: dict, fw: torch.Tensor, probe_limit: int | None = None,
                 defer_valid: bool = False, mphf_level_limit: int | None = None):
     """The dictionary's main-phase probe: ``(r, probe_start)``.
 
-    On a mono2 KCDict the probe is ``mono2_k2u`` (kernel K1). On an SSHash
+    On a mono2-occ32 KCDict the probe is ``mono2_k2u`` (kernel K1), on
+    another KCDict the plain ``kcdict_k2u`` (the reference has no kernel
+    for it).
+    On an SSHash
     it is ``sshash_k2u(mode="main")`` at depth ``probe_limit`` (plain torch
     on inline rows: the reference computes that probe in plain ``jnp``), run
     by a kernel on packed positions where one fits: ``bpos_usrec_k2u`` (K2)
     on a direct SSHash with
     the ``bpos`` rows and ``useqrec`` records (``probe_limit`` <= 3;
     ``defer_valid`` changes nothing there, the records carry the extent
-    check), and ``capacity_k2u`` (K3) with ``defer_valid`` on the paired
-    layout without records (``mphf_level_limit`` truncates a fast32 MPHF
-    chain there).
+    check), and ``capacity_k2u`` (K3) with ``defer_valid`` on a 32-bit
+    engine's (mix32 ordering: direct or fast32) grouped16 paired layout
+    without records (``mphf_level_limit`` truncates a fast32 MPHF chain
+    there). A parity SSHash (mix64 or wyhash ordering, 64-bit BooPHF) takes
+    the plain probe on every layout, as the reference runs it.
 
     ``probe_start`` is where the heavy phase's full re-probe may start:
     past the rows a shallow probe already proved empty of the key, 0 where
@@ -54,7 +60,9 @@ def _main_probe(arrays: dict, fw: torch.Tensor, probe_limit: int | None = None,
     k2u = arrays["k2u"]
     m_ = k2u["meta"]
     if m_.kind == "kcdict":
-        return mono2_k2u(k2u, fw), 0
+        if m_.scheme == "mono2" and m_.occ32:
+            return mono2_k2u(k2u, fw), 0
+        return kcdict_k2u(k2u, fw, mode="main"), 0
     if m_.kind != "sshash":
         raise ValueError(f"the port has no {m_.kind!r} main probe yet")
     us = k2u["us"]
@@ -62,8 +70,9 @@ def _main_probe(arrays: dict, fw: torch.Tensor, probe_limit: int | None = None,
     if (packed and m_.direct_t and "bpos" in k2u and "useqrec" in us
             and probe_limit is not None and 0 < probe_limit <= 3):
         r = bpos_usrec_k2u(k2u, fw, probe_limit)
-    elif (packed and probe_limit is not None and defer_valid and "useqrec" not in us
-          and "words2" in us["useq"] and "wb2" in us["bv"]):
+    elif (packed and m_.hash32 and m_.prefix_kind == "grouped16" and probe_limit is not None
+          and defer_valid and "useqrec" not in us and "words2" in us["useq"]
+          and "wb2" in us["bv"]):
         r = capacity_k2u(k2u, fw, probe_limit, mphf_level_limit=mphf_level_limit)
     else:
         r = sshash_k2u(k2u, fw, mode="main", probe_limit=probe_limit,
@@ -285,9 +294,11 @@ class TwoPhaseIndexQuery:
     ``index``: a ``ModIndex``, whose ``device_arrays(fused=fused, **layout)``
     go to ``device`` (the card by default), or a ``QueryIndex``, queried
     where it lies. ``fused=None`` is the reference's default: fused rows on
-    an SSHash (every SSHash of the port is hash32) laid out in inline rows,
-    which an SSHash takes unless ``layout`` names another ``pos_kind``; a
-    KCDict's rows carry the fused occurrence words already.
+    a 32-bit (direct or fast32) SSHash laid out in inline rows, which such
+    an SSHash takes unless ``layout`` names another ``pos_kind``; a parity
+    SSHash is not fused (its default layout is packed positions with
+    Elias-Fano bounds); a KCDict's rows carry the fused occurrence words
+    already.
 
     ``main(fw)`` is phase 1 (``_main_phase`` at width ``small_occs``) and
     ``full(fw)`` the exact padded query, both on int64 word tensors on the
@@ -298,8 +309,8 @@ class TwoPhaseIndexQuery:
         if isinstance(index, QueryIndex) and (layout or fused is not None):
             raise ValueError("a QueryIndex has its layout and device already")
         if isinstance(index, ModIndex) and fused is None:
-            fused = hasattr(index.k2u, "pos") and layout.get("pos_kind") in (None, "inline",
-                                                                             "inline2")
+            fused = getattr(index.k2u, "hash32", False) and layout.get("pos_kind") in (
+                None, "inline", "inline2")
         self.index = _query_index(index, device, dict(layout, fused=bool(fused)))
         self.small_occs = int(small_occs)
         self.max_occs = self.index.max_occs

@@ -83,6 +83,9 @@ class DenseUnitigTable:
     def max_occs(self) -> int:
         return int(np.max(np.diff(self.offsets))) if self.n_unitigs else 0
 
+    def num_bits(self) -> int:
+        return 8 * (self.ctable.nbytes + self.offsets.nbytes)
+
     def device_arrays(self) -> dict:
         return {
             "ctable": self.ctable,
@@ -108,6 +111,30 @@ class PiscemUnitigTable:
 
     def max_occs(self) -> int:
         return int(np.max(np.diff(self.offsets))) if self.n_unitigs else 0
+
+    def num_bits(self) -> int:
+        return self.ctable.num_bits() + 8 * self.offsets.nbytes
+
+    @classmethod
+    def from_dense(cls, dense: DenseUnitigTable, ref_lens=None) -> "PiscemUnitigTable":
+        """Re-encode a pf1 table at the minimal piscem widths: the same
+        occurrences, fewer bits (u32 words when the reference set is small
+        enough, which a mono2 KCDict's occ32 slots need). The widths come
+        from ``ref_lens`` when given, else from the occurrences."""
+        words = np.asarray(dense.ctable, dtype=np.uint64)
+        ref_id = (words & U64(M32)).astype(np.int64)
+        posw = words >> U64(32)
+        pos = (posw & U64(0x7FFFFFFF)).astype(np.int64)
+        o = ((posw >> U64(31)) & U64(1)).astype(np.int64)
+        if ref_lens is not None and len(ref_lens):
+            longest, num_refs = int(np.max(ref_lens)), len(ref_lens)
+        else:
+            longest = int(pos.max()) + 1 if len(pos) else 1
+            num_refs = int(ref_id.max()) + 1 if len(ref_id) else 1
+        pos_bits, _ref_bits, total = required_num_bits(longest, num_refs)
+        packed = encode_piscem(ref_id, pos, o, pos_bits + 1)
+        return cls(IntVector.from_array(packed, width=total), dense.offsets, pos_bits + 1,
+                   (1 << pos_bits) - 1, ref_names=dense.ref_names)
 
     def device_arrays(self) -> dict:
         return {

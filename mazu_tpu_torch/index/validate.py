@@ -114,14 +114,38 @@ def validate_ckmers(index: ModIndex, ref_id: int, seq: str, query_fn=None,
         _check_chunk(out, rid, from_numpy(positions[s : s + chunk], dev), "validate_ckmers")
 
 
+FASTA_CHUNK = 1 << 20  # k-mers a query of validate_fasta
+
+
 def validate_fasta(index: ModIndex, path: str, query_fn=None, device=None):
     """``validate_ckmers`` on each record of a FASTA file, record i against
-    reference i."""
+    reference i. The k-mers of consecutive records share query chunks of
+    ``FASTA_CHUNK``; the first failing k-mer, and so the message, is the
+    one of a record-by-record check."""
+    chunk = FASTA_CHUNK
     from ..io.fasta import read_fasta
 
     dev, query_fn = _query(index, query_fn, device)
+    parts, held = [], 0
+
+    def check(upto: int):
+        nonlocal parts, held
+        ri, pos, words = (np.concatenate(a) for a in zip(*parts))
+        for s in range(0, upto, chunk):
+            e = min(s + chunk, upto)
+            _check_chunk(query_fn(from_numpy(words[s:e], dev)), from_numpy(ri[s:e], dev),
+                         from_numpy(pos[s:e], dev), "validate_ckmers")
+        parts = [(ri[upto:], pos[upto:], words[upto:])]
+        held = len(ri) - upto
+
     for ri, (_name, seq) in enumerate(read_fasta(path)):
-        validate_ckmers(index, ri, seq, query_fn=query_fn, device=dev)
+        pos, words = valid_kmer_windows(seq, index.k)
+        parts.append((np.full(len(pos), ri, dtype=np.int64), pos, words))
+        held += len(pos)
+        if held >= chunk:
+            check(held - held % chunk)
+    if held:
+        check(held)
 
 
 def validate_k2u_self(k2u, k2u_fn=None, chunk: int = 1 << 14, device=None):

@@ -100,33 +100,66 @@ def word_equivalency(fw: torch.Tensor, rc: torch.Tensor, target: torch.Tensor, k
     return torch.where(fw == t, 1, torch.where(rc == t, 2, 0)).to(torch.uint8)
 
 
+_SPLIT_C1 = -0x40A7B892E31B1A47  # 0xBF58476D1CE4E5B9
+_SPLIT_C2 = -0x6B2FB644ECCEEE15  # 0x94D049BB133111EB
+
+
+def mix64(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """The seeded splitmix64-style finalizer of the ``mix64`` ordering
+    (``mazu_tpu.kmer.mix64``), on int64 bit patterns: products wrap mod
+    2^64 and every right shift is logical."""
+    s = (int(seed) * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    z = x ^ (s - (1 << 64) if s >> 63 else s)
+    z = (z ^ srl(z, 30)) * _SPLIT_C1
+    z = (z ^ srl(z, 27)) * _SPLIT_C2
+    return z ^ srl(z, 31)
+
+
+ORDERINGS = ("mix32", "mix64", "wyhash")
+
+
 def canonical_minimizer_batch(words: torch.Tensor, k: int, w: int, seed: int = 0,
                               ordering: str = "mix32"):
     """Canonical minimizer of each k-mer word (``mazu_tpu.kmer:182-249``).
 
     Over the k-w+1 w-mer windows of c = canonical(word), the minimizer
-    minimizes mix32(low 32 bits of the window ^ seed), an unsigned u32
-    compare done on masked int64, strict, so the leftmost window wins ties.
-    ``offset`` is the window's position in the queried orientation: j if
-    c is the forward word, else k - w - j. Only the ``mix32`` ordering
-    (the direct engine's) is ported.
+    minimizes the ordering's score, strictly, so the leftmost window wins
+    ties: ``mix32`` scores mix32(low 32 bits of the window ^ seed), an
+    unsigned u32 compare on masked int64; ``mix64`` scores
+    ``mix64(window, seed)`` and ``wyhash`` ``hashes.wyhash_u64(window,
+    seed)``, both compared as unsigned 64-bit words. ``offset`` is the
+    window's position in the queried orientation: j if c is the forward
+    word, else k - w - j.
 
     Returns (minimizer int64, offset int32, is_fw bool, canon int64)."""
-    if ordering != "mix32":
-        raise ValueError(f"the port has no {ordering!r} minimizer ordering yet")
+    if ordering not in ORDERINGS:
+        raise ValueError(f"unknown minimizer ordering {ordering!r}")
     k, w = int(k), int(w)
     canon, is_fw, _ = canonicalize(words, k)
     mw = mask2k(w)
-    seed32 = int(seed) & M32
+    if ordering == "mix32":
+        seed32 = int(seed) & M32
+
+        def score(mv):
+            return mix32((mv & M32) ^ seed32)
+    elif ordering == "mix64":
+        def score(mv):
+            return mix64(mv, seed)
+    else:
+        from .hashes import wyhash_u64
+
+        def score(mv):
+            return wyhash_u64(mv, seed)
     best_val = best_score = best_j = None
     for j in range(k - w + 1):
         mv = srl(canon, 2 * j) & mw
-        sc = mix32((mv & M32) ^ seed32)
+        sc = score(mv)
         if best_val is None:
             best_val, best_score = mv, sc
             best_j = torch.zeros(sc.shape, dtype=torch.int32, device=sc.device)
         else:
-            better = sc < best_score
+            # mix32 scores lie in [0, 2^32): a signed compare is unsigned there
+            better = (sc < best_score) if ordering == "mix32" else ~ule(best_score, sc)
             best_val = torch.where(better, mv, best_val)
             best_j = torch.where(better, j, best_j)
             best_score = torch.where(better, sc, best_score)

@@ -128,6 +128,10 @@ class BooPHF:
             out[s : s + chunk] = boophf_lookup(d, kt).cpu().numpy()
         return out
 
+    def num_bits(self) -> int:
+        nb = sum(64 * len(w) + 64 * len(r) for (_, w, r) in self.levels)
+        return nb + 128 * len(self.fh_keys)
+
     def device_arrays(self) -> dict:
         """``words`` (each level padded to whole 512-bit blocks, so the
         in-block scan stays inside its level), ``ranks`` (one u64 per

@@ -184,6 +184,10 @@ class BooPHF32:
             out[s : s + chunk] = boophf32_lookup(d, kt).cpu().numpy()
         return out
 
+    def num_bits(self) -> int:
+        nb = sum(32 * len(w) + 32 * len(r) for (_, w, r) in self.levels)
+        return nb + 96 * len(self.fh_keys)
+
     def device_arrays(self, mrows: bool = False) -> dict:
         """The lean layout: ``words`` (each level padded to whole 256-bit
         blocks), ``ranks`` (one u32 per block), ``fh_keys``/``fh_vals``

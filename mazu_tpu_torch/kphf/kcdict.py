@@ -1,21 +1,26 @@
-"""KCDict in its mono2-occ32 layout (counterpart of
+"""KCDict in its single-hash layouts, mono and mono2 (counterpart of
 ``mazu_tpu.kphf.kcdict``).
 
 A bucket table addressed by ONE hash of the canonical k-mer. Each bucket
-row holds 2 slots of 7 u32 (56 bytes):
+holds 2 slots. A slot starts with five u32:
 
     klo, khi | canon_is_useq << 31, uid, upos24 | ulen_lo8 << 24,
-    ulen_hi16 | cnt16 << 16, occ_word1, occ_word2
+    ulen_hi16 | cnt16 << 16
 
-Keys displaced from a full bucket live in a small two-choice side table
-with the same slot layout, probed only by the full (phase-2) query. The
-"occ32" layout needs unitig lengths < 2^24 and occurrence words < 2^32.
+then the unitig's occurrence words: mono, the first as two u32 (7 words,
+56-byte buckets); mono2, the first two, as one u32 each where every word
+fits ("occ32", 7 words) or as two u32 each (9 words; such a dictionary
+ships slot rows, the second slot the adjacent row). Keys displaced from a
+full bucket live in a small two-choice side table with the same slot
+layout, probed only by the full (phase-2) query. Every layout needs unitig
+lengths < 2^24 (the reference's "slim" slots); the reference's two-choice
+cuckoo dictionary and wide slots are not ported.
 
 The builder is NumPy and gives the reference builder's arrays byte for
 byte. ``kcdict_k2u`` is the plain torch query; on the main path
-``ops.mono2_probe.mono2_k2u`` runs its ``mode="main"`` form as a kernel,
-which reads the main table from 64-byte rows on the card (two zero words
-after the 14).
+``ops.mono2_probe.mono2_k2u`` runs a mono2-occ32 dictionary's
+``mode="main"`` form as a kernel, which reads the main table from 64-byte
+rows on the card (two zero words after the 14).
 """
 
 from __future__ import annotations
@@ -31,27 +36,52 @@ from .boophf32 import fold_hash32, fold_hash32_np, fold_hash32b, fold_hash32b_np
 U64 = np.uint64
 U32 = np.uint32
 SLOTS = 2  # slots per bucket
-SW = 7  # u32 words per occ32 slot
+SW = 7  # u32 words per slot: mono, and mono2 with u32 occurrence words (occ32)
+SW2 = 9  # u32 words per mono2 slot with 64-bit occurrence words
 
 
 class KCDict:
-    def __init__(self, unitigs, table, T, side, side_T, side_salt):
+    def __init__(self, unitigs, table, T, side, side_T, side_salt, scheme: str = "mono2"):
         self.unitigs = unitigs
-        self.table = table  # u32 [T, SLOTS * SW]
+        self.table = table  # u32 [T, SLOTS * sw]
         self.T = int(T)
-        self.side = side  # u32 [side_T, SLOTS * SW] or None
+        self.side = side  # u32 [side_T, SLOTS * sw] or None
         self.side_T = int(side_T)
         self.side_salt = int(side_salt)
+        self.scheme = scheme
+        self.occ32 = scheme == "mono2" and table.shape[1] == SLOTS * SW
 
     @property
     def k(self) -> int:
         return self.unitigs.k
 
+    @property
+    def n_kmers(self) -> int:
+        return self.unitigs.n_kmers
+
+    @property
+    def slot_words(self) -> int:
+        return self.table.shape[1] // SLOTS
+
+    def num_bits(self) -> int:
+        side = 0 if self.side is None else self.side.nbytes
+        return 64 + self.unitigs.num_bits() + 8 * (self.table.nbytes + side)
+
+    def print_stats(self, log=print):
+        log(f"kmers: {self.n_kmers}")
+        log(f"buckets: {self.T} x {SLOTS} slots")
+        log(f"bits / kmer: {self.num_bits() / self.n_kmers:.3f}")
+
     @classmethod
-    def from_unitig_set(cls, unitigs, occ_table, load: float = 0.25) -> "KCDict":
-        """Host build of the mono2-occ32 dictionary: every canonical k-mer
-        with its unitig mapping and the unitig's first two occurrence
-        words, placed by one hash; overflow keys go to the side table."""
+    def from_unitig_set(cls, unitigs, occ_table=None, load: float = 0.25,
+                        scheme: str = "mono2") -> "KCDict":
+        """Host build: every canonical k-mer with its unitig mapping and,
+        from ``occ_table`` (None: no occurrences), the unitig's first
+        occurrence word (mono) or first two (mono2: u32 each where they fit,
+        occ32, else 64-bit), placed by one hash; overflow keys go to the
+        side table."""
+        if scheme not in ("mono", "mono2"):
+            raise ValueError(f"the port has no {scheme!r} KCDict (ROADMAP A3)")
         k = unitigs.k
         if unitigs.total_len >= 1 << 31:
             raise ValueError("unitig set too long for u32 unitig positions")
@@ -80,17 +110,22 @@ class KCDict:
         slot = np.zeros(n, dtype=np.int64)
         slot[order] = np.where(win_sorted, within, 0)
 
-        cwords = occ_table.ctable.to_array()
-        off = occ_table.offsets
-        hi = max(len(cwords) - 1, 0)
-        first = cwords[np.clip(off[uid], 0, hi)]
-        cnt = (off[uid + 1] - off[uid]).astype(np.uint64)
-        second = cwords[np.clip(off[uid] + 1, 0, hi)]
+        if occ_table is not None:
+            cwords = occ_table.ctable.to_array()
+            off = occ_table.offsets
+            hi = max(len(cwords) - 1, 0)
+            first = cwords[np.clip(off[uid], 0, hi)]
+            cnt = (off[uid + 1] - off[uid]).astype(np.uint64)
+            second = cwords[np.clip(off[uid] + 1, 0, hi)]
+        else:
+            first = cnt = second = np.zeros(n, dtype=np.uint64)
         if not (ulen < (1 << 24)).all():
-            raise ValueError("unitig longer than 2^24: not the occ32 layout")
-        if not ((first < (1 << 32)).all() and (second < (1 << 32)).all()):
-            raise ValueError("occurrence words >= 2^32: not the occ32 layout")
+            raise ValueError("unitig longer than 2^24: the port has no wide KCDict slots")
         khi = (canon >> U64(32)).astype(U32) | (canon_is_useq.astype(U32) << U32(31))
+
+        def split64(x):
+            return [(x & U64(M32)).astype(U32), (x >> U64(32)).astype(U32)]
+
         cols = [
             (canon & U64(M32)).astype(U32),
             khi,
@@ -98,12 +133,17 @@ class KCDict:
             (upos.astype(U32) & U32(0xFFFFFF)) | ((ulen.astype(U32) & U32(0xFF)) << U32(24)),
             ((ulen.astype(U32) >> U32(8)) & U32(0xFFFF))
             | (np.minimum(cnt, 0xFFFF).astype(U32) << U32(16)),
-            first.astype(U32),
-            second.astype(U32),
         ]
+        occ32 = scheme == "mono2" and occ_table is not None and bool(
+            (first < (1 << 32)).all() and (second < (1 << 32)).all())
+        if occ32:
+            cols += [first.astype(U32), second.astype(U32)]
+        else:
+            cols += split64(first) + (split64(second) if scheme == "mono2" else [])
+        sw = len(cols)
 
-        table = _empty_table(n_buckets)
-        colw = (slot * SW)[win]
+        table = _empty_table(n_buckets, sw)
+        colw = (slot * sw)[win]
         bw = h1[win]
         for j, c in enumerate(cols):
             table[bw, colw + j] = c[win]
@@ -118,15 +158,19 @@ class KCDict:
                 side_T <<= 1
                 placed = _place_two_choice(canon[side_idx], side_T)
             sbucket, sslot, ssalt = placed
-            side = _empty_table(side_T)
-            scol = sslot * SW
+            side = _empty_table(side_T, sw)
+            scol = sslot * sw
             for j, c in enumerate(cols):
                 side[sbucket, scol + j] = c[side_idx]
-        return cls(unitigs, table, n_buckets, side, side_T, ssalt)
+        return cls(unitigs, table, n_buckets, side, side_T, ssalt, scheme)
 
     def device_arrays(self) -> dict:
+        """A mono2 dictionary without occ32 ships slot rows ([2T, 9]: the
+        second slot is the adjacent row), the others bucket rows."""
+        sw = self.slot_words
+        split = self.scheme == "mono2" and not self.occ32
         d = {
-            "table": self.table,
+            "table": self.table.reshape(-1, sw) if split else self.table,
             "us": self.unitigs.device_arrays(),
             "meta": meta(
                 kind="kcdict",
@@ -134,25 +178,25 @@ class KCDict:
                 t=self.T,
                 salt=0,
                 fused=True,
-                sw=SW,
-                scheme="mono2",
+                sw=sw,
+                scheme=self.scheme,
                 side_t=self.side_T,
                 side_salt=self.side_salt,
-                occ32=True,
-                split=False,
+                occ32=self.occ32,
+                split=split,
             ),
         }
         if self.side is not None:
-            d["side"] = self.side
+            d["side"] = self.side.reshape(-1, sw) if split else self.side
         return d
 
 
-def _empty_table(n_buckets: int) -> np.ndarray:
+def _empty_table(n_buckets: int, sw: int = SW) -> np.ndarray:
     # an empty slot (klo = 0xFFFFFFFF, khi & 0x7FFFFFFF = 0x7FFFFFFF) never
     # matches a canonical k-mer for k <= 31
-    t = np.zeros((n_buckets, SLOTS * SW), dtype=np.uint32)
-    t[:, 0::SW] = U32(M32)
-    t[:, 1::SW] = U32(M32)
+    t = np.zeros((n_buckets, SLOTS * sw), dtype=np.uint32)
+    t[:, 0::sw] = U32(M32)
+    t[:, 1::sw] = U32(M32)
     return t
 
 
@@ -191,19 +235,23 @@ def _place_two_choice(keys: np.ndarray, n_buckets: int):
 
 
 def kcdict_k2u(d: dict, fw: torch.Tensor, mode: str = "full") -> dict:
-    """Batched K2U on a mono2-occ32 KCDict (plain torch).
+    """Batched K2U on a mono or mono2 KCDict (plain torch).
 
     ``fw``: int64 bit patterns of forward k-mer words. Returns int64
     unitig_id, unitig_len, pos, occ_cnt; uint8 mt (0 miss, 1 identity,
-    2 twin); occ_word, occ_word2 as int64. ``mode="main"`` probes the main
-    table only and adds bool use_skew (always False) and unresolved (not
-    found there: a side-table key or a true miss). ``mode="full"`` also
-    probes the side table, so it is exact for every key. It reads columns
-    0-13 of the main table, so it takes the reference's [T, 14] rows and
-    the card's 64-byte rows (``ops.mono2_probe.padded_table``) alike."""
+    2 twin); occ_word (and on mono2 occ_word2) as int64. ``mode="main"``
+    probes the main table only and adds bool use_skew (always False) and
+    unresolved (not found there: a side-table key or a true miss).
+    ``mode="full"`` also probes the side table, so it is exact for every
+    key. A bucket is one row of both slots, or (``split``, mono2 without
+    occ32) two adjacent slot rows. It reads the slots' columns only, so it
+    takes the reference's [T, 14] rows and the card's 64-byte rows
+    (``ops.mono2_probe.padded_table``) alike."""
     m = d["meta"]
-    if not (m.scheme == "mono2" and m.occ32):
-        raise ValueError("the port's KCDict query covers the mono2-occ32 layout")
+    mono2 = m.scheme == "mono2"
+    sw, split = int(m.sw), bool(m.split)
+    if m.scheme not in ("mono", "mono2") or sw != (SW if (m.occ32 or not mono2) else SW2):
+        raise ValueError("the port's KCDict query covers the mono and mono2 slim layouts")
     canon = umin(fw, revcomp(fw, m.k))
     clo = canon & M32
     chi = srl(canon, 32)
@@ -212,13 +260,17 @@ def kcdict_k2u(d: dict, fw: torch.Tensor, mode: str = "full") -> dict:
     st = {
         "found": torch.zeros_like(fw, dtype=torch.bool),
         "unitig_id": z, "unitig_len": z, "pos": z, "occ_cnt": z,
-        "occ_word": z, "occ_word2": z,
-        "mt": torch.zeros_like(fw, dtype=torch.uint8),
+        "occ_word": z, "mt": torch.zeros_like(fw, dtype=torch.uint8),
     }
+    if mono2:
+        st["occ_word2"] = z
+
+    def w64(row, c):
+        return mask32(row[:, c]) | (row[:, c + 1].to(torch.int64) << 32)
 
     def probe(table, h):
-        row = table[h]  # [N, width >= 2 * SW] u32 bit patterns
-        for c in (0, SW):
+        row = table[h]  # [N, width] u32 bit patterns: one bucket, or one slot when split
+        for c in ((0,) if split else (0, sw)):
             khi = mask32(row[:, c + 1])
             hit = ~st["found"] & (mask32(row[:, c]) == clo) & ((khi & 0x7FFFFFFF) == chi)
             canon_is_useq = (khi >> 31) != 0
@@ -230,19 +282,30 @@ def kcdict_k2u(d: dict, fw: torch.Tensor, mode: str = "full") -> dict:
                 "pos": a & 0xFFFFFF,
                 "unitig_len": (a >> 24) | ((b & 0xFFFF) << 8),
                 "occ_cnt": b >> 16,
-                "occ_word": mask32(row[:, c + 5]),
-                "occ_word2": mask32(row[:, c + 6]),
                 "mt": mt,
             }
+            if m.occ32:
+                fields.update(occ_word=mask32(row[:, c + 5]), occ_word2=mask32(row[:, c + 6]))
+            else:
+                fields["occ_word"] = w64(row, c + 5)
+                if mono2:
+                    fields["occ_word2"] = w64(row, c + 7)
             for key, v in fields.items():
                 st[key] = torch.where(hit, v, st[key])
             st["found"] = st["found"] | hit
 
-    probe(d["table"], fold_hash32(canon) & (m.t - 1))
+    def probe_bucket(table, h):
+        if split:
+            probe(table, h * 2)
+            probe(table, h * 2 + 1)
+        else:
+            probe(table, h)
+
+    probe_bucket(d["table"], fold_hash32(canon) & (m.t - 1))
     if mode != "main" and "side" in d:
         sm = m.side_t - 1
-        probe(d["side"], fold_hash32(canon) & sm)
-        probe(d["side"], fold_hash32b(canon, m.side_salt) & sm)
+        probe_bucket(d["side"], fold_hash32(canon) & sm)
+        probe_bucket(d["side"], fold_hash32b(canon, m.side_salt) & sm)
 
     found = st.pop("found")
     if mode == "main":

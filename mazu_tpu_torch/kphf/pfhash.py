@@ -54,6 +54,9 @@ class PFHash:
     def n_kmers(self) -> int:
         return self.unitigs.n_kmers
 
+    def num_bits(self) -> int:
+        return self.unitigs.num_bits() + self.mphf.num_bits() + self.pos.num_bits()
+
     def device_arrays(self) -> dict:
         return {
             "us": self.unitigs.device_arrays(),

@@ -135,6 +135,20 @@ class SampledPFHash:
             extension_size=E,
         )
 
+    def print_stats(self, log=print) -> None:
+        n = max(1, self.n_kmers)
+        log(f"sampled_pos: {self.sampled_pos.length} entries")
+        log(f"sample_size: {self.sample_size}  extension_size: {self.extension_size}")
+        log(f"total: {self.num_bits() / n:.2f} bits per kmer")
+
+    def num_bits(self) -> int:
+        """Size in bits, as the reference counts it: whole words of every
+        packed vector."""
+        vecs = (self.sampled_pos, self.sampled_vec, self.canonical_vec, self.direction_vec,
+                self.ext_sizes, self.ext_bases)
+        return (self.unitigs.num_bits() + self.mphf.num_bits()
+                + sum(64 * len(v.words) for v in vecs))
+
     def device_arrays(self) -> dict:
         return {
             "us": self.unitigs.device_arrays(),

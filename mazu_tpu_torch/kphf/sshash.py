@@ -1,38 +1,40 @@
-"""SSHash with the direct and fast32 engines (counterpart of
-``mazu_tpu.kphf.sshash``).
+"""SSHash with its three engines (counterpart of ``mazu_tpu.kphf.sshash``).
 
 A minimizer-bucketed k-mer dictionary. Each k-mer's canonical minimizer
-(mix32 ordering, ``kmer.canonical_minimizer_batch``) selects a bucket that
-lists the useq positions of its minimizer occurrences, and a query
-verifies the candidate k-mers at ``mm_pos - offset`` and
-``mm_pos - (k - w - offset)``. Two engines address the buckets:
+(``kmer.canonical_minimizer_batch``) selects a bucket that lists the useq
+positions of its minimizer occurrences, and a query verifies the candidate
+k-mers at ``mm_pos - offset`` and ``mm_pos - (k - w - offset)``. Three
+engines address the buckets:
 
-- direct: ``fold_hash32(mm) & (T-1)`` into a power-of-two table, shared
-  by colliding minimizers; buckets deeper than ``skew_param`` go to a skew
-  table keyed by the canonical k-mer (two-choice cuckoo rows, or bounded
-  buckets);
-- fast32: one bucket per minimizer, numbered by a BooPHF32 over the
+- parity (the reference's default): one bucket per minimizer under the
+  mix64 ordering (or wyhash), numbered by a 64-bit BooPHF over the
   minimizer set; minimizers with more than ``skew_param`` occurrences send
-  their k-mers to a second BooPHF32 (``skew_mphf``) and its positions
-  (``skew_pos``).
+  their k-mers to a second BooPHF (``skew_mphf``) and its positions
+  (``skew_pos``);
+- fast32: the same under the mix32 ordering with BooPHF32 MPHFs;
+- direct: mix32 ordering, ``fold_hash32(mm) & (T-1)`` into a power-of-two
+  table, shared by colliding minimizers; buckets deeper than
+  ``skew_param`` go to a skew table keyed by the canonical k-mer
+  (two-choice cuckoo rows, or bounded buckets).
 
 The build is NumPy (byte-identical to the reference's) except the
-minimizer scan, and for fast32 the MPHF lookup of every minimizer, which
-run on the given device in chunks. Two device layouts are ported, both
-with the unitig set's paired arrays: the speed tier's (the default), one
-inline row per minimizer occurrence that holds the candidate window's
-words and its unitig's id and extent (``inline`` or the pre-aligned
-``inline2``), with flat32 bucket bounds, which
-``ModIndex.device_arrays(fused=True)`` extends with occurrence fields; and
-the capacity tier's, packed positions (IntVector) with grouped16 bucket
+minimizer scan, and for the MPHF engines the MPHF lookup of every
+minimizer, which run on the given device in chunks. The device layouts,
+all with the unitig set's paired arrays: the speed tier's (the 32-bit
+engines' default), one inline row per minimizer occurrence that holds the
+candidate window's words and its unitig's id and extent (``inline`` or the
+pre-aligned ``inline2``), with flat32 bucket bounds, which
+``ModIndex.device_arrays(fused=True)`` extends with occurrence fields;
+packed positions (IntVector) with Elias-Fano bucket bounds (parity's
+default); and the capacity tier's, packed positions with grouped16 bucket
 bounds, and the direct engine's ``bpos`` rows and ``useqrec`` window
 records, or the per-unitig ``uproj`` records
 (``index.modindex.build_uproj``) for the deferred-validation probe.
-``sshash_k2u`` is the plain torch query of both; on the capacity tier's
-main path ``ops.bpos_probe.bpos_usrec_k2u`` (direct, useqrec) and
-``ops.capacity_probe.capacity_k2u`` (deferred validation) run its main
-probe as kernels. The speed tier's probe is plain torch, as the
-reference's is plain ``jnp``.
+``sshash_k2u`` is the plain torch query of all of them; on the capacity
+tier's main path ``ops.bpos_probe.bpos_usrec_k2u`` (direct, useqrec) and
+``ops.capacity_probe.capacity_k2u`` (deferred validation, 32-bit engines)
+run its main probe as kernels. The speed tier's probe and every probe of
+a parity SSHash are plain torch, as the reference's are plain ``jnp``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from .._words import M32, from_numpy, mask32, srl, srl_var
+from ..bits.elias_fano import EFVector, ef_get
 from ..bits.intvector import IntVector, iv_get
 from ..bits.seqvector import sv_get_kmer
 from ..containers.unitig_set import (
@@ -48,7 +51,7 @@ from ..containers.unitig_set import (
 )
 from ..kmer import canonical_minimizer_batch, mask2k, revcomp, revcomp_np, word_equivalency
 from ..pytree import meta
-from .boophf import boophf_lookup
+from .boophf import BooPHF, boophf_lookup
 from .boophf32 import (
     BooPHF32, boophf32_lookup, fold_hash32, fold_hash32_np, fold_hash32b, fold_hash32b_np,
     mix32_np,
@@ -84,13 +87,13 @@ def _dedup_stream(mm: np.ndarray, pos: np.ndarray, mask: np.ndarray) -> np.ndarr
 
 
 class SSHash:
-    """Host-side SSHash (``SSHash.from_unitig_set`` with ``engine="direct"``
-    or ``engine="fast32"`` in the reference). ``direct_T`` is 0 for fast32,
-    whose buckets are numbered by ``mphf``."""
+    """Host-side SSHash (``SSHash.from_unitig_set`` in the reference).
+    ``direct_T`` is 0 for the MPHF engines (parity, fast32), whose buckets
+    are numbered by ``mphf``."""
 
     def __init__(self, unitigs, w, pos, skew_param, seed, max_bucket, direct_T=0,
                  skew_direct=None, sparse_prefix=None, mphf=None, prefix=None,
-                 skew_mphf=None, skew_pos=None):
+                 skew_mphf=None, skew_pos=None, ordering: str = "mix32"):
         self.unitigs = unitigs
         self.w = int(w)
         self.pos = pos  # IntVector of minimizer positions, grouped by bucket
@@ -104,17 +107,65 @@ class SSHash:
         self.mphf = mphf
         self.skew_mphf = skew_mphf
         self.skew_pos = skew_pos
+        self.ordering = ordering  # minimizer ordering: mix32, or parity's mix64/wyhash
+
+    @property
+    def hash32(self) -> bool:
+        """The 32-bit engines' arithmetic (direct, fast32): mix32 ordering."""
+        return self.ordering == "mix32"
 
     @property
     def k(self) -> int:
         return self.unitigs.k
 
+    @property
+    def n_kmers(self) -> int:
+        return self.unitigs.n_kmers
+
+    @property
+    def n_minimizers(self) -> int:
+        """Buckets: the direct table's size, else the MPHF's key count."""
+        return self.direct_T or len(self.occs_prefix_sum) - 1
+
+    @property
+    def n_minimizer_occs(self) -> int:
+        return len(self.pos)
+
+    def num_bits(self) -> int:
+        """Size in bits, as the reference counts it: the direct table's flat
+        int32 prefix, or the Elias-Fano bucket bounds and the MPHF; then the
+        unitig set, the positions and the skew structures."""
+        if self.direct_T:
+            mm_bits = 32 * (self.direct_T + 1)
+        else:
+            ef = EFVector.from_array(self.occs_prefix_sum.astype(np.uint64))
+            mm_bits = ef.num_bits() + self.mphf.num_bits()
+        nb = 64 + self.unitigs.num_bits() + self.pos.num_bits() + mm_bits
+        if self.skew_mphf is not None:
+            nb += self.skew_mphf.num_bits() + self.skew_pos.num_bits()
+        if self.skew_direct is not None:
+            sd = self.skew_direct
+            nb += 128 * len(sd["pos"])
+            if "prefix" in sd:
+                nb += 32 * len(sd["prefix"])
+        return nb
+
+    def print_stats(self, log=print):
+        nk = self.n_kmers
+        log(f"kmers: {nk}")
+        log(f"n minimizers: {self.n_minimizers}")
+        log(f"n minimizer occs: {self.n_minimizer_occs}")
+        log(f"positions encoded in {self.pos.width} bit words")
+        log(f"unitigs: {self.unitigs.n_unitigs}")
+        log(f"bits / kmer: {self.num_bits() / nk:.3f}")
+
     @staticmethod
-    def _collect_minimizer_occs(unitigs, w: int, seed: int, chunk: int, device):
-        """Canonical minimizer occurrence of every k-mer (scanned on
-        ``device`` in chunks), per-strand consecutive dedup, then a stable
-        sort by minimizer value. Returns (mm_set, mm_occs, ranges_start,
-        positions)."""
+    def _collect_minimizer_occs(unitigs, w: int, seed: int, chunk: int, device,
+                                ordering: str = "mix32"):
+        """Canonical minimizer occurrence of every k-mer under ``ordering``
+        (scanned on ``device`` in chunks), per-strand consecutive dedup,
+        then a stable sort by minimizer value. Returns (mm_set, mm_occs,
+        ranges_start, positions)."""
         k = unitigs.k
         kpos = unitigs.kmer_start_positions()
         n = len(kpos)
@@ -125,7 +176,7 @@ class SSHash:
         for s in range(0, n, chunk):
             kp = kpos[s : s + chunk]
             fw = sv_get_kmer(words, torch.from_numpy(kp).to(device), k)
-            mm, off, is_fw, _ = canonical_minimizer_batch(fw, k, w, seed)
+            mm, off, is_fw, _ = canonical_minimizer_batch(fw, k, w, seed, ordering)
             mm_all[s : s + chunk] = mm.cpu().numpy().view(np.uint64)
             occ_pos[s : s + chunk] = kp + off.cpu().numpy().astype(np.int64)
             isfw[s : s + chunk] = is_fw.cpu().numpy()
@@ -150,26 +201,34 @@ class SSHash:
 
     @classmethod
     def from_unitig_set(cls, unitigs, w: int, skew_param: int | None = 64, seed: int = 0,
-                        gamma: float = 1.7, chunk: int = 1 << 20, engine: str = "direct",
+                        gamma: float = 1.7, chunk: int = 1 << 20, engine: str = "parity",
                         bucket_load: float = 0.5, skew_bound_target: int = 4,
-                        device=None) -> "SSHash":
-        """Build with the direct engine (the minimizer -> bucket map is
-        ``fold_hash32(mm) & (T-1)``, T the power of two near
-        ``n_minimizers / bucket_load``; minimizers that collide share a
-        bucket and verification rejects the foreign positions; the k-mers
-        around the occurrences of buckets deeper than ``skew_param`` go to
-        the skew table) or the fast32 engine (``_from_unitig_set_fast32``).
-        The minimizer scan (and fast32's MPHF lookups) run on ``device``,
-        the card by default."""
+                        minimizer_hash: str | None = None, device=None) -> "SSHash":
+        """Build with one of three engines. ``parity`` (the reference's
+        default) and ``fast32`` number the minimizers with an MPHF
+        (``_from_unitig_set_mphf``): parity with the 64-bit ``BooPHF`` and
+        the ``mix64`` ordering (``minimizer_hash="wyhash"`` orders by
+        wyhash), fast32 with ``BooPHF32`` and ``mix32``. ``direct`` maps a
+        minimizer to a bucket by ``fold_hash32(mm) & (T-1)``, T the power
+        of two near ``n_minimizers / bucket_load``; minimizers that collide
+        share a bucket and verification rejects the foreign positions; the
+        k-mers around the occurrences of buckets deeper than ``skew_param``
+        go to the skew table. The minimizer scan (and the MPHF lookups) run
+        on ``device``, the card by default."""
         from ..convert import resolve_device
 
         if w > unitigs.k:
             raise ValueError(f"w={w} > k={unitigs.k}")
-        if engine not in ("direct", "fast32"):
-            raise ValueError(f"the port has no {engine!r} SSHash engine yet")
+        if engine not in ("parity", "fast32", "direct"):
+            raise ValueError(f"the port has no {engine!r} SSHash engine")
+        if minimizer_hash is not None and engine != "parity":
+            raise ValueError("minimizer_hash is a parity-engine option (fast32/direct use "
+                             "the 32-bit native ordering)")
         device = resolve_device(device)
-        if engine == "fast32":
-            return cls._from_unitig_set_fast32(unitigs, w, skew_param, seed, gamma, chunk, device)
+        if engine != "direct":
+            ordering = minimizer_hash or ("mix64" if engine == "parity" else "mix32")
+            return cls._from_unitig_set_mphf(unitigs, w, skew_param, seed, gamma, chunk, device,
+                                             ordering)
         k = unitigs.k
         skew_param = 8 if skew_param is None else int(skew_param)
         mm_set, mm_occs, ranges_start, mps = cls._collect_minimizer_occs(
@@ -235,18 +294,26 @@ class SSHash:
         )
 
     @classmethod
-    def _from_unitig_set_fast32(cls, unitigs, w, skew_param, seed, gamma, chunk, device):
-        """The fast32 engine: a BooPHF32 numbers the minimizers, bucket h
-        holds the occurrences of the minimizer with value h, and buckets lie
-        in that order. The k-mers around the occurrences of minimizers with
-        more than ``skew_param`` of them go to a second BooPHF32 and its
-        positions; with none, that MPHF holds the one key 0 (the reference
-        builds it so)."""
+    def from_unitig_set_no_skew_index(cls, unitigs, w, seed=0, gamma=1.7, engine="parity",
+                                      device=None) -> "SSHash":
+        return cls.from_unitig_set(unitigs, w, skew_param=None, seed=seed, gamma=gamma,
+                                   engine=engine, device=device)
+
+    @classmethod
+    def _from_unitig_set_mphf(cls, unitigs, w, skew_param, seed, gamma, chunk, device, ordering):
+        """The MPHF engines: an MPHF (``BooPHF32`` under the mix32 ordering,
+        fast32; else the 64-bit ``BooPHF``, parity) numbers the minimizers,
+        bucket h holds the occurrences of the minimizer with value h, and
+        buckets lie in that order. The k-mers around the occurrences of
+        minimizers with more than ``skew_param`` of them go to a second MPHF
+        of the same kind and its positions; with none, that MPHF holds the
+        one key 0 (the reference builds it so)."""
         k = unitigs.k
+        mphf_cls = BooPHF32 if ordering == "mix32" else BooPHF
         mm_set, mm_occs, ranges_start, mps = cls._collect_minimizer_occs(
-            unitigs, w, seed, chunk, device
+            unitigs, w, seed, chunk, device, ordering
         )
-        mphf = BooPHF32.build(mm_set, gamma=gamma)
+        mphf = mphf_cls.build(mm_set, gamma=gamma)
         h = mphf.lookup(mm_set, device=device).astype(np.int64)
         if (h < 0).any():
             raise RuntimeError("the minimizer MPHF misses one of its own keys")
@@ -273,17 +340,17 @@ class SSHash:
                 words = unitigs.get_kmer_u64(cand)
                 cwords = np.minimum(words, revcomp_np(words, k))
                 cw_sorted, first_idx = np.unique(cwords, return_index=True)
-                skew_mphf = BooPHF32.build(cw_sorted, gamma=gamma)
+                skew_mphf = mphf_cls.build(cw_sorted, gamma=gamma)
                 sp = np.zeros(len(cw_sorted), dtype=np.uint64)
                 sp[skew_mphf.lookup(cw_sorted, device=device)] = cand[first_idx].astype(np.uint64)
                 skew_pos = IntVector.from_array(sp)
             else:
-                skew_mphf = BooPHF32.build(np.zeros(1, dtype=np.uint64), gamma=gamma)
+                skew_mphf = mphf_cls.build(np.zeros(1, dtype=np.uint64), gamma=gamma)
                 skew_pos = IntVector.from_array(np.zeros(1, dtype=np.uint64))
         return cls(
             unitigs, w, IntVector.from_array(posv), skew_param, seed,
             int(mm_occs.max()) if len(mm_occs) else 0, mphf=mphf, prefix=prefix,
-            skew_mphf=skew_mphf, skew_pos=skew_pos,
+            skew_mphf=skew_mphf, skew_pos=skew_pos, ordering=ordering,
         )
 
     @staticmethod
@@ -350,34 +417,41 @@ class SSHash:
 
     def device_arrays(self, prefix_kind: str | None = None, pos_kind: str | None = None,
                       bucket_inline: bool = False) -> dict:
-        """The reference's device layouts of two tiers (``SSHash.device_arrays``
-        in ``mazu_tpu``; both with the unitig set's paired arrays):
+        """The reference's device layouts (``SSHash.device_arrays`` in
+        ``mazu_tpu``; all with the unitig set's paired arrays). The default
+        follows the engine: inline rows with flat32 bounds for the 32-bit
+        engines (direct, fast32), packed positions with Elias-Fano bounds
+        for parity.
 
-        - the speed tier, the default: ``pos_kind="inline"``, one u32[., 10]
+        - the speed tier: ``pos_kind="inline"``, one u32[., 10]
           row per minimizer occurrence (mm_pos, uid, start, end, then the
           three useq words that hold both candidate k-mers), or
           ``"inline2"``, u32[., 8] rows whose two words hold the candidate
           window pre-aligned to bit 0; with ``prefix_kind="flat32"`` bounds
-          (the default), a [T, 2] int32 ``flat2`` pair per bucket (the fast32
-          engine also keeps the [T + 1] ``flat`` prefix, as the reference
-          does without its native library), or grouped16 bounds. Both row
-          kinds need ``total_len < 2^31``.
-        - the capacity tier: ``pos_kind="packed"`` (an IntVector) with
-          ``prefix_kind="grouped16"`` (an int64 base per 1024-bucket group and
-          a u16 in-group delta per bucket), and with ``bucket_inline`` the
-          ``bpos`` u32[T, 4] rows (first three positions of the bucket, then
-          its count).
+          (the 32-bit engines' default), a [T, 2] int32 ``flat2`` pair per
+          bucket (fast32 also keeps the [T + 1] ``flat`` prefix, as the
+          reference does without its native library), grouped16 bounds, or
+          Elias-Fano bounds (parity's default). Both row kinds need
+          ``total_len < 2^31``.
+        - packed positions (an IntVector): ``pos_kind="packed"`` with
+          ``prefix_kind="ef"`` (an ``EFVector`` of the bucket prefix, parity's
+          default) or ``"grouped16"`` (an int64 base per 1024-bucket group and
+          a u16 in-group delta per bucket, the capacity tier), and with
+          ``bucket_inline`` the ``bpos`` u32[T, 4] rows (first three
+          positions of the bucket, then its count).
 
         The direct engine's skew rows are u32[., 8]: pos, uid, start, end and
-        the two useq words that hold the k-mer; fast32 adds its ``mphf``,
-        ``skew_mphf`` and ``skew_pos``. ``ModIndex.device_arrays(fused=True)``
+        the two useq words that hold the k-mer; the MPHF engines add their
+        ``mphf``, ``skew_mphf`` and ``skew_pos``. ``ModIndex.device_arrays(fused=True)``
         appends each row's occurrence fields."""
-        pos_kind = "inline" if pos_kind is None else pos_kind
+        if pos_kind is None:
+            pos_kind = "inline" if self.hash32 else "packed"
         if prefix_kind is None:
-            prefix_kind = "grouped16" if pos_kind == "packed" else "flat32"
+            prefix_kind = "ef" if not self.hash32 else (
+                "grouped16" if pos_kind == "packed" else "flat32")
         if pos_kind not in ("packed", "inline", "inline2"):
             raise ValueError(f"the port has no {pos_kind!r} SSHash position layout yet")
-        bounds = ("grouped16",) if pos_kind == "packed" else ("flat32", "grouped16")
+        bounds = ("grouped16", "ef") if pos_kind == "packed" else ("flat32", "grouped16", "ef")
         if prefix_kind not in bounds:
             raise ValueError(f"the port has no {prefix_kind!r} SSHash bucket bounds for "
                              f"{pos_kind!r} positions yet")
@@ -387,8 +461,8 @@ class SSHash:
         d = {
             "us": us.device_arrays(paired=True),
             "meta": meta(
-                kind="sshash", k=self.k, w=self.w, seed=self.seed, hash32=True,
-                ordering="mix32", direct_t=self.direct_T,
+                kind="sshash", k=self.k, w=self.w, seed=self.seed, hash32=self.hash32,
+                ordering=self.ordering, direct_t=self.direct_T,
                 skew_param=-1 if self.skew_param is None else self.skew_param,
                 probe_bound=max(1, self.probe_bound()), prefix_kind=prefix_kind,
                 pos_kind=pos_kind,
@@ -405,7 +479,9 @@ class SSHash:
             d["pos"] = {"inline": self._inline_rows(pos_kind == "inline2"),
                         "meta": meta(length=len(self.pos))}
         p = self.occs_prefix_sum
-        if prefix_kind == "grouped16":
+        if prefix_kind == "ef":
+            d["prefix"] = EFVector.from_array(p.astype(np.uint64)).device_arrays()
+        elif prefix_kind == "grouped16":
             base = np.ascontiguousarray(p[::1024]).astype(np.int64)
             delta = p - base[np.arange(len(p), dtype=np.int64) >> 10]
             if int(delta.max(initial=0)) >= (1 << 16):
@@ -489,8 +565,11 @@ class SSHash:
 
 
 def _prefix_get(d: dict, i: torch.Tensor) -> torch.Tensor:
-    """grouped16 bucket prefix p[i]."""
+    """Bucket prefix p[i]: an Elias-Fano select, or grouped16's base and
+    delta."""
     pre = d["prefix"]
+    if d["meta"].prefix_kind == "ef":
+        return ef_get(pre, i)
     return pre["gbase"][i >> 10] + (pre["gdelta"][i].to(torch.int64) & 0xFFFF)
 
 
@@ -660,16 +739,15 @@ def mphf_lookup(d: dict, keys: torch.Tensor, level_limit: int | None = None):
 def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int | None = None,
                probe_start: int = 0, defer_valid: bool = False,
                mphf_level_limit: int | None = None) -> dict:
-    """Batched SSHash K2U, direct or fast32 engine, on the capacity layout
-    (packed positions, grouped16 bounds) or the speed tier's inline rows
-    (flat32 bounds; ``_inline_k2u``), plain torch
-    (``mazu_tpu.kphf.sshash.sshash_k2u``).
+    """Batched SSHash K2U, any engine, on packed positions (grouped16 or
+    Elias-Fano bounds) or the speed tier's inline rows (``_inline_k2u``),
+    plain torch (``mazu_tpu.kphf.sshash.sshash_k2u``).
 
     ``fw``: int64 bit patterns of forward k-mer words. Returns int64
     unitig_id, unitig_len, pos and uint8 mt (0 miss, 1 identity, 2 twin).
     A lane's bucket is ``fold_hash32(mm) & (T-1)`` (direct) or the MPHF
-    value of its minimizer (fast32; a lane the MPHF rejects has no
-    occurrences).
+    value of its minimizer (fast32's BooPHF32, parity's 64-bit BooPHF; a
+    lane the MPHF rejects has no occurrences).
 
     ``mode="full"`` is exact for every key: each bucket's rows up to the
     static ``probe_bound`` (lanes mask rows past their count, so no bound
@@ -710,9 +788,9 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
     m = d["meta"]
     us = d["us"]
     if m.pos_kind not in ("packed", "inline", "inline2") or \
-            m.prefix_kind not in ("grouped16", "flat32"):
+            m.prefix_kind not in ("grouped16", "flat32", "ef"):
         raise ValueError("the port's SSHash query covers packed, inline and inline2 positions "
-                         "with grouped16 or flat32 bounds")
+                         "with grouped16, flat32 or ef bounds")
     usrec = mode == "main" and probe_start == 0 and "useqrec" in us
     if defer_valid and mode != "main":
         raise ValueError("defer_valid is a main-mode contract: its caller re-probes failed lanes")

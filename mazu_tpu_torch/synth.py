@@ -188,8 +188,8 @@ def build_capacity_index(n_bases: int, seed: int = 0, device=None, chunk: int = 
     default). Its query arrays
     are ``index.device_arrays(**CAPACITY_LAYOUT)``."""
     unitigs, refs, u2pos = build_synthetic(n_bases, seed, heavy_sites=heavy_sites)
-    k2u = SSHash.from_unitig_set(unitigs, w=CAP_W, skew_param=CAP_SKEW, bucket_load=CAP_LOAD,
-                                 chunk=chunk, device=device)
+    k2u = SSHash.from_unitig_set(unitigs, w=CAP_W, skew_param=CAP_SKEW, engine="direct",
+                                 bucket_load=CAP_LOAD, chunk=chunk, device=device)
     return ModIndex(k2u, u2pos, refs, index_type="Piscem-synth")
 
 
@@ -200,7 +200,7 @@ def build_speed_index(n_bases: int, seed: int = 0, device=None, chunk: int = 1 <
     ``build_index``); its minimizer scan runs on ``device`` (the card by
     default). Its query arrays are ``index.device_arrays(**SPEED_LAYOUT)``."""
     unitigs, refs, spt = genome or synthetic_spt(n_bases, seed)
-    k2u = SSHash.from_unitig_set(unitigs, w=SPEED_W, skew_param=SPEED_SKEW,
+    k2u = SSHash.from_unitig_set(unitigs, w=SPEED_W, skew_param=SPEED_SKEW, engine="direct",
                                  bucket_load=SPEED_LOAD, chunk=chunk, device=device)
     return ModIndex(k2u, spt.piscem_table(), refs, index_type="Piscem-synth")
 
@@ -297,6 +297,40 @@ def serve_reads_truth(refs: RefSeqCollection, n: int, seed: int = 1, n_share: fl
     n_mask = np.zeros(n, dtype=bool)
     n_mask[with_n] = True
     return [row.tobytes().decode() for row in text], starts, rc, foreign, n_mask
+
+
+def write_cf(prefix: str, n_bases: int, seed: int = 0, fasta: str | None = None,
+             genome=None) -> None:
+    """The genome of ``synthetic_spt(n_bases, seed)`` as cuttlefish output:
+    ``prefix.cf_seg`` (unitig i, cuttlefish id i), ``prefix.cf_seq`` and
+    ``prefix.json`` (k = ``K``). Reference i (i < n, the unitig count)
+    tiles unitig i forward; the two extra occurrences of every
+    ``EXTRA_EVERY``-th unitig u are references of their own, u reverse then
+    u forward, so u has 3 occurrences, as in ``synthetic_spt``, and no
+    reference holds a k-mer outside the unitigs. ``fasta``: also write the
+    references' sequences there (record i is reference i). ``genome``:
+    ``synthetic_spt``'s result for these arguments, if it is at hand."""
+    import json
+
+    unitigs, _, _ = genome or synthetic_spt(n_bases, seed)
+    n = unitigs.n_unitigs
+    tiles = [(i, 1) for i in range(n)]
+    tiles += [(int(u), o) for u in range(0, n, EXTRA_EVERY) for o in (0, 1)]
+    seqs = [unitigs.useq.to_str(int(unitigs.accum[i]), int(unitigs.accum[i + 1]))
+            for i in range(n)]
+    with open(prefix + ".cf_seg", "w") as f:
+        f.writelines(f"{i}\t{s}\n" for i, s in enumerate(seqs))
+    with open(prefix + ".cf_seq", "w") as f:
+        f.writelines(f"r{j}\t{u}{'+' if o else '-'}\n" for j, (u, o) in enumerate(tiles))
+    with open(prefix + ".json", "w") as f:
+        json.dump({"parameters info": {"k": K},
+                   "contigs info": {"maximal unitig count": n,
+                                    "sum maximal unitig length": unitigs.total_len}}, f)
+    if fasta is not None:
+        comp = str.maketrans("ACGT", "TGCA")
+        with open(fasta, "w") as f:
+            for j, (u, o) in enumerate(tiles):
+                f.write(f">r{j}\n{seqs[u] if o else seqs[u].translate(comp)[::-1]}\n")
 
 
 def write_fastq(path: str, reads: list) -> None:

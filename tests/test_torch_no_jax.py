@@ -4,7 +4,8 @@ tier, the SSHash speed tier and the pufferfish dense and sparse indexes)
 answer queries, a lab
 kernel's plain version runs, and a tiny serve pass (FASTQ, packing in the
 host library, device k-merization, map, pseudoalignment), ``validate_self``,
-a flat streaming pass and a read mapper run, with ``jax`` blocked from
+a flat streaming pass, a read mapper and the CLI's parity build, its
+checkpoint loaded and validated, run, with ``jax`` blocked from
 importing."""
 
 import os
@@ -107,6 +108,23 @@ flat = StreamingIndex(index, mode="flat", device="cpu").k2u_reads(kms, valid)
 assert (flat["mt"][valid] > 0).all()
 hits = ReadMapper(index, device="cpu").map_reads(reads)
 assert all(h.n_hit == h.n_kmers == 120 for h in hits)
+from mazu_tpu_torch.cli import main as cli_main
+from mazu_tpu_torch.io.checkpoint import load_index
+from mazu_tpu_torch.index.validate import validate_fasta
+with tempfile.TemporaryDirectory() as tmp:
+    prefix, fa, npz = (os.path.join(tmp, n) for n in ("g", "g.fa", "g.npz"))
+    synth.write_cf(prefix, 4 * synth.PIECE, fasta=fa)
+    import contextlib, io
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        assert cli_main(["--torch-device", "cpu", "index", "build", "piscem", "-p", prefix,
+                         "-o", npz]) == 0
+        loaded = load_index(npz)
+        assert loaded.k2u.ordering == "mix64" and loaded.k2u.mphf is not None
+        validate_fasta(loaded, fa, device="cpu")
+        assert cli_main(["--torch-device", "cpu", "index", "validate-fasta", "-i", npz,
+                         "-f", fa]) == 0
+    assert said.getvalue().splitlines() == [f"wrote {npz}", "valid"]
 leaked = sorted(m for m in sys.modules if m == "mazu_tpu" or m.startswith("mazu_tpu."))
 assert not leaked, leaked
 print("OK", len(mods))
@@ -135,7 +153,8 @@ def test_port_imports_and_queries_without_jax():
                  "io.pf1_index", "ops.gather_lab", "labs.gather_probe", "labs.dma_lab",
                  "io.fasta", "io.fastq", "io.cuttlefish", "io.reads", "index.streaming",
                  "index.validate", "index.colors", "index.pseudoalign", "io.native",
-                 "index.mapping", "index.tuning", "kphf.runshare"):
+                 "index.mapping", "index.tuning", "kphf.runshare", "cli", "io.checkpoint",
+                 "bits.elias_fano", "index.piscem_index"):
         assert f"mazu_tpu_torch.{name}" in mods, name
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, *mods], capture_output=True, text=True,

@@ -105,7 +105,8 @@ def build_capacity_pair(recipe, w: int = 15, skew: int = 8):
 
     pus = UnitigSet.from_seqs(seqs, k)
     pu2 = SPT(pus, names, *occ, ref_lens).piscem_table()
-    pss = SSHash.from_unitig_set(pus, w, skew_param=skew, bucket_load=0.5, device="cpu")
+    pss = SSHash.from_unitig_set(pus, w, skew_param=skew, engine="direct", bucket_load=0.5,
+                                 device="cpu")
     port = ModIndex(pss, pu2, RefSeqCollection.from_lens(ref_lens, names), index_type="t")
     return ref, port
 
@@ -138,6 +139,40 @@ def build_mphf_pair(recipe, w: int = 15, skew: int | None = 8):
     pus = UnitigSet.from_seqs(seqs, k)
     pu2 = SPT(pus, names, *occ, ref_lens).piscem_table()
     pss = SSHash.from_unitig_set(pus, w, skew_param=skew, engine="fast32", gamma=1.7,
+                                 device="cpu")
+    port = ModIndex(pss, pu2, RefSeqCollection.from_lens(ref_lens, names), index_type="t")
+    return ref, port
+
+
+def build_parity_pair(recipe, w: int = 15, skew: int | None = 8,
+                      minimizer_hash: str | None = None):
+    """(mazu_tpu ModIndex, mazu_tpu_torch ModIndex) of one recipe, both
+    with a parity SSHash (the reference's default engine: 64-bit BooPHF
+    minimizer MPHF, gamma 1.7, mix64 ordering or ``minimizer_hash``, skew
+    threshold ``skew``) over a piscem occurrence table."""
+    from mazu_tpu.containers.refseq import RefSeqCollection as MRefs
+    from mazu_tpu.containers.unitig_set import UnitigSet as MUnitigs
+    from mazu_tpu.index.modindex import ModIndex as MModIndex
+    from mazu_tpu.index.spt import SPT as MSPT
+    from mazu_tpu.kphf.sshash import SSHash as MSSHash
+
+    from mazu_tpu_torch.containers.refseq import RefSeqCollection
+    from mazu_tpu_torch.containers.unitig_set import UnitigSet
+    from mazu_tpu_torch.index.modindex import ModIndex
+    from mazu_tpu_torch.index.spt import SPT
+    from mazu_tpu_torch.kphf.sshash import SSHash
+
+    seqs, k, occ, ref_lens = recipe
+    names = [f"r{i}" for i in range(len(ref_lens))]
+
+    mus = MUnitigs.from_seqs(seqs, k)
+    mu2 = MSPT(mus, names, *occ, ref_lens).piscem_table()
+    mss = MSSHash.from_unitig_set(mus, w, skew_param=skew, minimizer_hash=minimizer_hash)
+    ref = MModIndex(mss, mu2, MRefs.from_lens(ref_lens, names), index_type="t")
+
+    pus = UnitigSet.from_seqs(seqs, k)
+    pu2 = SPT(pus, names, *occ, ref_lens).piscem_table()
+    pss = SSHash.from_unitig_set(pus, w, skew_param=skew, minimizer_hash=minimizer_hash,
                                  device="cpu")
     port = ModIndex(pss, pu2, RefSeqCollection.from_lens(ref_lens, names), index_type="t")
     return ref, port
