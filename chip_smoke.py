@@ -1,13 +1,15 @@
 """Run the port's main paths once on one CUDA card and check them.
 
-    python3 chip_smoke.py [--mbp 50] [--cap-mbp 300] [--mphf-mbp 300]
+    python3 chip_smoke.py [--mbp 50] [--cap-mbp 300] [--mphf-mbp 300] [--gbp-mbp 3000]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. card check (fails without CUDA) and the card's name and power limit;
-2. build of the four kernel sources from ``mazu_tpu_torch/csrc``, one nvcc
-   each, run together (phases 3, 9 and 13 print the reports of the lab,
-   second and third sources);
+2. build of the four kernel sources from ``mazu_tpu_torch/csrc``, and of
+   K3's source with the MPHF layout's far reads plain (written into the
+   build directory, phase 20's comparison), one nvcc each, run together
+   (phases 3, 9 and 13 print the reports of the lab, second and third
+   sources);
 3. the lab kernels L1-L5 (``csrc/gather_lab.cu``) against their plain torch
    versions on the card at the labs' shapes, N=1, a ragged N and all-same
    indices, bit-identical; L1 also on an unaligned index view, all-0 and
@@ -209,6 +211,33 @@ Phases, each printing its own lines; any failure exits non-zero:
     ``--engine mono2`` on a ``--cli-mono2-mbp`` genome (5 Mbp: the 50 Mbp
     table would spend minutes compressed into the file), its K1 launches
     counted into K1's and its first 1,024 reads' hits held to the CPU's;
+20. synth3000-mphf, the MPHF tier at 2^31 bases or more (runs after
+    phase 19, before phase 18): the earlier indexes' card memory left for
+    phase 18 is printed; ``synth.mphf_genome`` at ``--gbp-mbp`` (3,000
+    Mbp: 300,000 unitigs, the tagged 19-mer planted) on the host, its
+    seconds and peak host memory; the fast32 SSHash (w=19, skew 64, gamma
+    1.7) built on the card, its seconds by stage, the card's peak
+    allocation and the host's peak; ``device_arrays(**MPHF_LAYOUT)`` on
+    the host by part, the move to the card and its bytes by array; the
+    tier rule must keep it in the capacity tier; the card's build against
+    the same build on CPU tensors at ``--mphf-check-mbp`` (20 Mbp), byte
+    for byte; K3 against its plain version on 2^20 uniform queries (~28%
+    of lanes past base 2^31) at level limits None and 4 and probe limits
+    1-3 and on phase 16's tiles plus the k-mers of the five unitigs around
+    base 2^31 and of the last unitig; K3 timed in turns with its
+    plain-far-read build (does evict-first still pay when the MPHF misses
+    the L2?), its bound and its sector floor with the MPHF's sectors in
+    DRAM; the ``mrows`` MPHF's lookup of the batch's minimizers equal to
+    the lean layout's, K3's layout check refusing it and the compact query
+    on it taking the plain probe; every k-mer of the unitigs over bases
+    [2^31 - 2^25, 2^31 + 2^25), every other one reverse-complemented,
+    found at its unitig and offset through ``get_ref_pos_compact``;
+    ``validate_ckmers`` on the references of those five unitigs and of the
+    last; the MPHF path as in phase 17 (8 x 2^20, replayed and eager, CPU
+    oracle);
+    the mapper (6d) by the tier rule and the first 1,024 reads' hits equal
+    to ``ReadMapper`` on CPU tensors; its profiled passes; then the index
+    is freed;
 18. one profiled replayed pass and one profiled eager pass of each of the
     paths of phases 6, 6a and 6c (its index moved to the card again; the
     serve pass's device pass alone; the flat streaming pass on the device),
@@ -238,7 +267,8 @@ graph count the eager warm-up's and the captured launches: a replay
 adds none; K1's are those of phase 6's, 6e's and 6a's first replayed
 passes, of phase 6d's first mapper run and of phase 19's mono2 CLI
 calls, K2's and K3's those of their
-main path's first replayed pass and of their mapper's first run. The last
+main path's first replayed pass and of their mapper's first run (K3's on
+phases 17 and 20). K3's record also holds phase 20's numbers (``gbp_*``). The last
 two lines are the kernels' JSON record and the result
 JSON. Imports nothing of JAX.
 """
@@ -249,6 +279,7 @@ import argparse
 import json
 import os
 import re
+import resource
 import statistics
 import subprocess
 import sys
@@ -259,6 +290,7 @@ import numpy as np
 import torch
 
 from mazu_tpu_torch._words import mask32, umin
+from mazu_tpu_torch.containers.unitig_set import us_get_kmer
 from mazu_tpu_torch.convert import arrays_from_numpy
 from mazu_tpu_torch.index.modindex import (
     QueryIndex, build_uproj, get_ref_pos_compact, get_ref_pos_csr, get_ref_pos_padded,
@@ -276,7 +308,9 @@ from mazu_tpu_torch.index.tuning import query_tier, speed_bytes
 from mazu_tpu_torch.index.streaming import (
     StreamingIndex, kmerize_reads, validate_fasta_streaming,
 )
-from mazu_tpu_torch.index.validate import validate_fasta, validate_k2u_self, validate_self
+from mazu_tpu_torch.index.validate import (
+    validate_ckmers, validate_fasta, validate_k2u_self, validate_self,
+)
 from mazu_tpu_torch.io.fasta import open_binary
 from mazu_tpu_torch.io.fastq import read_fastq
 from mazu_tpu_torch.io.native import fastq_pack, kmerize_batch
@@ -550,6 +584,11 @@ def main():
     ap.add_argument("--mphf-mbp", type=float, default=300.0, help="MPHF genome size in Mbp")
     ap.add_argument("--cli-mono2-mbp", type=float, default=5.0,
                     help="genome size in Mbp of the CLI's mono2 leg")
+    ap.add_argument("--gbp-mbp", type=float, default=3000.0,
+                    help="genome size in Mbp of the MPHF tier at 2^31 bases or more (phase 20)")
+    ap.add_argument("--mphf-check-mbp", type=float, default=20.0,
+                    help="genome size in Mbp of phase 20's check of the card's build against "
+                         "the same build on CPU tensors")
     args = ap.parse_args()
 
     # 1. card
@@ -557,9 +596,10 @@ def main():
 
     # 2. kernel builds, one nvcc per source, together
     t0 = time.perf_counter()
-    (lib, ptxas), (lib2, ptxas2), (lib3, ptxas3), (lib4, ptxas4) = compile_all(
-        [mono2_probe.SOURCE, bpos_probe.SOURCE, capacity_probe.SOURCE, gather_lab.SOURCE])
-    log(f"[build] {lib.name}, {lib2.name}, {lib3.name} and {lib4.name} in "
+    (lib, ptxas), (lib2, ptxas2), (lib3, ptxas3), (lib4, ptxas4), (lib5, _) = compile_all(
+        [mono2_probe.SOURCE, bpos_probe.SOURCE, capacity_probe.SOURCE, gather_lab.SOURCE,
+         k3_plain_reads_source()])
+    log(f"[build] {lib.name}, {lib2.name}, {lib3.name}, {lib4.name} and {lib5.name} in "
         f"{time.perf_counter() - t0:.2f} s")
     for line in ptxas_lines(ptxas):
         log(f"[build] {line}")
@@ -717,6 +757,9 @@ def main():
     torch.cuda.empty_cache()
     # 19. the CLI
     profile_cli = cli_phase(args, dev, smi, k1)
+    torch.cuda.empty_cache()
+    # 20. synth3000-mphf: the MPHF tier past 2^31 bases, built on the card
+    gbp(args, dev, smi, sector_rate, lib5, k3)
 
     # 18. profiled passes
     for profile in (profile_mono2, *profile_pf1, profile_speed, profile_cap, profile_mphf,
@@ -1510,9 +1553,11 @@ def probed_rows(run, n_occs: torch.Tensor, skew: torch.Tensor, plim: int) -> tor
     return torch.where(skew, 0, rows)
 
 
-def k3_lane_cost(k2u: dict, fw: torch.Tensor, plim: int, mlim: int) -> tuple[int, int, int, int]:
-    """(bytes, L2 sectors, DRAM sectors, DRAM 64-byte blocks) that K3 must
-    move on this batch on the MPHF layout with a truncated chain.
+def k3_lane_cost(k2u: dict, fw: torch.Tensor, plim: int,
+                 mlim: int) -> tuple[int, int, int, int, int]:
+    """(bytes, L2 sectors, DRAM sectors, DRAM 64-byte blocks, the MPHF's
+    sectors among the L2 ones) that K3 must move on this batch on the MPHF
+    layout with a truncated chain.
 
     Bytes, each read once and only what a lane reads: its key; one u32 MPHF
     word per level tested up to the first hit (at most ``mlim``); for a
@@ -1599,7 +1644,7 @@ def k3_lane_cost(k2u: dict, fw: torch.Tensor, plim: int, mlim: int) -> tuple[int
                         + sector_ids(16 * torch.clamp(bwi + 1, max=n_wb - 1), 16, hits, size), 1))
                     ).sum())
 
-    return n_bytes, int(l2.sum()), dram(32), dram(64)
+    return n_bytes, int(l2.sum()), dram(32), dram(64), int((levels + placed.to(torch.int64)).sum())
 
 
 def k2_dram_sectors(k2u: dict, fw: torch.Tensor, rows: torch.Tensor) -> tuple[int, int]:
@@ -2599,8 +2644,10 @@ def mphf(args, dev, smi, sector_rate: float):
         f"{len(mp.fh_keys)} final-hash keys; {index.k2u.n_kmers_in_skew_index} skew k-mers; "
         f"probe_bound={m.probe_bound}, max bucket {index.k2u.max_bucket()}, "
         f"max_occs={gpu_index.max_occs}")
-    log(f"[mphf index] host build {t_build:.1f} s (minimizer scan and MPHF lookup on the card), "
-        f"arrays {t_arrays:.1f} s, to card {t_card:.1f} s; {gpu_index.nbytes()} bytes on the card "
+    stages = ", ".join(f"{kk} {v:.2f} s" for kk, v in index.k2u.build_seconds.items())
+    log(f"[mphf index] build {t_build:.1f} s (the genome on the host, the SSHash on the card: "
+        f"{stages}), arrays {t_arrays:.1f} s, to card {t_card:.1f} s; {gpu_index.nbytes()} bytes "
+        f"on the card "
         f"(gdelta {k2u['prefix']['gdelta'].numel() * 2}, packed positions "
         f"{k2u['pos']['words'].numel() * 8}, MPHF words {k2u['mphf']['words'].numel() * 4}, "
         f"uproj {k2u['us']['uproj'].numel() * 8})")
@@ -2660,7 +2707,7 @@ def mphf(args, dev, smi, sector_rate: float):
     kern, plain = k3(PLIM, MLIM)
     k3_ms = cuda_ms(lambda: kern(k2u, fw), 20)
     k3_plain_ms = cuda_ms(lambda: plain(k2u, fw), 5)
-    k3_bytes, k3_l2, k3_dram, k3_blocks = k3_lane_cost(k2u, fw, PLIM, MLIM)
+    k3_bytes, k3_l2, k3_dram, k3_blocks, _ = k3_lane_cost(k2u, fw, PLIM, MLIM)
     k3_bound = bound(k3_bytes)
     k3_floor = k3_dram / sector_rate * 1e3
     log(f"[k3 mphf] N={BATCH} at probe limit {PLIM}, level limit {MLIM}: kernel {k3_ms:.4f} ms, "
@@ -2692,6 +2739,326 @@ def mphf(args, dev, smi, sector_rate: float):
     return record("capacity_probe", "capacity_probe.cu", "mazu_tpu/ops/pallas_capacity.py:56",
                   launches, max_err, k3_ms, k3_plain_ms, k3_bound,
                   sector_floor_ms=k3_floor), profile
+
+
+def rss_now() -> float:
+    """This process's resident memory, GB (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+class RssPeak:
+    """The peak resident memory (GB) of this process while a block runs,
+    sampled every 10 ms by a thread: the card's machine reports no
+    ``VmHWM`` and cannot reset one. A peak inside one call that holds the
+    interpreter lock is missed."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = rss_now()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, rss_now())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_now())
+
+
+def array_bytes(d, path: str = "") -> list:
+    """(path, bytes) of each tensor of an array dict, largest first."""
+    if isinstance(d, dict):
+        return sorted((x for kk, v in d.items() for x in array_bytes(v, f"{path}/{kk}")),
+                      key=lambda x: -x[1])
+    return [(path, d.numel() * d.element_size())] if isinstance(d, torch.Tensor) else []
+
+
+def k3_plain_reads_source():
+    """K3's source with the MPHF layout's far reads plain (the direct
+    layout's instance for both layouts), written into the build directory:
+    phase 20 times it in turns with K3, to see whether evict-first still
+    pays when the MPHF's levels no longer fit the L2."""
+    from mazu_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    src = capacity_probe.SOURCE.read_text()
+    hot = "capacity_probe_kernel<true><<<"
+    if src.count(hot) != 1:
+        raise AssertionError("K3's source no longer launches its evict-first instance once")
+    BUILD_DIR.mkdir(exist_ok=True)
+    out = BUILD_DIR / "capacity_probe_plain_reads.cu"
+    out.write_text(src.replace(hot, "capacity_probe_kernel<false><<<"))
+    return out
+
+
+def plain_reads_k3(lib):
+    """K3 (``capacity_probe.capacity_k2u``) launching the plain-read build
+    ``lib`` of ``k3_plain_reads_source`` instead, at probe limit ``PLIM``
+    and level limit ``MLIM``."""
+    import ctypes
+
+    fn = ctypes.CDLL(str(lib)).capacity_probe
+    fn.argtypes = [ctypes.POINTER(capacity_probe._Args), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(d, f):
+        own, capacity_probe._FN = capacity_probe._kernel(), fn
+        try:
+            return capacity_probe.capacity_k2u(d, f, PLIM, mphf_level_limit=MLIM)
+        finally:
+            capacity_probe._FN = own
+    return run
+
+
+def same_builds(got, want) -> None:
+    """Two fast32 SSHash builds hold the same bucket prefix, packed
+    positions, MPHF levels and final table, and skew structures."""
+    if not np.array_equal(got.occs_prefix_sum, want.occs_prefix_sum):
+        raise AssertionError("builds differ in their bucket prefix")
+    for (n_a, w_a, r_a), (n_b, w_b, r_b) in zip(got.mphf.levels, want.mphf.levels):
+        if n_a != n_b or not (np.array_equal(w_a, w_b) and np.array_equal(r_a, r_b)):
+            raise AssertionError("builds differ in an MPHF level")
+    if len(got.mphf.levels) != len(want.mphf.levels):
+        raise AssertionError("builds differ in their MPHF levels")
+    same_arrays(got.device_arrays(prefix_kind="grouped16", pos_kind="packed"),
+                want.device_arrays(prefix_kind="grouped16", pos_kind="packed"), "k2u")
+
+
+def gbp(args, dev, smi, sector_rate: float, lib_plain_reads, k3_record: dict) -> None:
+    """Phase 20 (synth3000-mphf): the MPHF tier at 2^31 bases or more,
+    built on the card. Adds its K3 launches (main path and mapper) to K3's
+    record ``k3_record`` and its K3 numbers under ``gbp_*`` keys."""
+    import gc
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[gbp] before the phase: {torch.cuda.memory_allocated()} bytes allocated on the card by "
+        f"earlier phases (phase 18's passes), host RSS {rss_now():.2f} GB")
+    n_bases = int(args.gbp_mbp * 1e6)
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        genome = synth.mphf_genome(n_bases, seed=0)
+    synth_s = time.perf_counter() - t0
+    log(f"[gbp synth] synth.mphf_genome({n_bases}): {synth_s:.2f} s, host peak RSS "
+        f"{rss.peak:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        index = synth.build_mphf_index(n_bases, seed=0, device=dev, chunk=1 << 24, genome=genome)
+    build_s = time.perf_counter() - t0
+    del genome
+    sh = index.k2u
+    us = sh.unitigs
+    stages = ", ".join(f"{kk} {v:.2f} s" for kk, v in sh.build_seconds.items())
+    log(f"[gbp build] SSHash fast32 on the card: {build_s:.2f} s ({stages}); peak "
+        f"{torch.cuda.max_memory_allocated()} bytes allocated on the card, host peak RSS "
+        f"{rss.peak:.2f} GB ({smi})")
+    log(f"[gbp index] {us.total_len} bases, {us.n_unitigs} unitigs, {us.n_kmers} k-mers; "
+        f"{sh.n_minimizer_occs} minimizer occurrences ({sh.n_minimizer_occs / us.n_kmers:.4f} a "
+        f"k-mer), {sh.n_minimizers} minimizers, positions {sh.pos.width} bits wide; MPHF levels "
+        f"{[n for n, _, _ in sh.mphf.levels]}, {len(sh.mphf.fh_keys)} final-hash keys; "
+        f"{sh.n_kmers_in_skew_index} skew k-mers; max bucket {sh.max_bucket()}")
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        host = index.device_arrays(**synth.MPHF_LAYOUT)
+    arrays_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    us.device_arrays(paired=True)
+    paired_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_uproj(index.u2pos, us)
+    uproj_s = time.perf_counter() - t0
+    log(f"[gbp arrays] index.device_arrays(**MPHF_LAYOUT) on the host {arrays_s:.2f} s (the "
+        f"paired unitig arrays alone {paired_s:.2f} s, uproj {uproj_s:.2f} s, the rest: grouped16 "
+        f"bounds and the MPHF's, position and table arrays {arrays_s - paired_s - uproj_s:.2f} s); "
+        f"host peak RSS {rss.peak:.2f} GB; the process's peak so far "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB")
+    cpu_index = QueryIndex(arrays_from_numpy(host, "cpu"))
+    t0 = time.perf_counter()
+    gpu_index = QueryIndex(arrays_from_numpy(host, "cpu")).to(dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    d = gpu_index.arrays()
+    k2u = d["k2u"]
+    top = ", ".join(f"{p} {b}" for p, b in array_bytes(d)[:12])
+    log(f"[gbp arrays] to the card {card_s:.2f} s: {gpu_index.nbytes()} bytes ({top}, ...)")
+    if query_tier(index, device=dev) != "capacity":
+        raise AssertionError("the tier rule does not keep synth3000-mphf in the capacity tier")
+
+    # the card's build against the same build on CPU tensors
+    n_chk = int(args.mphf_check_mbp * 1e6)
+    small = synth.mphf_genome(n_chk, seed=0)
+    t0 = time.perf_counter()
+    on_card = synth.build_mphf_index(n_chk, device=dev, chunk=1 << 24, genome=small).k2u
+    t1 = time.perf_counter()
+    on_cpu = synth.build_mphf_index(n_chk, device="cpu", chunk=1 << 22, genome=small).k2u
+    t2 = time.perf_counter()
+    same_builds(on_card, on_cpu)
+    log(f"[gbp check] at {n_chk} bases the card's build ({t1 - t0:.2f} s) equals the build on "
+        f"CPU tensors ({t2 - t1:.2f} s) byte for byte: bucket prefix, packed positions, "
+        f"{len(on_cpu.mphf.levels)} MPHF levels and {len(on_cpu.mphf.fh_keys)} final-table keys, "
+        f"skew MPHF and positions")
+    del small, on_card, on_cpu
+
+    # K3 against its plain version, lanes past base 2^31 among them
+    work, uid, upos = synth.sample_capacity_queries(us, BATCH, seed=1)
+    fw = torch.from_numpy(work.view(np.int64)).to(dev)
+    at = us.accum[uid] + upos
+    far = int((at >= 1 << 31).sum())
+    center = 1 << 31 if us.total_len > (1 << 31) + synth.PIECE else us.total_len // 2
+    if n_bases >= (1 << 31) + synth.PIECE and far == 0:
+        raise AssertionError("no sampled lane lies past base 2^31")
+    c_uid = int(us.pos_to_id(center))
+    edge = np.concatenate([np.arange(max(0, c_uid - 2), min(us.n_unitigs, c_uid + 3)),
+                           [us.n_unitigs - 1]])
+    kp = np.concatenate([us.accum[u] + np.arange(us.unitig_len(u) - us.k + 1) for u in edge])
+    edge_words = us.get_kmer_u64(kp)
+    want = sshash_k2u(k2u, fw, mode="main", probe_limit=PLIM, defer_valid=True,
+                      mphf_level_limit=MLIM)
+    cases = tile_cases(work, want["use_skew"], us, index.k, capacity_probe.TILE)
+    cases[f"unitigs {edge[0]}-{edge[-2]} and {edge[-1]}"] = edge_words
+    del want
+    max_err = 0
+    for mlim in (None, MLIM):
+        for plim in (1, 2, 3):
+            max_err = max(max_err, compare_k2u(k2u, fw, f"gbp mlim={mlim} plim={plim} N={BATCH}",
+                                               *k3(plim, mlim), fields=FIELDS3))
+    max_err = max(max_err, compare_cases(
+        "k3 gbp tiles", k2u, cases,
+        [(f"mlim={ml} plim={p}", *k3(p, ml), FIELDS3) for ml in (None, MLIM) for p in (1, 2, 3)],
+        dev))
+    c_big = lane_counts(k2u, fw, PLIM, MLIM)
+    log(f"[k3 gbp] {BATCH} uniform queries ({far} lanes past base 2^31, {far / BATCH:.1%}), level "
+        f"limits None and {MLIM}, probe limits 1-3, and the tiles with the k-mers of unitigs "
+        f"{edge[0]}-{edge[-2]} (bases {int(us.accum[edge[0]])}-{int(us.accum[edge[-2] + 1])}) and "
+        f"of the last unitig: bit-identical on all ten fields; probe limit {PLIM}, level limit "
+        f"{MLIM}: {c_big}")
+    kern, plain = k3(PLIM, MLIM)
+    variant = plain_reads_k3(lib_plain_reads)
+    got, ref = variant(k2u, fw), kern(k2u, fw)
+    if any(not torch.equal(got[kk], ref[kk]) for kk in FIELDS3):
+        raise AssertionError("K3 with plain far reads differs from K3")
+    turns = {"evict-first": [], "plain reads": []}
+    for name in ("evict-first", "plain reads", "plain reads", "evict-first"):
+        fn = kern if name == "evict-first" else variant
+        turns[name].append(cuda_ms(lambda: fn(k2u, fw), 20))
+    k3_ms = statistics.mean(turns["evict-first"])
+    plain_reads_ms = statistics.mean(turns["plain reads"])
+    k3_plain_ms = cuda_ms(lambda: plain(k2u, fw), 5)
+    n_bytes, l2, dram, blocks, mphf_sectors = k3_lane_cost(k2u, fw, PLIM, MLIM)
+    k3_bound = bound(n_bytes)
+    # the MPHF's levels no longer fit the L2: their sectors are DRAM reads
+    floor = (dram + mphf_sectors) / sector_rate * 1e3
+    log(f"[k3 gbp] N={BATCH} at probe limit {PLIM}, level limit {MLIM}: kernel {k3_ms:.4f} ms "
+        f"(in turns: evict-first {turns['evict-first']}, plain far reads "
+        f"{turns['plain reads']} -> {plain_reads_ms:.4f} ms, evict-first "
+        f"{plain_reads_ms / k3_ms:.3f}x as fast), plain {k3_plain_ms:.4f} ms; {n_bytes} bytes: bound "
+        f"{k3_bound[0]:.4f} ms ({k3_bound[1]}); sectors a lane: {mphf_sectors / BATCH:.3f} MPHF, "
+        f"{(l2 - mphf_sectors) / BATCH:.3f} gbase and uproj, {dram / BATCH:.3f} DRAM: "
+        f"sector floor with the MPHF in DRAM {floor:.4f} ms ({smi})")
+    k3_record.update(gbp_ms=k3_ms, gbp_plain_reads_ms=plain_reads_ms, gbp_plain_ms=k3_plain_ms,
+              gbp_bound_ms=k3_bound[0], gbp_sector_floor_ms=floor)
+
+    # the mrows layout: its lookup equals the lean layout's; K3 refuses it
+    mm = canonical_minimizer_batch(fw, index.k, sh.w, sh.seed)[0]
+    rows = arrays_from_numpy(sh.mphf.device_arrays(mrows=True), dev)
+    for limit in (None, MLIM):
+        a, b = mphf_lookup(rows, mm, level_limit=limit), mphf_lookup(k2u["mphf"], mm,
+                                                                     level_limit=limit)
+        if not all(torch.equal(x, y) for x, y in zip(a if limit else (a,), b if limit else (b,))):
+            raise AssertionError(f"the mrows lookup differs from the lean one at level limit {limit}")
+    with_rows = {**d, "k2u": {**k2u, "mphf": rows}}
+    try:
+        capacity_probe.check_layout(with_rows["k2u"], fw, PLIM)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("K3's layout check takes an mrows MPHF")
+    kw4 = dict(synth.MPHF_QUERY, m2b=4096, m2c=4096)
+    reset_launches()
+    a = get_ref_pos_compact(with_rows, fw[:4096], gpu_index.max_occs, merge=True, m2=4096, **kw4)
+    if capacity_probe.LAUNCHES:
+        raise AssertionError("the compact query on an mrows MPHF launched K3")
+    b = get_ref_pos_compact(d, fw[:4096], gpu_index.max_occs, merge=True, m2=4096, **kw4)
+    if not capacity_probe.LAUNCHES or any(not torch.equal(a[kk], b[kk]) for kk in b):
+        raise AssertionError("the compact query on an mrows MPHF differs from the lean one's")
+    log(f"[gbp mrows] the mrows lookup of the batch's {BATCH} minimizers equals the lean "
+        f"layout's at level limits None and {MLIM} ({tree_bytes(rows)} bytes against "
+        f"{tree_bytes(k2u['mphf'])}); K3's layout check refuses it ({refused}), and the compact "
+        f"query on it takes the plain probe, equal on 4096 lanes")
+    del rows, mm, with_rows, a, b
+
+    # every k-mer of the unitigs around base 2^31, at its own unitig and offset
+    lo, hi = max(0, center - (1 << 25)), min(us.total_len, center + (1 << 25))
+    u_lo, u_hi = int(us.pos_to_id(lo)), int(us.pos_to_id(hi - 1))
+    accum = torch.from_numpy(us.accum).to(dev)
+    t0 = time.perf_counter()
+    n_checked = 0
+    per = max(1, VALIDATE_CHUNK // synth.PIECE)  # unitigs a query
+    for u0 in range(u_lo, u_hi + 1, per):
+        u = torch.arange(u0, min(u0 + per, u_hi + 1), device=dev)
+        ln = accum[u + 1] - accum[u] - index.k + 1
+        off = torch.arange(int(ln.max()), device=dev)[None, :].expand(u.shape[0], -1)
+        ok = off < ln[:, None]
+        tu, toff = u[:, None].expand_as(off)[ok], off[ok]
+        words = us_get_kmer(k2u["us"], accum[tu] + toff)
+        flip = (toff & 1) == 1
+        words = torch.where(flip, revcomp(words, index.k), words)
+        n = words.shape[0]
+        out = get_ref_pos_compact(d, words, gpu_index.max_occs, merge=True, m2=n,
+                                  **dict(synth.MPHF_QUERY, m2b=n, m2c=n))
+        if not bool(((out["mt"] > 0) & (out["unitig_id"] == tu) & (out["pos"] == toff)).all()):
+            raise AssertionError(f"[gbp] a k-mer of unitigs {u0}-{int(u[-1])} is not found at its "
+                                 f"unitig and offset")
+        n_checked += words.shape[0]
+    log(f"[gbp around 2^31] all {n_checked} k-mers of unitigs {u_lo}-{u_hi} (bases "
+        f"{int(us.accum[u_lo])}-{int(us.accum[u_hi + 1])}), every other one reverse-complemented, "
+        f"found at their unitig and offset through get_ref_pos_compact on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # index/validate.py on the references of the unitigs around base 2^31
+    # (reference i is unitig i) and of the last unitig
+    def query(w):
+        n = w.shape[0]
+        return get_ref_pos_compact(d, w, gpu_index.max_occs, merge=True, m2=n,
+                                   **dict(synth.MPHF_QUERY, m2b=n, m2c=n))
+
+    ps = index.refs.prefix_sum
+    t0 = time.perf_counter()
+    for ri in edge:
+        validate_ckmers(index, int(ri), index.refs.seq.to_str(int(ps[ri]), int(ps[ri + 1])),
+                        query_fn=query, chunk=VALIDATE_CHUNK, device=dev)
+    log(f"[gbp validate] validate_ckmers on references {list(map(int, edge))}: every k-mer at "
+        f"its (ref, pos), {time.perf_counter() - t0:.2f} s")
+
+    # the MPHF path; the mapper by the tier rule
+    launches, _, profile = sshash_path("gbp main", cpu_index, gpu_index, work, uid, upos, fw,
+                                       synth.MPHF_QUERY, capacity_probe, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches += mapping_phase("map gbp", index, gpu_index, cpu_index, capacity_probe, smi,
+                                  tmp, driver="CompactQuery")
+    reads = synth.serve_reads(index.refs, 1024, seed=1)
+    card_hits = ReadMapper(index, query_index=gpu_index).map_reads(reads)
+    cpu_hits = ReadMapper(index, query_index=cpu_index).map_reads(reads)
+    for i, (a, b) in enumerate(zip(card_hits, cpu_hits)):
+        if a.n_hit != b.n_hit or any(not np.array_equal(x, y) for x, y in zip(a.csr(), b.csr())):
+            raise AssertionError(f"[map gbp] read {i}: the card's hits differ from the CPU's")
+    log(f"[map gbp] the first 1024 reads' hits ({sum(r.n_hit for r in card_hits)}) equal "
+        f"ReadMapper's on CPU tensors read by read")
+    k3_record["launches"] += launches
+    profile()
+    del profile, cpu_index, gpu_index, d, k2u, host, index, fw
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[gbp] phase 20 in {time.perf_counter() - phase_t0:.1f} s; its K3 launches {launches} "
+        f"(main path and mapper)")
 
 
 def mono2_profile(host: dict, fw: torch.Tensor, m2: int, times: dict, serve: dict,

@@ -35,15 +35,23 @@ class SeqVector:
         self.length = int(length)
 
     @classmethod
-    def from_codes(cls, codes: np.ndarray) -> "SeqVector":
+    def from_codes(cls, codes: np.ndarray, chunk: int = 1 << 26) -> "SeqVector":
+        """Pack 2-bit base codes, ``chunk`` bases at a time: four bases a
+        byte, bytes in little-endian order a word (base i at bits
+        [2i, 2i+2)), so a genome of billions of bases needs no wide
+        temporaries."""
         codes = np.asarray(codes, dtype=np.uint8)
-        if not (codes < 4).all():
-            raise ValueError("invalid base code")
         n = len(codes)
-        c = np.zeros(n + (-n) % 32, dtype=np.uint64)
-        c[:n] = codes
-        shifts = (np.arange(32, dtype=np.uint64) * U64(2))[None, :]
-        words = np.bitwise_or.reduce(c.reshape(-1, 32) << shifts, axis=1)
+        words = np.zeros((n + 31) // 32, dtype=np.uint64)
+        step = max(32, int(chunk) // 32 * 32)
+        for a in range(0, n, step):
+            c = codes[a : a + step]
+            if not (c < 4).all():
+                raise ValueError("invalid base code")
+            if len(c) % 32:
+                c = np.concatenate([c, np.zeros(-len(c) % 32, dtype=np.uint8)])
+            b = c[0::4] | (c[1::4] << 2) | (c[2::4] << 4) | (c[3::4] << 6)
+            words[a // 32 : a // 32 + len(b) // 8] = b.view("<u8")
         return cls(words, n)
 
     @classmethod

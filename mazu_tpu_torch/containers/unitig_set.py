@@ -5,6 +5,8 @@
 lengths, and ``bv`` the boundary bitvector with a 1 on the last base of
 each unitig. On the host, position -> unitig id is a binary search over
 ``accum``; the device functions (``us_*``) rank the boundary bitvector.
+``kmer_position_chunks`` gives the builders every k-mer's position on the
+device, a chunk at a time.
 """
 
 from __future__ import annotations
@@ -85,6 +87,22 @@ class UnitigSet:
         offsets = np.concatenate([[0], np.cumsum(counts)])
         within = np.arange(offsets[-1], dtype=np.int64) - np.repeat(offsets[:-1], counts)
         return np.repeat(starts, counts) + within
+
+    def kmer_position_chunks(self, chunk: int, device):
+        """``kmer_start_positions`` ``chunk`` k-mers at a time, as int64
+        tensors on ``device``: k-mer ordinal o lies in the unitig found by a
+        search of the running valid-k-mer counts, so no array of every
+        position is made. Ordinals and positions are int64: both pass 2^31
+        on a unitig set of 2^31 bases or more."""
+        accum = torch.from_numpy(self.accum).to(device)
+        counts = torch.clamp(accum[1:] - accum[:-1] - (self.k - 1), min=0)
+        kcum = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                          torch.cumsum(counts, 0)])
+        total = int(kcum[-1])
+        for s in range(0, total, int(chunk)):
+            o = torch.arange(s, min(s + int(chunk), total), dtype=torch.int64, device=device)
+            u = torch.searchsorted(kcum, o, right=True) - 1
+            yield accum[u] + (o - kcum[u])
 
     def num_bits(self) -> int:
         """Size in bits, as the reference counts it: the packed sequence,

@@ -458,13 +458,15 @@ class ModIndex:
 
     def device_arrays(self, fused: bool = False, pos_kind: str | None = None,
                       prefix_kind: str | None = None, bucket_inline: bool = False,
-                      uproj: bool = False, useqrec: bool = False) -> dict:
+                      uproj: bool = False, useqrec: bool = False,
+                      mphf_rows: bool = False) -> dict:
         """NumPy arrays in the reference's layout. A KCDict takes no knobs
         (its rows already carry the fused occurrence words: ``fused=True``
         returns them unchanged). ``pos_kind``, ``prefix_kind`` and
         ``bucket_inline`` are SSHash layout knobs (an SSHash with none takes
         its engine's default: inline rows with flat32 bounds, or parity's
-        packed positions with Elias-Fano bounds); ``uproj`` adds the per-unitig
+        packed positions with Elias-Fano bounds), as is ``mphf_rows`` (a
+        BooPHF32 in its ``mrows`` layout); ``uproj`` adds the per-unitig
         projection records (``build_uproj``) and ``useqrec`` the window
         records (``build_useqrec``) to the SSHash unitig set.
 
@@ -475,9 +477,9 @@ class ModIndex:
         with one), so a lane whose unitig has at most that many occurrences
         projects with no further read. The direct engine's skew rows get the
         first three the same way."""
-        if pos_kind is not None or prefix_kind is not None or bucket_inline:
+        if pos_kind is not None or prefix_kind is not None or bucket_inline or mphf_rows:
             k2u = self.k2u.device_arrays(prefix_kind=prefix_kind, pos_kind=pos_kind,
-                                         bucket_inline=bucket_inline)
+                                         bucket_inline=bucket_inline, mphf_rows=mphf_rows)
         else:
             k2u = self.k2u.device_arrays()
         d = {

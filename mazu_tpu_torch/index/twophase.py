@@ -50,9 +50,10 @@ def _main_probe(arrays: dict, fw: torch.Tensor, probe_limit: int | None = None,
     ``defer_valid`` changes nothing there, the records carry the extent
     check), and ``capacity_k2u`` (K3) with ``defer_valid`` on a 32-bit
     engine's (mix32 ordering: direct or fast32) grouped16 paired layout
-    without records (``mphf_level_limit`` truncates a fast32 MPHF chain
-    there). A parity SSHash (mix64 or wyhash ordering, 64-bit BooPHF) takes
-    the plain probe on every layout, as the reference runs it.
+    without records and with a lean MPHF (``mphf_level_limit`` truncates a
+    fast32 MPHF chain there; an ``mrows`` MPHF takes the plain probe). A
+    parity SSHash (mix64 or wyhash ordering, 64-bit BooPHF) takes the plain
+    probe on every layout, as the reference runs it.
 
     ``probe_start`` is where the heavy phase's full re-probe may start:
     past the rows a shallow probe already proved empty of the key, 0 where
@@ -72,7 +73,7 @@ def _main_probe(arrays: dict, fw: torch.Tensor, probe_limit: int | None = None,
         r = bpos_usrec_k2u(k2u, fw, probe_limit)
     elif (packed and m_.hash32 and m_.prefix_kind == "grouped16" and probe_limit is not None
           and defer_valid and "useqrec" not in us and "words2" in us["useq"]
-          and "wb2" in us["bv"]):
+          and "wb2" in us["bv"] and "mrows" not in k2u.get("mphf", {})):
         r = capacity_k2u(k2u, fw, probe_limit, mphf_level_limit=mphf_level_limit)
     else:
         r = sshash_k2u(k2u, fw, mode="main", probe_limit=probe_limit,

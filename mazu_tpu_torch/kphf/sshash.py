@@ -17,9 +17,11 @@ engines address the buckets:
   ``skew_param`` go to a skew table keyed by the canonical k-mer
   (two-choice cuckoo rows, or bounded buckets).
 
-The build is NumPy (byte-identical to the reference's) except the
-minimizer scan, and for the MPHF engines the MPHF lookup of every
-minimizer, which run on the given device in chunks. The device layouts,
+The build (byte-identical to the reference's) runs its heavy stages on
+the given device: the minimizer occurrences of every engine (the scan in
+chunks, the per-strand dedup, the sort and run bounds) and, for the MPHF
+engines, BooPHF32's level loop, the MPHF lookup of every minimizer and the
+position scatter and pack; the rest is NumPy. The device layouts,
 all with the unitig set's paired arrays: the speed tier's (the 32-bit
 engines' default), one inline row per minimizer occurrence that holds the
 candidate window's words and its unitig's id and extent (``inline`` or the
@@ -39,6 +41,8 @@ a parity SSHash are plain torch, as the reference's are plain ``jnp``.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -53,8 +57,8 @@ from ..kmer import canonical_minimizer_batch, mask2k, revcomp, revcomp_np, word_
 from ..pytree import meta
 from .boophf import BooPHF, boophf_lookup
 from .boophf32 import (
-    BooPHF32, boophf32_lookup, fold_hash32, fold_hash32_np, fold_hash32b, fold_hash32b_np,
-    mix32_np,
+    LOOKUP_CHUNK, BooPHF32, boophf32_lookup, fold_hash32, fold_hash32_np, fold_hash32b,
+    fold_hash32b_np, mix32_np,
 )
 
 U64 = np.uint64
@@ -74,16 +78,21 @@ def expand_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
     return starts[idx] + (np.arange(offsets[-1]) - offsets[:-1][idx])
 
 
-def _dedup_stream(mm: np.ndarray, pos: np.ndarray, mask: np.ndarray) -> np.ndarray:
-    """Indices of the elements selected by ``mask`` that differ in (mm, pos)
-    from the previous selected element (consecutive dedup)."""
-    idx = np.flatnonzero(mask)
-    if len(idx) == 0:
-        return idx
-    m, p = mm[idx], pos[idx]
-    keep = np.ones(len(idx), dtype=bool)
-    keep[1:] = (m[1:] != m[:-1]) | (p[1:] != p[:-1])
-    return idx[keep]
+class _Laps:
+    """Seconds of a build by stage: ``lap(name)`` waits for the device and
+    adds the time since the last lap to ``name``."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.seconds = {}
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self.t
+        self.t = now
 
 
 class SSHash:
@@ -108,6 +117,7 @@ class SSHash:
         self.skew_mphf = skew_mphf
         self.skew_pos = skew_pos
         self.ordering = ordering  # minimizer ordering: mix32, or parity's mix64/wyhash
+        self.build_seconds = {}  # seconds by stage of an MPHF engine's build
 
     @property
     def hash32(self) -> bool:
@@ -162,41 +172,75 @@ class SSHash:
     @staticmethod
     def _collect_minimizer_occs(unitigs, w: int, seed: int, chunk: int, device,
                                 ordering: str = "mix32"):
-        """Canonical minimizer occurrence of every k-mer under ``ordering``
-        (scanned on ``device`` in chunks), per-strand consecutive dedup,
-        then a stable sort by minimizer value. Returns (mm_set, mm_occs,
-        ranges_start, positions)."""
+        """``_minimizer_occs`` as NumPy arrays: (mm_set u64, mm_occs,
+        ranges_start, positions), each int64 but the first."""
+        mm_set, mm_occs, ranges_start, mps = SSHash._minimizer_occs(
+            unitigs, w, seed, chunk, device, ordering)
+        return (mm_set.cpu().numpy().view(np.uint64), mm_occs.cpu().numpy(),
+                ranges_start.cpu().numpy(), mps.cpu().numpy())
+
+    @staticmethod
+    def _minimizer_occs(unitigs, w: int, seed: int, chunk: int, device, ordering: str = "mix32",
+                        laps=None):
+        """Canonical minimizer occurrence of every k-mer under ``ordering``,
+        per-strand consecutive dedup, then a stable sort by minimizer value,
+        all on ``device`` in chunks of ``chunk`` k-mers (the reference's
+        ``_collect_minimizer_occs``). Returns int64 tensors on ``device``:
+        (mm_set, mm_occs, ranges_start, positions).
+
+        The dedup keeps a strand's selected element unless it equals the
+        one selected before it on that strand, the first of a chunk compared
+        with the last of the chunks before, so chunk bounds change nothing.
+        The kept elements are all forward-strand selections, then all
+        reverse-strand ones, as the reference concatenates them. Minimizers
+        are w-mer words below 2^(2w) < 2^63, so the int64 sort is the u64
+        order. ``laps`` (a ``_Laps``) gets the seconds of the scan, the
+        dedup and the sort with the run bounds."""
+        laps = laps or _Laps(device)
+        if 2 * w >= 63:
+            raise ValueError(f"w={w}: minimizer words must stay below 2^63")
         k = unitigs.k
-        kpos = unitigs.kmer_start_positions()
-        n = len(kpos)
-        mm_all = np.empty(n, dtype=np.uint64)
-        occ_pos = np.empty(n, dtype=np.int64)
-        isfw = np.empty(n, dtype=bool)
         words = from_numpy(unitigs.useq.words, device)
-        for s in range(0, n, chunk):
-            kp = kpos[s : s + chunk]
-            fw = sv_get_kmer(words, torch.from_numpy(kp).to(device), k)
-            mm, off, is_fw, _ = canonical_minimizer_batch(fw, k, w, seed, ordering)
-            mm_all[s : s + chunk] = mm.cpu().numpy().view(np.uint64)
-            occ_pos[s : s + chunk] = kp + off.cpu().numpy().astype(np.int64)
-            isfw[s : s + chunk] = is_fw.cpu().numpy()
-        del kpos, words
-        sel = np.concatenate([
-            _dedup_stream(mm_all, occ_pos, isfw), _dedup_stream(mm_all, occ_pos, ~isfw)
-        ])
-        mms, mps = mm_all[sel], occ_pos[sel]
-        del mm_all, occ_pos, isfw, sel
-        order = np.argsort(mms, kind="stable")
-        mms, mps = mms[order], mps[order]
-        if len(mms):
-            first = np.empty(len(mms), dtype=bool)
-            first[0] = True
-            np.not_equal(mms[1:], mms[:-1], out=first[1:])
-            ranges_start = np.flatnonzero(first)
-            mm_set = mms[ranges_start]
-            mm_occs = np.diff(np.concatenate([ranges_start, [len(mms)]]))
-        else:
-            mm_set, ranges_start, mm_occs = mms, np.zeros(0, np.int64), np.zeros(0, np.int64)
+        last = [None, None]  # per strand: (mm, pos) of its last selected element
+        kept = ([], [])
+        for kp in unitigs.kmer_position_chunks(chunk, device):
+            mm, off, is_fw, _ = canonical_minimizer_batch(sv_get_kmer(words, kp, k), k, w, seed,
+                                                          ordering)
+            pos = kp + off
+            del kp, off
+            laps.lap("scan")
+            for strand, sel in enumerate((is_fw, ~is_fw)):
+                m, p = mm[sel], pos[sel]
+                if m.shape[0] == 0:
+                    continue
+                prev_m = torch.cat([m[:1] if last[strand] is None else last[strand][0], m[:-1]])
+                prev_p = torch.cat([p[:1] - 1 if last[strand] is None else last[strand][1],
+                                    p[:-1]])
+                keep = (m != prev_m) | (p != prev_p)
+                last[strand] = (m[-1:], p[-1:])
+                kept[strand].append((m[keep], p[keep]))
+            del mm, pos, is_fw
+            laps.lap("dedup")
+        del words
+        parts = kept[0] + kept[1]
+        del kept
+        empty = torch.zeros(0, dtype=torch.int64, device=device)
+        mms = torch.cat([m for m, _ in parts]) if parts else empty
+        pos_parts = [p for _, p in parts]
+        del parts  # frees the key pieces
+        mps = torch.cat(pos_parts) if pos_parts else empty
+        del pos_parts
+        mms, order = torch.sort(mms, stable=True)
+        mps = mps[order]
+        del order
+        first = torch.ones(mms.shape[0], dtype=torch.bool, device=device)
+        first[1:] = mms[1:] != mms[:-1]
+        ranges_start = torch.nonzero(first).flatten()
+        del first
+        mm_set = mms[ranges_start]
+        del mms
+        mm_occs = torch.diff(ranges_start, append=ranges_start.new_tensor([mps.shape[0]]))
+        laps.lap("sort and runs")
         return mm_set, mm_occs, ranges_start, mps
 
     @classmethod
@@ -213,8 +257,9 @@ class SSHash:
         of two near ``n_minimizers / bucket_load``; minimizers that collide
         share a bucket and verification rejects the foreign positions; the
         k-mers around the occurrences of buckets deeper than ``skew_param``
-        go to the skew table. The minimizer scan (and the MPHF lookups) run
-        on ``device``, the card by default."""
+        go to the skew table. The heavy stages run on ``device``, the card
+        by default: ``_minimizer_occs`` for every engine, and those listed
+        in ``_from_unitig_set_mphf`` for the MPHF engines."""
         from ..convert import resolve_device
 
         if w > unitigs.k:
@@ -307,32 +352,62 @@ class SSHash:
         buckets lie in that order. The k-mers around the occurrences of
         minimizers with more than ``skew_param`` of them go to a second MPHF
         of the same kind and its positions; with none, that MPHF holds the
-        one key 0 (the reference builds it so)."""
+        one key 0 (the reference builds it so).
+
+        On ``device``: the minimizer occurrences, BooPHF32's level loop (the
+        64-bit BooPHF builds on the host), the MPHF lookup of every
+        minimizer, the bucket prefix, the position scatter and its pack.
+        The skew part runs on the host over the heavy minimizers' k-mers."""
+        from ..convert import arrays_from_numpy
+
         k = unitigs.k
-        mphf_cls = BooPHF32 if ordering == "mix32" else BooPHF
-        mm_set, mm_occs, ranges_start, mps = cls._collect_minimizer_occs(
-            unitigs, w, seed, chunk, device, ordering
-        )
-        mphf = mphf_cls.build(mm_set, gamma=gamma)
-        h = mphf.lookup(mm_set, device=device).astype(np.int64)
-        if (h < 0).any():
+        laps = _Laps(device)
+        mm_set, mm_occs, ranges_start, mps = cls._minimizer_occs(unitigs, w, seed, chunk, device,
+                                                                 ordering, laps)
+        if ordering == "mix32":
+            def build_mphf(keys):
+                return BooPHF32.build(keys, gamma=gamma, device=device)
+        else:
+            def build_mphf(keys):
+                keys = keys.cpu().numpy() if isinstance(keys, torch.Tensor) else keys
+                return BooPHF.build(keys.view(np.uint64), gamma=gamma)
+        mphf = build_mphf(mm_set)
+        laps.lap("mphf build")
+        d = arrays_from_numpy(mphf.device_arrays(), device)
+        h = torch.empty_like(mm_set)
+        for a in range(0, h.shape[0], LOOKUP_CHUNK):
+            h[a : a + LOOKUP_CHUNK] = mphf_lookup(d, mm_set[a : a + LOOKUP_CHUNK])
+        del d, mm_set
+        if bool((h < 0).any()):
             raise RuntimeError("the minimizer MPHF misses one of its own keys")
-        n_occs_by_h = np.zeros(len(mm_set), dtype=np.int64)
-        n_occs_by_h[h] = mm_occs
-        prefix = np.zeros(len(mm_set) + 1, dtype=np.int64)
-        np.cumsum(n_occs_by_h, out=prefix[1:])
+        laps.lap("mphf lookup")
+        prefix = torch.zeros(h.shape[0] + 1, dtype=torch.int64, device=device)
+        prefix[1:][h] = mm_occs
+        prefix.cumsum_(0)
         # each minimizer's run of the value-sorted stream lands at its bucket
-        posv = np.zeros(len(mps), dtype=np.uint64)
-        posv[np.repeat(prefix[h] - ranges_start, mm_occs) + np.arange(len(mps))] = mps.astype(
-            np.uint64
-        )
-        del n_occs_by_h, h
+        shift = prefix[h] - ranges_start
+        del h
+        posv = torch.empty_like(mps)
+        for a in range(0, mps.shape[0], chunk):
+            t = torch.arange(a, min(a + chunk, mps.shape[0]), dtype=torch.int64, device=device)
+            run = torch.searchsorted(ranges_start, t, right=True) - 1
+            posv[t + shift[run]] = mps[a : a + chunk]
+        del shift
+        prefix = prefix.cpu().numpy()
+        laps.lap("scatter")
+        pos_iv = IntVector.from_tensor(posv)
+        del posv
+        laps.lap("pack")
 
         skew_mphf = skew_pos = None
         if skew_param is not None:
-            heavy = np.flatnonzero(mm_occs > skew_param)
-            if len(heavy):
-                mm_positions = mps[expand_ranges(ranges_start[heavy], mm_occs[heavy])]
+            heavy = torch.nonzero(mm_occs > skew_param).flatten()
+            if heavy.shape[0]:
+                cnt = mm_occs[heavy]
+                first = torch.cumsum(cnt, 0) - cnt
+                occ = torch.repeat_interleave(ranges_start[heavy] - first, cnt)
+                occ += torch.arange(occ.shape[0], dtype=torch.int64, device=device)
+                mm_positions = mps[occ].cpu().numpy()
                 span = k - w + 1
                 starts = np.maximum(mm_positions - (k - w), 0)
                 cand = (starts[:, None] + np.arange(span)[None, :]).reshape(-1)
@@ -340,18 +415,21 @@ class SSHash:
                 words = unitigs.get_kmer_u64(cand)
                 cwords = np.minimum(words, revcomp_np(words, k))
                 cw_sorted, first_idx = np.unique(cwords, return_index=True)
-                skew_mphf = mphf_cls.build(cw_sorted, gamma=gamma)
+                skew_mphf = build_mphf(cw_sorted)
                 sp = np.zeros(len(cw_sorted), dtype=np.uint64)
                 sp[skew_mphf.lookup(cw_sorted, device=device)] = cand[first_idx].astype(np.uint64)
                 skew_pos = IntVector.from_array(sp)
             else:
-                skew_mphf = mphf_cls.build(np.zeros(1, dtype=np.uint64), gamma=gamma)
+                skew_mphf = build_mphf(np.zeros(1, dtype=np.uint64))
                 skew_pos = IntVector.from_array(np.zeros(1, dtype=np.uint64))
-        return cls(
-            unitigs, w, IntVector.from_array(posv), skew_param, seed,
-            int(mm_occs.max()) if len(mm_occs) else 0, mphf=mphf, prefix=prefix,
+            laps.lap("skew")
+        out = cls(
+            unitigs, w, pos_iv, skew_param, seed,
+            int(mm_occs.max()) if mm_occs.shape[0] else 0, mphf=mphf, prefix=prefix,
             skew_mphf=skew_mphf, skew_pos=skew_pos, ordering=ordering,
         )
+        out.build_seconds.update(laps.seconds)
+        return out
 
     @staticmethod
     def _place_skew_cuckoo(keys: np.ndarray, vals: np.ndarray, load: float = 0.4):
@@ -416,7 +494,7 @@ class SSHash:
         return 0 if self.skew_pos is None else len(self.skew_pos)
 
     def device_arrays(self, prefix_kind: str | None = None, pos_kind: str | None = None,
-                      bucket_inline: bool = False) -> dict:
+                      bucket_inline: bool = False, mphf_rows: bool = False) -> dict:
         """The reference's device layouts (``SSHash.device_arrays`` in
         ``mazu_tpu``; all with the unitig set's paired arrays). The default
         follows the engine: inline rows with flat32 bounds for the 32-bit
@@ -442,7 +520,9 @@ class SSHash:
 
         The direct engine's skew rows are u32[., 8]: pos, uid, start, end and
         the two useq words that hold the k-mer; the MPHF engines add their
-        ``mphf``, ``skew_mphf`` and ``skew_pos``. ``ModIndex.device_arrays(fused=True)``
+        ``mphf``, ``skew_mphf`` and ``skew_pos``, with ``mphf_rows`` a
+        BooPHF32 ``mphf`` in its paired ``mrows`` layout (which the plain
+        probe reads and K3 does not). ``ModIndex.device_arrays(fused=True)``
         appends each row's occurrence fields."""
         if pos_kind is None:
             pos_kind = "inline" if self.hash32 else "packed"
@@ -469,7 +549,8 @@ class SSHash:
             ),
         }
         if self.mphf is not None:
-            d["mphf"] = self.mphf.device_arrays()
+            rows = mphf_rows and isinstance(self.mphf, BooPHF32)
+            d["mphf"] = self.mphf.device_arrays(mrows=True) if rows else self.mphf.device_arrays()
         if self.skew_mphf is not None:
             d["skew_mphf"] = self.skew_mphf.device_arrays()
             d["skew_pos"] = self.skew_pos.device_arrays()
@@ -483,11 +564,16 @@ class SSHash:
             d["prefix"] = EFVector.from_array(p.astype(np.uint64)).device_arrays()
         elif prefix_kind == "grouped16":
             base = np.ascontiguousarray(p[::1024]).astype(np.int64)
-            delta = p - base[np.arange(len(p), dtype=np.int64) >> 10]
-            if int(delta.max(initial=0)) >= (1 << 16):
-                raise ValueError("grouped16 prefix overflow: a 1024-bucket group holds >= 2^16 "
-                                 "occurrences")
-            d["prefix"] = {"gbase": base, "gdelta": delta.astype(np.uint16)}
+            delta = np.empty(len(p), dtype=np.uint16)
+            step = 1 << 24  # buckets a step, whole groups: no temporary of every bucket
+            for a in range(0, len(p), step):
+                seg = p[a : a + step] - np.repeat(base[a >> 10 : (a + step) >> 10], 1024)[
+                    : len(p[a : a + step])]
+                if int(seg.max(initial=0)) >= (1 << 16):
+                    raise ValueError("grouped16 prefix overflow: a 1024-bucket group holds >= "
+                                     "2^16 occurrences")
+                delta[a : a + len(seg)] = seg
+            d["prefix"] = {"gbase": base, "gdelta": delta}
         else:
             p32 = p.astype(np.int32)
             pairs = np.stack([p32[:-1], p32[1:]], axis=1)

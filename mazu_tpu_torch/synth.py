@@ -184,9 +184,9 @@ def build_pf1_sparse_index(n_bases: int, seed: int = 0, device=None, genome=None
 def build_capacity_index(n_bases: int, seed: int = 0, device=None, chunk: int = 1 << 22,
                          heavy_sites: int = HEAVY_SITES) -> ModIndex:
     """The direct-engine SSHash index over ``build_synthetic`` with a planted
-    skew bucket; its minimizer scan runs on ``device`` (the card by
-    default). Its query arrays
-    are ``index.device_arrays(**CAPACITY_LAYOUT)``."""
+    skew bucket; its minimizer occurrences are collected on ``device`` (the
+    card by default). Its query arrays are
+    ``index.device_arrays(**CAPACITY_LAYOUT)``."""
     unitigs, refs, u2pos = build_synthetic(n_bases, seed, heavy_sites=heavy_sites)
     k2u = SSHash.from_unitig_set(unitigs, w=CAP_W, skew_param=CAP_SKEW, engine="direct",
                                  bucket_load=CAP_LOAD, chunk=chunk, device=device)
@@ -197,8 +197,9 @@ def build_speed_index(n_bases: int, seed: int = 0, device=None, chunk: int = 1 <
                       genome=None) -> ModIndex:
     """The direct-engine SSHash of the speed tier over ``synthetic_spt`` (or
     ``genome``, that function's result for these arguments: the genome of
-    ``build_index``); its minimizer scan runs on ``device`` (the card by
-    default). Its query arrays are ``index.device_arrays(**SPEED_LAYOUT)``."""
+    ``build_index``); its minimizer occurrences are collected on ``device``
+    (the card by default). Its query arrays are
+    ``index.device_arrays(**SPEED_LAYOUT)``."""
     unitigs, refs, spt = genome or synthetic_spt(n_bases, seed)
     k2u = SSHash.from_unitig_set(unitigs, w=SPEED_W, skew_param=SPEED_SKEW, engine="direct",
                                  bucket_load=SPEED_LOAD, chunk=chunk, device=device)
@@ -206,17 +207,23 @@ def build_speed_index(n_bases: int, seed: int = 0, device=None, chunk: int = 1 <
 
 
 def build_mphf_index(n_bases: int, seed: int = 0, device=None, chunk: int = 1 << 22,
-                     heavy_sites: int = HEAVY_SITES) -> ModIndex:
-    """The fast32 SSHash index over ``build_synthetic`` with a planted,
+                     heavy_sites: int = HEAVY_SITES, genome=None) -> ModIndex:
+    """The fast32 SSHash index over ``build_synthetic`` (or ``genome``, that
+    function's result for these arguments: ``mphf_genome``) with a planted,
     tagged 19-mer: one minimizer with about ``heavy_sites`` occurrences, a
-    skew minimizer. Its minimizer scan and the MPHF lookup of every minimizer
-    run on ``device`` (the card by default). Its query arrays are
+    skew minimizer. Its build runs on ``device`` (the card by default; see
+    ``SSHash._from_unitig_set_mphf``). Its query arrays are
     ``index.device_arrays(**MPHF_LAYOUT)``."""
-    unitigs, refs, u2pos = build_synthetic(n_bases, seed, heavy_sites=heavy_sites, w=MPHF_W,
-                                           tag_sites=True)
+    unitigs, refs, u2pos = genome or mphf_genome(n_bases, seed, heavy_sites)
     k2u = SSHash.from_unitig_set(unitigs, w=MPHF_W, skew_param=CAP_SKEW, gamma=MPHF_GAMMA,
                                  engine="fast32", chunk=chunk, device=device)
     return ModIndex(k2u, u2pos, refs, index_type="Piscem-synth")
+
+
+def mphf_genome(n_bases: int, seed: int = 0, heavy_sites: int = HEAVY_SITES):
+    """``build_synthetic``'s genome of ``build_mphf_index``: the planted
+    19-mer tagged at ``heavy_sites`` places."""
+    return build_synthetic(n_bases, seed, heavy_sites=heavy_sites, w=MPHF_W, tag_sites=True)
 
 
 def sample_capacity_queries(unitigs: UnitigSet, n: int, seed: int):

@@ -1,7 +1,8 @@
 """The port runs where there is no JAX: every module imports, and tiny
 indexes (the mono2 KCDict, the SSHash capacity tier, the MPHF capacity
-tier, the SSHash speed tier and the pufferfish dense and sparse indexes)
-answer queries, a lab
+tier, built on the device's code path and also with its MPHF in the
+``mrows`` layout, the SSHash speed tier and the pufferfish dense and sparse
+indexes) answer queries, the device pack and BooPHF32 build run, a lab
 kernel's plain version runs, and a tiny serve pass (FASTQ, packing in the
 host library, device k-merization, map, pseudoalignment), ``validate_self``,
 a flat streaming pass, a read mapper and the CLI's parity build, its
@@ -55,6 +56,17 @@ out = get_ref_pos_compact(mq.arrays(), torch.from_numpy(words.view(np.int64)), m
                           merge=True, m2=512, m2b=512, m2c=512, **synth.MPHF_QUERY)
 assert not bool(out["over_budget"]) and bool((out["mt"] > 0).all())
 assert (out["unitig_id"].numpy() == uid).all() and (out["pos"].numpy() == upos).all()
+assert {"scan", "sort and runs", "mphf build", "pack"} <= set(mp.k2u.build_seconds)
+rq = QueryIndex(arrays_from_numpy(mp.device_arrays(mphf_rows=True, **synth.MPHF_LAYOUT), "cpu"))
+out2 = get_ref_pos_compact(rq.arrays(), torch.from_numpy(words.view(np.int64)), rq.max_occs,
+                           merge=True, m2=512, m2b=512, m2c=512, **synth.MPHF_QUERY)
+assert all(torch.equal(out[k], out2[k]) for k in out)
+from mazu_tpu_torch.bits.intvector import IntVector
+from mazu_tpu_torch.kphf.boophf32 import BooPHF32
+v = np.arange(1000, dtype=np.uint64) * np.uint64(4294967311)
+assert (IntVector.from_tensor(torch.from_numpy(v.view(np.int64))).words
+        == IntVector.from_array(v).words).all()
+assert BooPHF32.build(v, device="cpu").n_elem == 1000
 
 from mazu_tpu_torch.index.twophase import ReadBatchQuery, TwoPhaseIndexQuery
 sp = synth.build_speed_index(8 * synth.PIECE, device="cpu")
