@@ -140,6 +140,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    rule, ``TwoPhaseIndexQuery`` on the fused inline rows, no kernel; in
    turns with it the capacity tier asked for (``CompactQuery``, K2), its
    hits equal;
+21. (runs after 8e, on the speed index) the rest of the SSHash's layouts
+   and the wavelet-matrix occurrence table, each against its CPU oracle:
+   21a. synth50-fixedcap: the fused fixedcap2 and fixedcap rows (host
+   seconds, host peak RSS, bytes on the card), phase 5's 2^20 uniform
+   queries through ``OneGraphIndexQuery`` at probe limit 2, 16 rolled
+   chunks, a CPU oracle of chunk 0 that must hit every sampled lane,
+   replayed and eager, 3 passes each, beside 8d's inline2 rate; 21b. the
+   records, flat32-position and packed-position (grouped32, flat and
+   flat32 bounds) layouts beside the default inline rows:
+   ``get_ref_pos_padded`` on those queries equal to the CPU's on every
+   lane, timed; 21c. ``TwoPhaseSSHash`` (``bench.py``'s 2phase mode) on
+   those queries, equal to one full-mode call and to the CPU, 10
+   iterations timed with host words in and out; 21d. ``ReadBatchQuery``
+   on the fused fixedcap rows over phase 8c's read k-mers, equal to
+   ``TwoPhaseIndexQuery``'s on the same rows and to the CPU's, 3 of each
+   timed in turns; 21e. four bucket shards laid out as the reference's
+   ``shard_fused_arrays``: ``sshash_k2u(..., bucket_range=)`` exact zeros
+   off each shard's lanes, their one-hot sum equal to the unsharded
+   full-mode answer, timed; 21f. ``WMUnitigTable`` over the index's piscem
+   table (both tables' ``num_bits``): a ``ModIndex`` over it answers the
+   padded query equal to the piscem table's lane for lane, timed; and
+   ``wm_access``, ``wm_rank`` and ``wm_select`` on 2^20 random arguments
+   (absent symbols among them) over 2^20 random bytes and over the
+   table's first plane, equal to the CPU, timed;
 9. the bpos probe kernel's (K2) ptxas report;
 10. the synthetic capacity index: an SSHash direct engine (w=15, skew 64,
     load 0.5) over a random genome with a planted skew bucket, its
@@ -241,8 +265,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 18. one profiled replayed pass and one profiled eager pass of each of the
     paths of phases 6, 6a and 6c (its index moved to the card again; the
     serve pass's device pass alone; the flat streaming pass on the device),
-    7, 8, 8b, 8d, 12, 17 and 19: device busy share and the kernels that take
-    the time.
+    7, 8, 8b, 8d, 21a's fixedcap2 path (its rows built again), 12, 17
+    and 19: device busy share and the kernels that take the time.
     It runs last
     because a profiler session slows the host's launches for the rest of
     the process (measured: the MPHF pass took 1.6-2x longer after one).
@@ -293,7 +317,7 @@ from mazu_tpu_torch._words import mask32, umin
 from mazu_tpu_torch.containers.unitig_set import us_get_kmer
 from mazu_tpu_torch.convert import arrays_from_numpy
 from mazu_tpu_torch.index.modindex import (
-    QueryIndex, build_uproj, get_ref_pos_compact, get_ref_pos_csr, get_ref_pos_padded,
+    ModIndex, QueryIndex, build_uproj, get_ref_pos_compact, get_ref_pos_csr, get_ref_pos_padded,
     k2u_batch, merge_compact_k2u,
 )
 from mazu_tpu_torch.index.pipeline import (
@@ -317,6 +341,8 @@ from mazu_tpu_torch.io.native import fastq_pack, kmerize_batch
 from mazu_tpu_torch.io.reads import kmerize_device, pack_fastq, pack_reads, pad_reads
 from mazu_tpu_torch.index.twophase import ReadBatchQuery, TwoPhaseIndexQuery, _host
 from mazu_tpu_torch.bits.seqvector import SeqVector
+from mazu_tpu_torch.bits.wm import WaveletMatrix, wm_access, wm_rank, wm_select
+from mazu_tpu_torch.index.unitig_table import WMUnitigTable
 from mazu_tpu_torch.kphf.runshare import run_starts
 from mazu_tpu_torch.ops.derived import derived
 from mazu_tpu_torch.kmer import canonical_minimizer_batch, mask2k, revcomp, revcomp_np
@@ -325,7 +351,9 @@ from mazu_tpu_torch.kphf.boophf32 import (
     _C2, _GOLD, chain_next, fold_hash32, fold_hash32_np, key_fold32, mix32_np, unmix32_np,
 )
 from mazu_tpu_torch.kphf.kcdict import SLOTS, SW, kcdict_k2u
-from mazu_tpu_torch.kphf.sshash import _pos_get, _prefix_pair, mphf_lookup, sshash_k2u
+from mazu_tpu_torch.kphf.sshash import (
+    TwoPhaseSSHash, _pos_get, _prefix_pair, mphf_lookup, shard_arrays, sshash_k2u,
+)
 from mazu_tpu_torch.labs import cuda_ms, dma_lab, gather_probe
 from mazu_tpu_torch.ops import bpos_probe, capacity_probe, gather_lab, mono2_probe
 from mazu_tpu_torch.ops.cuda_build import compile_all
@@ -2262,12 +2290,286 @@ def speed(genome, n_bases: int, truth, dev, smi):
                       rival=dict(qi=qc, driver="CompactQuery", tier="capacity", probe=bpos_probe))
     del cpu1, cpu2, qc
 
+    # 21. the rest of the SSHash layouts and the wavelet-matrix table
+    profile_layouts = layouts(index, truth, fw_u, times_u, dev, smi)
+
     def profile():
         profile_both("reads1graph", lambda: og_r.checksum_pass(fw_r),
                      lambda: og_re.checksum_pass(fw_r), times_r)
         profile_both("speed uniform", lambda: og_u.checksum_pass_rolled(fw_u),
                      lambda: og_ue.checksum_pass_rolled(fw_u), times_u)
+        profile_layouts()
     return profile
+
+
+# the layouts of phase 21b: (tag, SSHash layout), the speed tier's default
+# first, whose time the others stand beside
+OTHER_LAYOUTS = (("inline, flat32 bounds", {}), ("records", dict(pos_kind="records")),
+                 ("flat32 positions", dict(pos_kind="flat32")),
+                 ("packed, grouped32", dict(pos_kind="packed", prefix_kind="grouped32")),
+                 ("packed, flat", dict(pos_kind="packed", prefix_kind="flat")),
+                 ("packed, flat32", dict(pos_kind="packed", prefix_kind="flat32")))
+TWOPHASE_ITERS = 10  # bench.py's 2phase mode (MAZU_BENCH_ITERS)
+SHARDS = 4
+WM_N = 1 << 20
+
+
+def same_out(tag: str, got: dict, want: dict) -> None:
+    """Every field of two query results equal on every lane (padded
+    occurrence columns where valid)."""
+    if set(got) != set(want):
+        raise AssertionError(f"[{tag}] keys {sorted(set(got) ^ set(want))}")
+    valid = want.get("valid")
+    for key, w in want.items():
+        g, w = got[key].cpu(), w.cpu()
+        if g.dim() == 2 and valid is not None and key != "valid":
+            g, w = torch.where(valid.cpu(), g, 0), torch.where(valid.cpu(), w, 0)
+        if not torch.equal(g, w):
+            raise AssertionError(f"[{tag}] {key} differs")
+
+
+def fixedcap_rows(index, kind: str, dev, smi):
+    """Phase 21a's arrays: the fused ``kind`` rows on the host (their
+    seconds and the host's peak memory) and on the card. Returns (the host
+    arrays, the card's ``QueryIndex``)."""
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        host = index.device_arrays(fused=True, pos_kind=kind)
+        t_rows = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gpu_qi = QueryIndex(arrays_from_numpy(host, "cpu")).to(dev)
+        torch.cuda.synchronize()
+        t_up = time.perf_counter() - t0
+    m, rows = host["k2u"]["meta"], host["k2u"]["pos"]["inline"]
+    n_full = int((rows[:, 1] < 0xFFFFFFFE).sum())
+    log(f"[{kind}] synth50-fixedcap: T={m.direct_t} buckets x B={m.cap} = {rows.shape[0]} rows "
+        f"of {rows.shape[1]} u32, {n_full} holding an occurrence; rows and fusion pass "
+        f"{t_rows:.1f} s on the host (peak RSS {rss.peak:.2f} GB), to the card {t_up:.1f} s; "
+        f"{gpu_qi.nbytes()} bytes on the card (rows {rows.nbytes}) ({smi})")
+    return host, gpu_qi
+
+
+def layouts(index, truth, fw_u, times_u: dict, dev, smi):
+    """Phase 21 on the speed index of phase 8a: the rest of the SSHash's
+    layouts, ``TwoPhaseSSHash``, ``bucket_range`` and the wavelet-matrix
+    occurrence table, each against its CPU oracle. Returns the function
+    that runs the profiled passes of 21a's fixedcap2 path (phase 18), its
+    rows built again."""
+    t_phase = time.perf_counter()
+    work, uid, off, foreign = truth
+    work_cpu = torch.from_numpy(work.view(np.int64))
+    mo = index.max_occs()
+    inline_rate = BATCH * CH / times_u["graph"]
+    found = {}
+
+    # 21a. fused fixedcap2 and fixedcap rows through OneGraphIndexQuery
+    for kind in ("fixedcap2", "fixedcap"):
+        host, gpu_qi = fixedcap_rows(index, kind, dev, smi)
+        cpu_qi = QueryIndex(arrays_from_numpy(host, "cpu"))
+        t0 = time.perf_counter()
+        out0 = get_ref_pos_compact(cpu_qi.arrays(), work_cpu, mo, merge=False, probe_limit=PLIM,
+                                   m2=BATCH // 2)
+        if bool(out0["over_budget"]):
+            raise AssertionError(f"[{kind}] CPU oracle over budget")
+        merged = merge_compact_k2u(out0)
+        hit = merged["mt"].numpy() > 0
+        if not (hit[~foreign].all() and not hit[foreign].any()
+                and np.array_equal(merged["unitig_id"].numpy()[~foreign], uid[~foreign])
+                and np.array_equal(merged["pos"].numpy()[~foreign], off[~foreign])):
+            raise AssertionError(f"[{kind}] CPU oracle disagrees with the sampled lanes")
+        host_chk, n_ovf = int(OneGraphIndexQuery.checksum(out0)), int(out0["n_ovf"])
+        M2 = fit(n_ovf * 1.1)
+        log(f"[{kind}] CPU oracle {time.perf_counter() - t0:.1f} s: chunk checksum {host_chk}; "
+            f"every sampled lane at its unitig and offset, no foreign lane hit; overflow "
+            f"{n_ovf}/{BATCH} = {n_ovf / BATCH:.4f} -> M2={M2} ({smi})")
+        del out0, merged
+        og = OneGraphIndexQuery(gpu_qi, BATCH, n_chunks=CH, m2=M2, probe_limit=PLIM)
+        og_e = OneGraphIndexQuery(gpu_qi, BATCH, n_chunks=CH, m2=M2, probe_limit=PLIM,
+                                  graph=False)
+        _, worst, times = graph_and_eager(f"{kind} 1graph", gpu_qi, og.checksum_pass_rolled,
+                                          og_e.checksum_pass_rolled, fw_u, CH * host_chk,
+                                          BATCH * CH, 3, None, smi)
+        found[kind] = (M2, CH * host_chk, times)
+        log(f"[{kind} 1graph] worst overflow {worst} within M2; replayed "
+            f"{BATCH * CH / times['graph']:.1f} queries/s beside phase 8d's inline2 rows' "
+            f"{inline_rate:.1f} ({smi})")
+        del og, og_e
+        if kind == "fixedcap":
+            # 21d. run sharing on the fixedcap rows
+            fixedcap_reads(index, cpu_qi, gpu_qi, dev, smi)
+        del host, cpu_qi, gpu_qi
+        torch.cuda.empty_cache()
+
+    # 21b. the other layouts through the padded query
+    for tag, kw in OTHER_LAYOUTS:
+        host = index.device_arrays(**kw)
+        cpu_qi = QueryIndex(arrays_from_numpy(host, "cpu"))
+        gpu_qi = QueryIndex(arrays_from_numpy(host, "cpu")).to(dev)
+        del host
+        t0 = time.perf_counter()
+        want = get_ref_pos_padded(cpu_qi.arrays(), work_cpu, mo)
+        cpu_s = time.perf_counter() - t0
+        same_out(tag, get_ref_pos_padded(gpu_qi.arrays(), fw_u, mo), want)
+        ms = cuda_ms(lambda: get_ref_pos_padded(gpu_qi.arrays(), fw_u, mo), 3)
+        m = gpu_qi.arrays()["k2u"]["meta"]
+        log(f"[layout {tag}] pos_kind {m.pos_kind}, prefix_kind {m.prefix_kind}: "
+            f"get_ref_pos_padded on {BATCH} queries == CPU on every lane ({cpu_s:.1f} s); "
+            f"{ms:.2f} ms on the card = {BATCH / ms * 1e3:.1f} queries/s; {gpu_qi.nbytes()} "
+            f"bytes on the card ({smi})")
+        del cpu_qi, gpu_qi, want
+        torch.cuda.empty_cache()
+
+    # 21c. TwoPhaseSSHash, bench.py's 2phase mode
+    tp = TwoPhaseSSHash(index.k2u, device=dev)
+    got = tp.k2u(work)
+    full = sshash_k2u(tp.d, fw_u)
+    for key in ("unitig_id", "unitig_len", "pos", "mt"):
+        if not np.array_equal(got[key], full[key].cpu().numpy()):
+            raise AssertionError(f"[2phase] {key} differs from one full-mode call")
+    t0 = time.perf_counter()
+    want = TwoPhaseSSHash(index.k2u, device="cpu").k2u(work)
+    cpu_s = time.perf_counter() - t0
+    if set(got) != set(want) or not all(np.array_equal(got[key], want[key]) for key in want):
+        raise AssertionError("[2phase] the card differs from the CPU")
+    n_skew = int(tp.main(fw_u)["use_skew"].sum())
+    t0 = time.perf_counter()
+    for _ in range(TWOPHASE_ITERS):
+        tp.k2u(work)
+    dt = time.perf_counter() - t0
+    log(f"[2phase] TwoPhaseSSHash (inline rows, flat32 bounds) on {BATCH} queries: equal to one "
+        f"full-mode call on the card and to the CPU ({cpu_s:.1f} s) on every lane; {n_skew} "
+        f"skew lanes re-run in full mode; {TWOPHASE_ITERS} iterations in {dt:.3f} s = "
+        f"{BATCH * TWOPHASE_ITERS / dt:.1f} queries/s, host words in and out ({smi})")
+    del tp, full
+
+    # 21e. bucket_range: the one-hot sum of four shards
+    host = index.k2u.device_arrays()
+    whole_d = arrays_from_numpy(host, dev)
+    whole = sshash_k2u(whole_d, fw_u)
+    whole_ms = cuda_ms(lambda: sshash_k2u(whole_d, fw_u), 3)
+    acc, shard_ms = None, []
+    for local, lo, hi in shard_arrays(host, index.k2u.occs_prefix_sum, SHARDS):
+        d = arrays_from_numpy(local, dev)
+        r = sshash_k2u(d, fw_u, bucket_range=(lo, hi))
+        mine = r.pop("mine")
+        for key, v in r.items():
+            if bool(torch.where(mine, 0, v.to(torch.int64)).any()):
+                raise AssertionError(f"[bucket_range] shard [{lo}, {hi}): a lane it does not "
+                                     f"own has {key}")
+        acc = r if acc is None else {key: (acc[key].to(torch.int64) + v.to(torch.int64)).to(
+            v.dtype) for key, v in r.items()}
+        shard_ms.append(cuda_ms(lambda: sshash_k2u(d, fw_u, bucket_range=(lo, hi)), 3))
+        del d
+    same_out("bucket_range", acc, whole)
+    log(f"[bucket_range] {SHARDS} bucket shards of T={host['meta'].direct_t} (inline rows, flat2 "
+        f"bounds, laid out as the reference's shard_fused_arrays): their one-hot sum == the "
+        f"unsharded full-mode answer on {BATCH} lanes; full mode {whole_ms:.2f} ms unsharded, "
+        f"{', '.join(f'{x:.2f}' for x in shard_ms)} ms a shard ({smi})")
+    del host, whole_d, whole, acc
+    torch.cuda.empty_cache()
+
+    # 21f. the wavelet-matrix occurrence table
+    t0 = time.perf_counter()
+    wt = WMUnitigTable.from_piscem(index.u2pos)
+    t_wm = time.perf_counter() - t0
+    qa = QueryIndex(arrays_from_numpy(
+        ModIndex(index.k2u, wt, index.refs, index_type=index.index_type).device_arrays(),
+        "cpu")).to(dev)
+    qb = QueryIndex(arrays_from_numpy(index.device_arrays(), "cpu")).to(dev)
+    same_out("wm table", get_ref_pos_padded(qa.arrays(), fw_u, mo),
+             get_ref_pos_padded(qb.arrays(), fw_u, mo))
+    wm_ms = cuda_ms(lambda: get_ref_pos_padded(qa.arrays(), fw_u, mo), 3)
+    ps_ms = cuda_ms(lambda: get_ref_pos_padded(qb.arrays(), fw_u, mo), 3)
+    log(f"[wm table] WMUnitigTable over the piscem table ({len(wt.planes)} byte planes, "
+        f"{wt.n_total_occs} occurrences) in {t_wm:.2f} s on the host: num_bits {wt.num_bits()} "
+        f"against the piscem table's {index.u2pos.num_bits()}; get_ref_pos_padded on {BATCH} "
+        f"queries on the card == the piscem table's, lane for lane; {wm_ms:.2f} ms against "
+        f"{ps_ms:.2f} ms ({smi})")
+    del qa, qb
+    rng = np.random.default_rng(21)
+    seq = rng.integers(0, 200, WM_N).astype(np.uint8)  # symbols 200-255 absent
+    for tag, wm in (("random bytes", WaveletMatrix.build(seq, 256)),
+                    ("the table's plane 0", wt.planes[0])):
+        n = len(wm)
+        i = torch.from_numpy(rng.integers(0, n, WM_N))
+        a = torch.from_numpy(rng.integers(0, wm.alpha_size, WM_N))
+        r = torch.from_numpy(rng.integers(0, max(1, n // 64), WM_N))
+        d_cpu = arrays_from_numpy(wm.device_arrays(), "cpu")
+        d = arrays_from_numpy(wm.device_arrays(), dev)
+        calls = {"access": (wm_access, (i,)), "rank": (wm_rank, (a, i)),
+                 "select": (wm_select, (a, r))}
+        times = {}
+        for name, (fn, args) in calls.items():
+            want = fn(d_cpu, *args)
+            got = fn(d, *(x.to(dev) for x in args))
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"[wm {tag}] {name} differs from the CPU")
+            times[name] = cuda_ms(lambda: fn(d, *(x.to(dev) for x in args)), 3)
+        absent = int((~torch.from_numpy(wm.has_symbol(a.numpy()))).sum())
+        log(f"[wm {tag}] {n} symbols, alphabet {wm.alpha_size}, {wm.n_levels} levels: "
+            f"wm_access, wm_rank and wm_select on {WM_N} random arguments ({absent} of absent "
+            f"symbols) == the CPU; "
+            f"{', '.join(f'{k_} {v:.3f} ms' for k_, v in times.items())} ({smi})")
+    log(f"[layouts] phase 21 in {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+    # phase 18 builds the fixedcap2 rows again rather than hold their
+    # 15 GB on the host through the phases between
+    M2, want2, times2 = found["fixedcap2"]
+
+    def profile():
+        host, gpu_qi = fixedcap_rows(index, "fixedcap2", dev, smi)
+        del host
+        og = OneGraphIndexQuery(gpu_qi, BATCH, n_chunks=CH, m2=M2, probe_limit=PLIM)
+        og_e = OneGraphIndexQuery(gpu_qi, BATCH, n_chunks=CH, m2=M2, probe_limit=PLIM,
+                                  graph=False)
+        if og.checksum_pass_rolled(fw_u)[0] != want2:
+            raise AssertionError("[fixedcap2 1graph] the profiled index's checksum differs")
+        profile_both("fixedcap2 1graph", lambda: og.checksum_pass_rolled(fw_u),
+                     lambda: og_e.checksum_pass_rolled(fw_u), times2)
+        del og, og_e, gpu_qi
+        torch.cuda.empty_cache()
+    return profile
+
+
+def fixedcap_reads(index, cpu_qi, gpu_qi, dev, smi):
+    """Phase 21d: ``ReadBatchQuery`` (run sharing) on the fused fixedcap
+    rows over phase 8c's read k-mers, its checksum equal to
+    ``TwoPhaseIndexQuery``'s on the same rows and to the CPU's; 3 of each
+    timed in turns."""
+    k = index.k
+    per = synth.READ_LEN - k + 1
+    words = read_kmers(index.refs, READS, k, seed=1)
+    n_real = len(words)
+    n = 1 << (n_real - 1).bit_length()
+    words = np.concatenate([words, np.zeros(n - n_real, dtype=np.uint64)])
+    new_read = np.zeros(n, dtype=bool)
+    new_read[:n_real:per] = True
+    new_read[n_real:] = True
+    fw = torch.from_numpy(words.view(np.int64)).to(dev)
+    nr = torch.from_numpy(new_read).to(dev)
+    t0 = time.perf_counter()
+    want = TwoPhaseIndexQuery(cpu_qi).checksum_query(torch.from_numpy(words.view(np.int64)))
+    cpu_s = time.perf_counter() - t0
+    tp, rb = TwoPhaseIndexQuery(gpu_qi), ReadBatchQuery(gpu_qi)
+    runs = {"twophase": lambda: tp.checksum_query(fw),
+            "runshare": lambda: rb.checksum_query(fw, words, nr)}
+    got = {kind: run() for kind, run in runs.items()}
+    if not got["twophase"] == got["runshare"] == want:
+        raise AssertionError(f"[fixedcap reads] checksums: {got}, CPU {want}")
+    t = {kind: [] for kind in runs}
+    for _ in range(3):
+        for kind, run in runs.items():
+            t0 = time.perf_counter()
+            if run() != want:
+                raise AssertionError(f"[fixedcap reads] timed {kind} checksum differs")
+            t[kind].append(time.perf_counter() - t0)
+    rates = {kind: sorted(n_real / x for x in v) for kind, v in t.items()}
+    log(f"[fixedcap reads] {n_real} read k-mers of {READS} reads padded to {n}: (checksum, "
+        f"overflow lanes) {want} from ReadBatchQuery and TwoPhaseIndexQuery on the fused "
+        f"fixedcap rows == TwoPhaseIndexQuery on CPU tensors ({cpu_s:.1f} s); 3 of each in "
+        f"turns: " + ", ".join(f"{kind} median {statistics.median(v):.1f} read k-mers/s (min "
+                               f"{v[0]:.1f}, max {v[-1]:.1f})" for kind, v in rates.items())
+        + f" ({smi})")
 
 
 def reads_phase(index, cpu_qi, gpu_qi, dev, smi):
@@ -3145,7 +3447,7 @@ def graph_and_eager(tag: str, index, graph_pass, eager_pass, x: torch.Tensor, wa
         if probe else ""
     log(f"[{tag}] first replayed pass {first_s:.3f} s (capture {cap.capture_s:.3f} s of it; "
         f"graph pool {cap.pool_bytes} bytes): checksum {chk} == eager == oracle x chunks{name}; "
-        f"with lane 0 changed, replayed == eager {other_chk}")
+        f"with lane 0 changed, replayed == eager {other_chk} ({smi})")
     t = {"graph": [], "eager": []}
     for _ in range(passes):
         for kind, run in (("graph", graph_pass), ("eager", eager_pass)):

@@ -142,6 +142,9 @@ def us_rank(us: dict, pos: torch.Tensor) -> torch.Tensor:
     return bv_rank(us["bv"], pos)
 
 
+us_pos_to_id = us_rank  # the reference's name for the same rank
+
+
 def us_extent(us: dict, uid: torch.Tensor):
     """(start, end) of unitig(s) ``uid``."""
     if "accum2" in us:

@@ -25,7 +25,7 @@ from .. import MATCH_IDENTITY
 from ..ops.compact import flagged_lanes, flagged_lanes2
 from ..ops.mono2_probe import card_table
 from ..pytree import meta
-from .unitig_table import decode_occs, fetch_occ_block
+from .unitig_table import decode_occs, fetch_occ_block, needs_ctable
 
 _K2U_FIELDS = ("unitig_id", "unitig_len", "pos", "mt")
 _MERGE_FIELDS = _K2U_FIELDS + ("n_occs", "ref_id", "ref_pos", "orient", "valid")
@@ -35,6 +35,7 @@ def build_uproj(u2pos, unitigs) -> np.ndarray:
     """Per-unitig projection record, u64 rows ``[ustart, ulen,
     cnt | occ_start << 32, occ_word1, occ_word2]``: the unitig's extent,
     its occurrence bounds and its first two encoded occurrences."""
+    needs_ctable(u2pos, "build_uproj")
     cwords = u2pos.ctable.to_array()
     off = np.asarray(u2pos.offsets, dtype=np.int64)
     accum = np.asarray(unitigs.accum, dtype=np.int64)
@@ -62,6 +63,7 @@ def build_useqrec(u2pos, unitigs) -> np.ndarray:
     keyed by useq word index i. One row holds a 96-base candidate window
     and, for the unitig that contains base 32 i, its extent, id, occurrence
     count and first two occurrence words."""
+    needs_ctable(u2pos, "build_useqrec")
     up = build_uproj(u2pos, unitigs)
     words = np.asarray(unitigs.useq.words, dtype=np.uint64)
     accum = np.asarray(unitigs.accum, dtype=np.int64)
@@ -470,13 +472,15 @@ class ModIndex:
         projection records (``build_uproj``) and ``useqrec`` the window
         records (``build_useqrec``) to the SSHash unitig set.
 
-        ``fused=True`` runs the fusion pass on an SSHash's inline rows: each
-        row gets its unitig's first occurrence word (two u32 columns), its
+        ``fused=True`` runs the fusion pass on an SSHash's row layout
+        (inline, inline2, fixedcap or fixedcap2; others raise): each row
+        gets its unitig's first occurrence word (two u32 columns), its
         occurrence count and its first occurrence index (``occ_start``), and
-        an inline2 row also the second occurrence word (zero for a unitig
-        with one), so a lane whose unitig has at most that many occurrences
-        projects with no further read. The direct engine's skew rows get the
-        first three the same way."""
+        an inline2 or fixedcap2 row also the second occurrence word (zero
+        for a unitig with one), so a lane whose unitig has at most that many
+        occurrences projects with no further read. The direct engine's skew
+        rows get the first three the same way. The occurrence table must
+        hold a ctable (not a ``WMUnitigTable``)."""
         if pos_kind is not None or prefix_kind is not None or bucket_inline or mphf_rows:
             k2u = self.k2u.device_arrays(prefix_kind=prefix_kind, pos_kind=pos_kind,
                                          bucket_inline=bucket_inline, mphf_rows=mphf_rows)
@@ -499,12 +503,14 @@ class ModIndex:
         return d
 
     def fuse(self, k2u: dict) -> None:
-        """The fusion pass over the inline rows and skew rows of an SSHash's
-        arrays ``k2u`` (from ``device_arrays``), in place: see
-        ``device_arrays(fused=True)``."""
+        """The fusion pass over the rows and skew rows of an SSHash's arrays
+        ``k2u`` (from ``device_arrays``), in place: see
+        ``device_arrays(fused=True)``. A row's unitig is its own uid column,
+        so direct-addressed fixedcap rows fuse as occurrence-ordered ones do."""
         pos_d = k2u.get("pos", {})
         if "inline" not in pos_d:
-            raise ValueError("fused arrays need an inline row layout")
+            raise ValueError("fused layout requires an inline row layout")
+        needs_ctable(self.u2pos, "the fusion pass")
         ct = self.u2pos.ctable
         cwords = ct.to_array() if hasattr(ct, "to_array") else np.asarray(ct)
         off = np.asarray(self.u2pos.offsets, dtype=np.int64)
@@ -520,15 +526,30 @@ class ModIndex:
                 cols += [w2 & np.uint64(0xFFFFFFFF), w2 >> np.uint64(32)]
             return [c.astype(np.uint32)[:, None] for c in cols]
 
+        def appended(rows: np.ndarray, uid: torch.Tensor, second: bool) -> np.ndarray:
+            # the columns are a function of the unitig: made once a unitig,
+            # gathered a row (in torch's threads: fixedcap tables hold 2^28
+            # rows and more)
+            tab = np.concatenate(occ_cols(every, second), axis=1)
+            out = torch.cat([torch.from_numpy(rows.view(np.int32)),
+                             torch.from_numpy(tab.view(np.int32))[uid]], dim=1)
+            return out.numpy().view(np.uint32)
+
+        every = np.arange(us.n_unitigs, dtype=np.int64)
         rows = pos_d["inline"]
-        # a row's unitig is its own uid column
-        uid = np.minimum(rows[:, 1].astype(np.int64), us.n_unitigs - 1)
-        pos_d["inline"] = np.concatenate([rows, *occ_cols(uid, rows.shape[1] == 8)], axis=1)
+        # a row's unitig is its own uid column (fixedcap rows: sentinel
+        # rows clip to the last unitig, and fixedcap2's slot 0 carries the
+        # bucket's count in uid bits 29-31)
+        uid = torch.from_numpy(rows.view(np.int32)[:, 1]).to(torch.int64) & 0xFFFFFFFF
+        if k2u["meta"].pos_kind == "fixedcap2":
+            uid &= (1 << 29) - 1
+        pos_d["inline"] = appended(rows, uid.clamp_(max=us.n_unitigs - 1), rows.shape[1] == 8)
+        del uid
         if "skew_inline" in k2u:
             spos = self.k2u.skew_direct["pos"]
             suid = us.pos_to_id(np.where(spos >= 0, spos, 0))  # cuckoo empties: unitig 0
-            k2u["skew_inline"] = np.concatenate([k2u["skew_inline"], *occ_cols(suid, False)],
-                                                axis=1)
+            k2u["skew_inline"] = appended(k2u["skew_inline"],
+                                          torch.from_numpy(suid.astype(np.int64)), False)
 
     def _host_arrays(self) -> dict:
         from ..convert import arrays_from_numpy

@@ -23,7 +23,7 @@ from .. import MATCH_IDENTITY
 from ..convert import words_to
 from ..kphf.kcdict import kcdict_k2u
 from ..kphf.runshare import sshash_k2u_reads_runshare
-from ..kphf.sshash import sshash_k2u
+from ..kphf.sshash import ROW_KINDS, sshash_k2u
 from ..ops.bpos_probe import bpos_usrec_k2u
 from ..ops.capacity_probe import capacity_k2u
 from ..ops.compact import flagged_lanes
@@ -51,9 +51,11 @@ def _main_probe(arrays: dict, fw: torch.Tensor, probe_limit: int | None = None,
     check), and ``capacity_k2u`` (K3) with ``defer_valid`` on a 32-bit
     engine's (mix32 ordering: direct or fast32) grouped16 paired layout
     without records and with a lean MPHF (``mphf_level_limit`` truncates a
-    fast32 MPHF chain there; an ``mrows`` MPHF takes the plain probe). A
-    parity SSHash (mix64 or wyhash ordering, 64-bit BooPHF) takes the plain
-    probe on every layout, as the reference runs it.
+    fast32 MPHF chain there; an ``mrows`` MPHF takes the plain probe). Every
+    other layout takes the plain probe: the row layouts, records, flat32
+    positions, and packed positions with ef, flat, flat32 or grouped32
+    bounds; so does a parity SSHash (mix64 or wyhash ordering, 64-bit
+    BooPHF) on every layout, as the reference runs it.
 
     ``probe_start`` is where the heavy phase's full re-probe may start:
     past the rows a shallow probe already proved empty of the key, 0 where
@@ -226,7 +228,7 @@ class ReadBatchQuery:
 
     ``index``: a direct-engine SSHash ``ModIndex``, whose
     ``device_arrays(fused=True)`` go to ``device`` (the card by default),
-    or a ``QueryIndex`` of those arrays."""
+    or a ``QueryIndex`` of fused inline or fixedcap rows."""
 
     def __init__(self, index, device=None):
         self.index = _query_index(index, device, {"fused": True})
@@ -295,8 +297,9 @@ class TwoPhaseIndexQuery:
     ``index``: a ``ModIndex``, whose ``device_arrays(fused=fused, **layout)``
     go to ``device`` (the card by default), or a ``QueryIndex``, queried
     where it lies. ``fused=None`` is the reference's default: fused rows on
-    a 32-bit (direct or fast32) SSHash laid out in inline rows, which such
-    an SSHash takes unless ``layout`` names another ``pos_kind``; a parity
+    a 32-bit (direct or fast32) SSHash laid out in rows (inline, inline2,
+    fixedcap or fixedcap2; inline unless ``layout`` names another
+    ``pos_kind``), unfused on its other layouts; a parity
     SSHash is not fused (its default layout is packed positions with
     Elias-Fano bounds); a KCDict's rows carry the fused occurrence words
     already.
@@ -311,7 +314,7 @@ class TwoPhaseIndexQuery:
             raise ValueError("a QueryIndex has its layout and device already")
         if isinstance(index, ModIndex) and fused is None:
             fused = getattr(index.k2u, "hash32", False) and layout.get("pos_kind") in (
-                None, "inline", "inline2")
+                None, *ROW_KINDS)
         self.index = _query_index(index, device, dict(layout, fused=bool(fused)))
         self.small_occs = int(small_occs)
         self.max_occs = self.index.max_occs

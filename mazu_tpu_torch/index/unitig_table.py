@@ -7,8 +7,9 @@ Encodings (same words as the reference package):
 
 ``ctable`` holds the encoded occurrences grouped by unitig and ``offsets``
 the int64 prefix per unitig: ``DenseUnitigTable`` (pf1 words, pufferfish's
-table) or ``PiscemUnitigTable`` (packed). The host tables and encoders are
-NumPy; the decoders and ``fetch_occ_block`` are torch on int64 bit
+table) or ``PiscemUnitigTable`` (packed); ``WMUnitigTable`` keeps the
+piscem words as byte-plane wavelet matrices. The host tables and encoders
+are NumPy; the decoders and ``fetch_occ_block`` are torch on int64 bit
 patterns.
 """
 
@@ -19,6 +20,7 @@ import torch
 
 from .._words import M32, mask32, srl
 from ..bits.intvector import IntVector, iv_get
+from ..bits.wm import WaveletMatrix, WaveletMatrixSlice, wm_access
 from ..pytree import meta
 
 U64 = np.uint64
@@ -115,6 +117,15 @@ class PiscemUnitigTable:
     def num_bits(self) -> int:
         return self.ctable.num_bits() + 8 * self.offsets.nbytes
 
+    @property
+    def n_total_occs(self) -> int:
+        return len(self.ctable)
+
+    def occs(self, uid: int):
+        """(ref_id, pos, o) NumPy arrays of unitig ``uid``'s occurrences."""
+        s, e = int(self.offsets[uid]), int(self.offsets[uid + 1])
+        return _decoded(self.ctable.to_array()[s:e], self.ref_shift, self.pos_mask)
+
     @classmethod
     def from_dense(cls, dense: DenseUnitigTable, ref_lens=None) -> "PiscemUnitigTable":
         """Re-encode a pf1 table at the minimal piscem widths: the same
@@ -150,6 +161,93 @@ class PiscemUnitigTable:
         }
 
 
+def _decoded(words: np.ndarray, ref_shift: int, pos_mask: int):
+    """``decode_piscem`` of u64 NumPy words, as NumPy arrays."""
+    w = torch.from_numpy(np.ascontiguousarray(words, dtype=np.uint64).view(np.int64))
+    return tuple(x.numpy() for x in decode_piscem(w, ref_shift, pos_mask))
+
+
+class WMUnitigTable:
+    """The piscem occurrence words stored as byte-plane wavelet matrices
+    (``mazu_tpu``'s ``WMUnitigTable``, the occurrence-table compression
+    the reference keeps its wavelet matrix for): plane b holds byte b of
+    every word, over an alphabet of its largest byte + 1, so a plane with
+    few distinct bytes stores fewer levels. Decoding is one ``wm_access``
+    a plane; ``unitig_slice`` is a window over one unitig's occurrences for
+    symbol rank and select."""
+
+    def __init__(self, planes, offsets, ref_shift: int, pos_mask: int, ref_names=None):
+        self.planes = list(planes)
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.ref_shift = int(ref_shift)
+        self.pos_mask = int(pos_mask)
+        self.ref_names = ref_names or []
+
+    @classmethod
+    def from_piscem(cls, t: PiscemUnitigTable) -> "WMUnitigTable":
+        words = t.ctable.to_array()
+        planes = []
+        for b in range(max(1, -(-t.ctable.width // 8))):
+            plane = ((words >> U64(8 * b)) & U64(0xFF)).astype(np.uint8)
+            alpha = max(2, int(plane.max()) + 1) if len(plane) else 2
+            planes.append(WaveletMatrix.build(plane, alpha))
+        return cls(planes, t.offsets, t.ref_shift, t.pos_mask, ref_names=t.ref_names)
+
+    @property
+    def n_unitigs(self) -> int:
+        return len(self.offsets) - 1
+
+    @property
+    def n_total_occs(self) -> int:
+        return len(self.planes[0]) if self.planes else 0
+
+    def max_occs(self) -> int:
+        return int(np.max(self.offsets[1:] - self.offsets[:-1])) if self.n_unitigs else 0
+
+    def num_bits(self) -> int:
+        return sum(p.num_bits() for p in self.planes) + 64 * len(self.offsets)
+
+    def _words(self, idx: np.ndarray) -> np.ndarray:
+        w = np.zeros(len(idx), dtype=np.uint64)
+        for b, p in enumerate(self.planes):
+            w |= p.access(idx).astype(np.uint64) << U64(8 * b)
+        return w
+
+    def occs(self, uid: int):
+        """(ref_id, pos, o) NumPy arrays of unitig ``uid``'s occurrences."""
+        s, e = int(self.offsets[uid]), int(self.offsets[uid + 1])
+        return _decoded(self._words(np.arange(s, e)), self.ref_shift, self.pos_mask)
+
+    def unitig_slice(self, uid: int, plane: int = 0):
+        """The ``WaveletMatrixSlice`` of byte plane ``plane`` over unitig
+        ``uid``'s occurrences."""
+        return WaveletMatrixSlice(self.planes[plane], int(self.offsets[uid]),
+                                  int(self.offsets[uid + 1]))
+
+    def device_arrays(self, paired: bool = False) -> dict:
+        """The planes' arrays (``wm0``...) and the offsets; ``paired`` is
+        taken for the other tables' signature and changes nothing: the
+        table has no pair rows, so the projection decodes through
+        ``decode_occs``."""
+        d = {
+            "offsets": self.offsets,
+            "meta": meta(enc="wm", n_planes=len(self.planes), ref_shift=self.ref_shift,
+                         pos_mask=self.pos_mask, n_occs=self.n_total_occs),
+        }
+        for b, p in enumerate(self.planes):
+            d[f"wm{b}"] = p.device_arrays()
+        return d
+
+
+def needs_ctable(u2pos, what: str) -> None:
+    """Raise by name where ``what`` reads a table's ``ctable``, which a
+    ``WMUnitigTable`` does not hold (the reference fails there too, with an
+    ``AttributeError``)."""
+    if isinstance(u2pos, WMUnitigTable):
+        raise ValueError(f"{what} reads the occurrence words of a ctable: a WMUnitigTable "
+                         "holds byte-plane wavelet matrices")
+
+
 def decode_words(u2pos: dict, words: torch.Tensor):
     """Decode already-fetched occurrence words (encoding from the meta)."""
     m = u2pos["meta"]
@@ -167,14 +265,23 @@ def decode_occs(u2pos: dict, occ_idx: torch.Tensor):
         return decode_pf1(u2pos["ctable"][occ_idx])
     if m.enc == "piscem":
         return decode_piscem(iv_get(u2pos["ctable"], occ_idx), m.ref_shift, m.pos_mask)
-    raise ValueError(f"the port has no {m.enc!r} occurrence table yet (ROADMAP A2)")
+    if m.enc == "wm":
+        words = torch.zeros_like(occ_idx)
+        for b in range(m.n_planes):
+            words = words | (wm_access(u2pos[f"wm{b}"], occ_idx) << (8 * b))
+        return decode_piscem(words, m.ref_shift, m.pos_mask)
+    raise ValueError(m.enc)
 
 
 def fetch_occ_block(u2pos: dict, start: torch.Tensor, max_occs: int):
     """Decode ``max_occs`` consecutive occurrences from ``start`` per query,
-    one ``ctable2`` pair row per two occurrences. Indices past the table
+    one ``ctable2`` pair row per two occurrences (without pair rows, a
+    wavelet-matrix table, through ``decode_occs``). Indices past the table
     clip to its last occurrence (callers mask by count)."""
     n_occs = u2pos["meta"].n_occs
+    if "ctable2" not in u2pos:
+        j = torch.arange(max_occs, dtype=start.dtype, device=start.device)
+        return decode_occs(u2pos, torch.clamp(start[:, None] + j[None, :], 0, max(n_occs - 1, 0)))
     n_pairs = (max_occs + 1) // 2
     jj = torch.arange(n_pairs, dtype=start.dtype, device=start.device) * 2
     pair_idx = torch.clamp(start[:, None] + jj[None, :], 0, max(n_occs - 1, 0))

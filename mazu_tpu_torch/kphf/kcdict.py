@@ -111,6 +111,9 @@ class KCDict:
         slot[order] = np.where(win_sorted, within, 0)
 
         if occ_table is not None:
+            from ..index.unitig_table import needs_ctable
+
+            needs_ctable(occ_table, "a KCDict's inline occurrence words")
             cwords = occ_table.ctable.to_array()
             off = occ_table.offsets
             hi = max(len(cwords) - 1, 0)

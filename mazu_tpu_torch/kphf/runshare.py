@@ -49,7 +49,10 @@ def run_starts(d: dict, fw: torch.Tensor, new_read: torch.Tensor):
 
 def sshash_k2u_reads_runshare(d: dict, fw: torch.Tensor, new_read: torch.Tensor) -> dict:
     """``sshash_k2u``'s main-mode fields over consecutive read k-mers, on a
-    direct-engine SSHash's inline rows with flat32 bounds (fused or not).
+    direct-engine SSHash's inline rows with flat32 bounds or its fixedcap
+    rows (fused or not). On fixedcap rows a run reads its bucket's B =
+    ``meta.cap`` rows at ``bucket * B``, every run has B occurrences, and
+    a heavy bucket is the marker in its slot 0.
 
     ``fw``: int64 k-mer words in read order; ``new_read``: bool [N], True
     where a read begins. Returns unitig_id, unitig_len, pos, mt, ``use_skew``
@@ -60,13 +63,14 @@ def sshash_k2u_reads_runshare(d: dict, fw: torch.Tensor, new_read: torch.Tensor)
     reference has ``N // 2`` slots, assuming runs of ~8 k-mers; read batches
     have ~2, ``run_starts``, and overflow it: C11.)"""
     m = d["meta"]
-    if m.pos_kind in ("fixedcap", "fixedcap2"):
-        raise ValueError(f"the port has no {m.pos_kind!r} SSHash position layout yet")
-    if not m.direct_t or m.pos_kind != "inline" or m.prefix_kind != "flat32":
-        raise ValueError("run sharing reads a direct-engine SSHash's inline rows with flat32 "
-                         "bounds")
+    if not m.direct_t:
+        raise ValueError("run sharing reads a direct-engine SSHash's inline or fixedcap rows")
+    fixedcap = m.pos_kind == "fixedcap"
+    if not (fixedcap or (m.pos_kind == "inline" and "flat2" in d["prefix"])):
+        raise ValueError(f"run sharing reads inline rows with flat32 bounds or fixedcap rows, "
+                         f"not {m.pos_kind!r} rows with {m.prefix_kind!r} bounds")
     k, w = m.k, m.w
-    B = m.probe_bound
+    B = m.cap if fixedcap else m.probe_bound
     N = fw.shape[0]
     M = N  # run slots: a run has one lane at least
     dev = fw.device
@@ -80,12 +84,17 @@ def sshash_k2u_reads_runshare(d: dict, fw: torch.Tensor, new_read: torch.Tensor)
     neg = torch.full((N,), -1, dtype=torch.int64, device=dev)
     starts_h = torch.zeros(M, dtype=torch.int64, device=dev).scatter_reduce(
         0, rid, torch.where(run_start, hc, neg), "amax")
-    pair = d["prefix"]["flat2"][torch.clamp(starts_h, min=0)].to(torch.int64)
     rows = d["pos"]["inline"]
+    if fixedcap:
+        first = torch.clamp(starts_h, min=0) * B
+        n_occs_m = torch.full_like(first, B)
+    else:
+        pair = d["prefix"]["flat2"][torch.clamp(starts_h, min=0)].to(torch.int64)
+        first, n_occs_m = pair[:, 0], pair[:, 1] - pair[:, 0]
     K = rows.shape[1]
     last = max(rows.shape[0] - 1, 0)
-    fetched = [rows[torch.clamp(pair[:, 0] + j, 0, last)] for j in range(B)]
-    fetched.append((pair[:, 1] - pair[:, 0]).to(rows.dtype)[:, None])
+    fetched = [rows[torch.clamp(first + j, 0, last)] for j in range(B)]
+    fetched.append(n_occs_m.to(rows.dtype)[:, None])
     rows_m = torch.cat(fetched, dim=1)  # [M, B * K + 1]
 
     # each slot's rows to its run's first lane (unused slots to row N), then
@@ -99,12 +108,15 @@ def sshash_k2u_reads_runshare(d: dict, fw: torch.Tensor, new_read: torch.Tensor)
     filled = _forward_fill(run_start, buf[:N])
 
     n_occs = mask32(filled[:, B * K])
-    use_skew = n_occs > m.skew_param
+    if fixedcap:
+        use_skew = mask32(filled[:, 1]) == 0xFFFFFFFE
+    else:
+        use_skew = n_occs > m.skew_param
     js = torch.arange(B, device=dev)
     active = (js[None, :] < n_occs[:, None]) & ~use_skew[:, None]
     fused, fused14 = fused_kind(m.pos_kind, K)
     any_hit, win = inline_hits(filled[:, : B * K].reshape(N, B, K), active, fw, rc,
-                               (offset, (k - w) - offset), k, w, False, fused, fused14)
+                               (offset, (k - w) - offset), k, w, m.pos_kind, fused, fused14)
     win = {kk: torch.where(any_hit, v, 0) for kk, v in win.items()}
     out = {kk: win[kk] for kk in ("unitig_id", "unitig_len", "pos", "mt")}
     out.update(use_skew=use_skew, run_overflow=n_runs > M)

@@ -21,22 +21,23 @@ The build (byte-identical to the reference's) runs its heavy stages on
 the given device: the minimizer occurrences of every engine (the scan in
 chunks, the per-strand dedup, the sort and run bounds) and, for the MPHF
 engines, BooPHF32's level loop, the MPHF lookup of every minimizer and the
-position scatter and pack; the rest is NumPy. The device layouts,
-all with the unitig set's paired arrays: the speed tier's (the 32-bit
-engines' default), one inline row per minimizer occurrence that holds the
-candidate window's words and its unitig's id and extent (``inline`` or the
-pre-aligned ``inline2``), with flat32 bucket bounds, which
-``ModIndex.device_arrays(fused=True)`` extends with occurrence fields;
-packed positions (IntVector) with Elias-Fano bucket bounds (parity's
-default); and the capacity tier's, packed positions with grouped16 bucket
-bounds, and the direct engine's ``bpos`` rows and ``useqrec`` window
-records, or the per-unitig ``uproj`` records
-(``index.modindex.build_uproj``) for the deferred-validation probe.
-``sshash_k2u`` is the plain torch query of all of them; on the capacity
-tier's main path ``ops.bpos_probe.bpos_usrec_k2u`` (direct, useqrec) and
-``ops.capacity_probe.capacity_k2u`` (deferred validation, 32-bit engines)
-run its main probe as kernels. The speed tier's probe and every probe of
-a parity SSHash are plain torch, as the reference's are plain ``jnp``.
+position scatter and pack; the rest is NumPy. ``SSHash.device_arrays``
+lays it out in every layout of the reference (all with the unitig set's
+paired arrays): positions packed, flat32, as records, or as one row per
+occurrence that holds the candidate window's words and its unitig's id
+and extent (``inline``, ``inline2``, and the direct engine's
+direct-addressed ``fixedcap`` and ``fixedcap2``); bucket bounds as
+Elias-Fano, grouped16, grouped32, flat32 or flat; the capacity tier's
+``bpos`` rows, ``useqrec`` window records and per-unitig ``uproj``
+records (``index.modindex.build_uproj``). ``ModIndex.device_arrays(
+fused=True)`` extends the row layouts with occurrence fields.
+``sshash_k2u`` is the plain torch query of all of them (and of one bucket
+shard, ``bucket_range``); on the capacity tier's main path
+``ops.bpos_probe.bpos_usrec_k2u`` (direct, useqrec) and
+``ops.capacity_probe.capacity_k2u`` (deferred validation, 32-bit engines,
+grouped16) run its main probe as kernels. Every other probe is plain
+torch, as the reference's are plain ``jnp``. ``TwoPhaseSSHash`` runs the
+main probe and then the heavy-bucket lanes in full mode.
 """
 
 from __future__ import annotations
@@ -501,43 +502,60 @@ class SSHash:
         engines (direct, fast32), packed positions with Elias-Fano bounds
         for parity.
 
-        - the speed tier: ``pos_kind="inline"``, one u32[., 10]
-          row per minimizer occurrence (mm_pos, uid, start, end, then the
-          three useq words that hold both candidate k-mers), or
-          ``"inline2"``, u32[., 8] rows whose two words hold the candidate
-          window pre-aligned to bit 0; with ``prefix_kind="flat32"`` bounds
-          (the 32-bit engines' default), a [T, 2] int32 ``flat2`` pair per
-          bucket (fast32 also keeps the [T + 1] ``flat`` prefix, as the
-          reference does without its native library), grouped16 bounds, or
-          Elias-Fano bounds (parity's default). Both row kinds need
-          ``total_len < 2^31``.
-        - packed positions (an IntVector): ``pos_kind="packed"`` with
-          ``prefix_kind="ef"`` (an ``EFVector`` of the bucket prefix, parity's
-          default) or ``"grouped16"`` (an int64 base per 1024-bucket group and
-          a u16 in-group delta per bucket, the capacity tier), and with
+        Positions (``pos_kind``):
+
+        - ``"packed"``: an IntVector (parity's default), with
           ``bucket_inline`` the ``bpos`` u32[T, 4] rows (first three
-          positions of the bucket, then its count).
+          positions of the bucket, then its count);
+        - ``"flat32"``: int32 positions;
+        - ``"records"``: int32 [n, 4] records (mm_pos, uid, start, end) and
+          ``useq_quad``, row i the useq words i..i+3 (three zero words pad
+          the end), which hold both candidates of any record;
+        - the speed tier's rows, one per minimizer occurrence: ``"inline"``
+          u32[., 10] (mm_pos, uid, start, end, then the three useq words
+          that hold both candidate k-mers) or ``"inline2"`` u32[., 8] (two
+          words with the candidate window pre-aligned to bit 0);
+        - ``"fixedcap"`` and ``"fixedcap2"`` (direct engine only): the same
+          rows direct-addressed, bucket b's at [b B, (b + 1) B) with B =
+          ``meta.cap`` = the probe bound; a uid field 0xFFFFFFFF marks an
+          empty slot and 0xFFFFFFFE in slot 0 a heavy bucket (the skew
+          table's), and fixedcap2's slot 0 carries the bucket's count
+          (at most B <= 7) in uid bits 29-31.
+
+        Every layout but ``packed`` needs ``total_len < 2^31``.
+
+        Bucket bounds (``prefix_kind``): ``"ef"`` (an ``EFVector`` of the
+        bucket prefix); ``"grouped16"`` (an int64 base per 1024-bucket group
+        and a u16 in-group delta per bucket); ``"grouped32"`` (``gd2``, the
+        u32 pair of the deltas of buckets i and i + 1, and ``gb2``, the
+        [G, 2] pair of the bases of groups g and g + 1); ``"flat32"`` (a
+        [T, 2] int32 ``flat2`` pair per bucket; the MPHF engines also keep
+        the [T + 1] ``flat`` prefix, as the reference does without its
+        native library); ``"flat"`` (the int64 prefix; ``"none"``, the
+        fixedcap layouts' default, takes it too).
 
         The direct engine's skew rows are u32[., 8]: pos, uid, start, end and
         the two useq words that hold the k-mer; the MPHF engines add their
         ``mphf``, ``skew_mphf`` and ``skew_pos``, with ``mphf_rows`` a
         BooPHF32 ``mphf`` in its paired ``mrows`` layout (which the plain
         probe reads and K3 does not). ``ModIndex.device_arrays(fused=True)``
-        appends each row's occurrence fields."""
+        appends each row's occurrence fields to the row layouts."""
         if pos_kind is None:
             pos_kind = "inline" if self.hash32 else "packed"
         if prefix_kind is None:
-            prefix_kind = "ef" if not self.hash32 else (
-                "grouped16" if pos_kind == "packed" else "flat32")
-        if pos_kind not in ("packed", "inline", "inline2"):
-            raise ValueError(f"the port has no {pos_kind!r} SSHash position layout yet")
-        bounds = ("grouped16", "ef") if pos_kind == "packed" else ("flat32", "grouped16", "ef")
-        if prefix_kind not in bounds:
-            raise ValueError(f"the port has no {prefix_kind!r} SSHash bucket bounds for "
-                             f"{pos_kind!r} positions yet")
-        if bucket_inline and pos_kind != "packed":
-            raise ValueError(f"bucket_inline requires pos_kind='packed', got {pos_kind!r}")
+            if pos_kind in ("fixedcap", "fixedcap2"):
+                prefix_kind = "none"
+            else:
+                prefix_kind = "flat32" if self.hash32 else "ef"
+        if pos_kind not in POS_KINDS:
+            raise ValueError(f"no {pos_kind!r} SSHash position layout: one of {POS_KINDS}")
+        if prefix_kind not in PREFIX_KINDS:
+            raise ValueError(f"no {prefix_kind!r} SSHash bucket bounds: one of {PREFIX_KINDS}")
         us = self.unitigs
+        if pos_kind != "packed" and us.total_len >= (1 << 31):
+            raise AssertionError(f"{pos_kind} rows carry u32 positions: total_len must be < 2^31")
+        if bucket_inline and pos_kind != "packed":
+            raise AssertionError(f"bucket_inline requires pos_kind='packed', got {pos_kind!r}")
         d = {
             "us": us.device_arrays(paired=True),
             "meta": meta(
@@ -554,36 +572,51 @@ class SSHash:
         if self.skew_mphf is not None:
             d["skew_mphf"] = self.skew_mphf.device_arrays()
             d["skew_pos"] = self.skew_pos.device_arrays()
-        if pos_kind == "packed":
-            d["pos"] = self.pos.device_arrays()
+        n_pos = len(self.pos)
+        if pos_kind in ("fixedcap", "fixedcap2"):
+            rows, cap = self._fixedcap_rows(pos_kind == "fixedcap2")
+            d["pos"] = {"inline": rows, "meta": meta(length=rows.shape[0])}
+            d["meta"] = d["meta"].replace(cap=cap)
+        elif pos_kind in ("inline", "inline2"):
+            pos_arr = self.pos.to_array().astype(np.int64)
+            d["pos"] = {"inline": _u32_rows(self._row_words(pos_arr, pos_kind == "inline2")),
+                        "meta": meta(length=n_pos)}
+        elif pos_kind == "records":
+            pos_arr = self.pos.to_array().astype(np.int64)
+            uid = us.pos_to_id(pos_arr)
+            d["pos"] = {"records": np.stack([pos_arr, uid, us.accum[uid], us.accum[uid + 1]],
+                                            axis=1).astype(np.int32),
+                        "meta": meta(length=n_pos)}
+            wp = np.concatenate([us.useq.words, np.zeros(3, dtype=U64)])
+            d["useq_quad"] = np.stack([wp[:-3], wp[1:-2], wp[2:-1], wp[3:]], axis=1)
+        elif pos_kind == "flat32":
+            d["pos"] = {"flat": self.pos.to_array().astype(np.int32), "meta": meta(length=n_pos)}
         else:
-            d["pos"] = {"inline": self._inline_rows(pos_kind == "inline2"),
-                        "meta": meta(length=len(self.pos))}
+            d["pos"] = self.pos.device_arrays()
         p = self.occs_prefix_sum
         if prefix_kind == "ef":
             d["prefix"] = EFVector.from_array(p.astype(np.uint64)).device_arrays()
         elif prefix_kind == "grouped16":
-            base = np.ascontiguousarray(p[::1024]).astype(np.int64)
-            delta = np.empty(len(p), dtype=np.uint16)
-            step = 1 << 24  # buckets a step, whole groups: no temporary of every bucket
-            for a in range(0, len(p), step):
-                seg = p[a : a + step] - np.repeat(base[a >> 10 : (a + step) >> 10], 1024)[
-                    : len(p[a : a + step])]
-                if int(seg.max(initial=0)) >= (1 << 16):
-                    raise ValueError("grouped16 prefix overflow: a 1024-bucket group holds >= "
-                                     "2^16 occurrences")
-                delta[a : a + len(seg)] = seg
+            base, delta = _group_deltas(p, "grouped16")
             d["prefix"] = {"gbase": base, "gdelta": delta}
-        else:
+        elif prefix_kind == "grouped32":
+            base, delta = _group_deltas(p, "grouped32")
+            d32 = delta.astype(U32)
+            bp = np.concatenate([base, base[-1:]])
+            d["prefix"] = {"gd2": d32[:-1] | (d32[1:] << U32(16)),
+                           "gb2": np.stack([bp[:-1], bp[1:]], axis=1)}
+        elif prefix_kind == "flat32":
             p32 = p.astype(np.int32)
             pairs = np.stack([p32[:-1], p32[1:]], axis=1)
             # the direct build keeps its bounds sparse, as the reference's
-            # native pass reads them: flat2 alone; fast32 keeps both
+            # native pass reads them: flat2 alone; the MPHF engines keep both
             d["prefix"] = ({"flat2": pairs} if self._sparse_prefix is not None
                            else {"flat": p32, "flat2": pairs})
+        else:
+            d["prefix"] = {"flat": p}
         if bucket_inline:
             if us.total_len >= (1 << 31):
-                raise ValueError("bucket_inline positions ride in u32: total_len must be < 2^31")
+                raise AssertionError("bucket_inline positions ride in u32")
             posv = self.pos.to_array()
             cnt = p[1:] - p[:-1]
             hi = max(len(posv) - 1, 0)
@@ -606,7 +639,7 @@ class SSHash:
                 np.where(valid, wp[wi], U64(0)),
                 np.where(valid, wp[wi + 1], U64(0)),
             ], axis=1)
-            d["skew_inline"] = np.ascontiguousarray(srows).view(np.uint32).reshape(len(srows), -1)
+            d["skew_inline"] = _u32_rows(srows)
             if sd["kind"] == "cuckoo":
                 d["meta"] = d["meta"].replace(skew_t=sd["T"], skew_bound=2, skew_kind="cuckoo",
                                               skew_salt=sd["salt"])
@@ -617,20 +650,21 @@ class SSHash:
                                               skew_kind="bucket")
         return d
 
-    def _inline_rows(self, aligned: bool) -> np.ndarray:
-        """u32 occurrence rows: (mm_pos, uid, start, end) and the useq words
-        that hold the candidate window [mm_pos - (k - w), mm_pos + k), three
-        words from the window's word (``inline``, u32[., 10]) or two words
-        pre-aligned so the window starts at bit 0 (``inline2``, u32[., 8])."""
+    def _row_words(self, pos_arr: np.ndarray, aligned: bool, uid_field=None) -> np.ndarray:
+        """u64 occurrence rows of the positions ``pos_arr``: mm_pos | uid << 32
+        (``uid_field`` in place of the uid where given), start | end << 32,
+        then the useq words that hold the candidate window
+        [mm_pos - (k - w), mm_pos + k): three words from the window's word
+        (``inline``) or two words pre-aligned so the window starts at bit 0
+        (``inline2``)."""
         us = self.unitigs
-        if us.total_len >= (1 << 31):
-            raise AssertionError("inline rows carry u32 positions: total_len must be < 2^31")
-        pos_arr = self.pos.to_array().astype(np.int64)
         uid = us.pos_to_id(pos_arr)
+        if uid_field is None:
+            uid_field = uid.astype(U64)
         base = np.maximum(pos_arr - (self.k - self.w), 0)
         wi = (base * 2) >> 6
         wp = np.concatenate([us.useq.words, np.zeros(2, dtype=U64)])
-        cols = [pos_arr.astype(U64) | (uid.astype(U64) << U64(32)),
+        cols = [pos_arr.astype(U64) | (uid_field << U64(32)),
                 us.accum[uid].astype(U64) | (us.accum[uid + 1].astype(U64) << U64(32))]
         if aligned:
             r = ((base * 2) & 63).astype(U64)
@@ -641,8 +675,74 @@ class SSHash:
                      (q1 >> r) | np.where(nz, q2 << hs, U64(0))]
         else:
             cols += [wp[wi], wp[wi + 1], wp[wi + 2]]
-        rows = np.stack(cols, axis=1)
-        return np.ascontiguousarray(rows).view(U32).reshape(len(rows), -1)
+        return np.stack(cols, axis=1)
+
+    def _fixedcap_rows(self, aligned: bool) -> tuple[np.ndarray, int]:
+        """(u32 rows, B) of the direct-addressed layouts: bucket b's first B
+        occurrences at rows [b B, (b + 1) B), B the probe bound, in
+        ``inline`` rows (``fixedcap``) or ``inline2`` rows whose slot 0
+        carries the bucket's count (at most B) in uid bits 29-31
+        (``fixedcap2``); empty slots hold uid 0xFFFFFFFF and a heavy
+        bucket's slot 0 uid 0xFFFFFFFE."""
+        name = "fixedcap2" if aligned else "fixedcap"
+        us = self.unitigs
+        if not self.direct_T:
+            raise AssertionError(f"{name} requires engine='direct'")
+        if aligned and us.n_unitigs >= (1 << 29):
+            raise AssertionError("uid field carries cnt bits")
+        cap = max(1, self.probe_bound())
+        if aligned and cap > 7:
+            raise AssertionError("cnt rides in 3 uid bits")
+        T = self.direct_T
+        p = self.occs_prefix_sum
+        cnt_b = p[1:] - p[:-1]
+        heavy_b = cnt_b > (self.skew_param or cap)
+        pos_arr = self.pos.to_array().astype(np.int64)
+        occ_b = np.repeat(np.arange(T, dtype=np.int64), cnt_b)
+        within = np.arange(len(pos_arr), dtype=np.int64) - p[:-1][occ_b]
+        keep = (within < cap) & ~heavy_b[occ_b]
+        uid_field = None
+        if aligned:
+            uid_field = us.pos_to_id(pos_arr[keep]).astype(U64)
+            slot0 = within[keep] == 0
+            cnt0 = np.minimum(cnt_b[occ_b[keep][slot0]], cap).astype(U64)
+            uid_field[slot0] |= cnt0 << U64(29)
+        rows = self._row_words(pos_arr[keep], aligned, uid_field)
+        # the T B-row table in torch's threads (int64 bit patterns)
+        table = torch.zeros((T * cap, rows.shape[1]), dtype=torch.int64)
+        table[:, 0] = -(1 << 32)  # empty slots: uid 0xFFFFFFFF
+        table[torch.from_numpy(occ_b[keep] * cap + within[keep])] = torch.from_numpy(
+            rows.view(np.int64))
+        del rows
+        table[torch.from_numpy(np.flatnonzero(heavy_b) * cap), 0] = -(2 << 32)  # 0xFFFFFFFE
+        return _u32_rows(table.numpy().view(U64)), cap
+
+
+POS_KINDS = ("packed", "flat32", "records", "inline", "inline2", "fixedcap", "fixedcap2")
+PREFIX_KINDS = ("ef", "grouped16", "grouped32", "flat32", "flat", "none")
+
+
+def _u32_rows(rows: np.ndarray) -> np.ndarray:
+    """u64 rows [n, c] as their u32 halves [n, 2c] (low half first)."""
+    return np.ascontiguousarray(rows).view(U32).reshape(len(rows), -1)
+
+
+def _group_deltas(p: np.ndarray, name: str):
+    """(int64 base per 1024-bucket group, u16 delta of each prefix entry
+    from its group's base) of a bucket prefix; a delta of 2^16 or more
+    raises."""
+    base = np.ascontiguousarray(p[::1024]).astype(np.int64)
+    delta = np.empty(len(p), dtype=np.uint16)
+    step = 1 << 24  # buckets a step, whole groups: no temporary of every bucket
+    for a in range(0, len(p), step):
+        seg = p[a : a + step] - np.repeat(base[a >> 10 : (a + step) >> 10], 1024)[
+            : len(p[a : a + step])]
+        if int(seg.max(initial=0)) >= (1 << 16):
+            raise ValueError(f"{name} prefix overflow: a 1024-bucket group holds >= 2^16 "
+                             "occurrences — use prefix_kind='ef' for this (pathologically "
+                             "skewed) minimizer distribution")
+        delta[a : a + len(seg)] = seg
+    return base, delta
 
 
 # ---------------------------------------------------------------------------
@@ -651,24 +751,45 @@ class SSHash:
 
 
 def _prefix_get(d: dict, i: torch.Tensor) -> torch.Tensor:
-    """Bucket prefix p[i]: an Elias-Fano select, or grouped16's base and
-    delta."""
+    """Bucket prefix p[i]: an Elias-Fano select, grouped16's base and
+    delta, grouped32's (``i == T`` reads the high half of ``gd2[T - 1]``),
+    or the ``flat`` prefix."""
     pre = d["prefix"]
-    if d["meta"].prefix_kind == "ef":
+    pk = d["meta"].prefix_kind
+    if pk == "ef":
         return ef_get(pre, i)
-    return pre["gbase"][i >> 10] + (pre["gdelta"][i].to(torch.int64) & 0xFFFF)
+    if pk == "grouped16":
+        return pre["gbase"][i >> 10] + (pre["gdelta"][i].to(torch.int64) & 0xFFFF)
+    if pk == "grouped32":
+        gd2 = pre["gd2"]
+        lo = torch.clamp(i, 0, gd2.shape[0] - 1)
+        dpair = mask32(gd2[lo])
+        return pre["gb2"][i >> 10, 0] + torch.where(i == lo, dpair & 0xFFFF, dpair >> 16)
+    return pre["flat"][i].to(torch.int64)
 
 
 def _prefix_pair(d: dict, i: torch.Tensor):
     """Both bounds (p[i], p[i+1]) of bucket(s) ``i``: one ``flat2`` pair
-    where the layout has them, else two grouped16 reads."""
-    if "flat2" in d["prefix"]:
-        pair = d["prefix"]["flat2"][i].to(torch.int64)
+    where the layout has them; grouped32's delta pair and base pair (the
+    next group's base where bucket i + 1 starts a group); else two
+    ``_prefix_get`` reads."""
+    pre = d["prefix"]
+    if "flat2" in pre:
+        pair = pre["flat2"][i].to(torch.int64)
         return pair[..., 0], pair[..., 1]
+    if d["meta"].prefix_kind == "grouped32":
+        dpair = mask32(pre["gd2"][i])
+        g = i >> 10
+        gb = pre["gb2"][g]
+        ps = gb[..., 0] + (dpair & 0xFFFF)
+        pe = torch.where(((i + 1) >> 10) != g, gb[..., 1], gb[..., 0]) + (dpair >> 16)
+        return ps, pe
     return _prefix_get(d, i), _prefix_get(d, i + 1)
 
 
 def _pos_get(d: dict, i: torch.Tensor) -> torch.Tensor:
+    if d["meta"].pos_kind == "flat32":
+        return d["pos"]["flat"][i].to(torch.int64)
     return iv_get(d["pos"], i)
 
 
@@ -723,49 +844,69 @@ def _w64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return mask32(lo) | (hi.to(torch.int64) << 32)
 
 
+ALIGNED = ("inline2", "fixedcap2")  # row kinds whose window starts at bit 0
+ROW_KINDS = ("inline", "fixedcap") + ALIGNED
+
+
 def fused_kind(pos_kind: str, width: int) -> tuple[bool, bool]:
-    """(fused, fused14) of inline rows ``width`` u32 wide: whether the rows
-    carry the fusion pass's occurrence columns (first occurrence word and
-    count), and whether they also carry the unitig's ``occ_start``."""
-    aligned = pos_kind == "inline2"
+    """(fused, fused14) of rows ``width`` u32 wide: whether the rows carry
+    the fusion pass's occurrence columns (first occurrence word and count),
+    and whether they also carry the unitig's ``occ_start``."""
+    aligned = pos_kind in ALIGNED
     fused = width >= (14 if aligned else 13)
     return fused, fused and width >= (12 if aligned else 14)
 
 
-def inline_hits(rows: torch.Tensor, active: torch.Tensor, fw: torch.Tensor, rc: torch.Tensor,
-                offsets, k: int, w: int, aligned: bool, fused: bool, fused14: bool):
-    """The first hit among candidate inline rows ``rows`` (int32 [N, J, C],
-    rows in probe order), each checked at the lane's two candidate offsets
-    against the row's own unitig extent; ``active`` [N, J] masks rows past a
-    lane's count. Returns (any_hit [N], the winner's fields [N]: unitig_id,
-    unitig_len, pos, mt and, on fused rows, occ_word, occ_oc (count, with
-    ``occ_start << 32`` when the rows carry it) and on ``aligned`` (inline2)
-    rows occ_word2)."""
-    def col(c):
-        return mask32(rows[..., c])
-
-    mm_pos, start, end = col(0), col(2), col(3)
-    base = torch.clamp(mm_pos - (k - w), min=0)
-    q0, q1 = _w64(rows[..., 4], rows[..., 5]), _w64(rows[..., 6], rows[..., 7])
-    if aligned:  # the window starts at bit 0 of its two words
-        q2, woff = q1, 0
-    else:
-        q2, woff = _w64(rows[..., 8], rows[..., 9]), (base * 2) & 63
+def _hits(f: dict, active: torch.Tensor, fw: torch.Tensor, rc: torch.Tensor, offsets, k: int):
+    """The first hit among candidate rows, each checked at the lane's two
+    candidate offsets against the row's own unitig extent. ``f`` holds the
+    rows' mm_pos, start, end, base (the window's first position), the
+    words q0..q2 that hold the window from bit ``woff``, each [N, J] (rows
+    in probe order); ``active`` [N, J] masks rows past a lane's count.
+    Returns (any_hit [N], the winning row [N], and the winner's pos and mt)."""
     cands = []
     for off in offsets:
-        km_pos = mm_pos - off[:, None]
-        dbit = woff + 2 * torch.clamp(km_pos - base, min=0)
-        mt = word_equivalency(fw[:, None], rc[:, None], _extract(q0, q1, q2, dbit, k), k)
-        hit = active & (km_pos >= start) & (km_pos + k <= end) & (mt > 0)
-        cands.append((hit, km_pos - start, mt))
+        km_pos = f["mm_pos"] - off[:, None]
+        dbit = f["woff"] + 2 * torch.clamp(km_pos - f["base"], min=0)
+        mt = word_equivalency(fw[:, None], rc[:, None],
+                              _extract(f["q0"], f["q1"], f["q2"], dbit, k), k)
+        hit = active & (km_pos >= f["start"]) & (km_pos + k <= f["end"]) & (mt > 0)
+        cands.append((hit, km_pos - f["start"], mt))
 
     def flat(i):  # candidate order: row j, then its two offsets
         return torch.stack([cands[0][i], cands[1][i]], dim=2).flatten(1)
 
     first, any_hit = _first(flat(0))
-    row = torch.div(first, 2, rounding_mode="floor")
-    win = {"unitig_id": _take(col(1), row), "unitig_len": _take(end - start, row),
-           "pos": _take(flat(1), first), "mt": _take(flat(2), first)}
+    return any_hit, torch.div(first, 2, rounding_mode="floor"), _take(flat(1), first), \
+        _take(flat(2), first)
+
+
+def inline_hits(rows: torch.Tensor, active: torch.Tensor, fw: torch.Tensor, rc: torch.Tensor,
+                offsets, k: int, w: int, pos_kind: str, fused: bool, fused14: bool):
+    """``_hits`` on u32 rows ``rows`` (int32 [N, J, C]) of a row layout
+    (``ROW_KINDS``). Returns (any_hit [N], the winner's fields [N]:
+    unitig_id, unitig_len, pos, mt and, on fused rows, occ_word, occ_oc
+    (count, with ``occ_start << 32`` when the rows carry it) and on aligned
+    (inline2, fixedcap2) rows occ_word2). A fixedcap2 row's uid field
+    carries its bucket's count in bits 29-31 on slot 0: the uid is the
+    low 29 bits."""
+    def col(c):
+        return mask32(rows[..., c])
+
+    aligned = pos_kind in ALIGNED
+    mm_pos, start, end = col(0), col(2), col(3)
+    uid = col(1) & ((1 << 29) - 1) if pos_kind == "fixedcap2" else col(1)
+    base = torch.clamp(mm_pos - (k - w), min=0)
+    q0, q1 = _w64(rows[..., 4], rows[..., 5]), _w64(rows[..., 6], rows[..., 7])
+    if aligned:
+        q2, woff = q1, 0
+    else:
+        q2, woff = _w64(rows[..., 8], rows[..., 9]), (base * 2) & 63
+    f = {"mm_pos": mm_pos, "start": start, "end": end, "base": base, "q0": q0, "q1": q1,
+         "q2": q2, "woff": woff}
+    any_hit, row, pos, mt = _hits(f, active, fw, rc, offsets, k)
+    win = {"unitig_id": _take(uid, row), "unitig_len": _take(end - start, row), "pos": pos,
+           "mt": mt}
     if fused:
         c = 8 if aligned else 10
         win["occ_word"] = _take(_w64(rows[..., c], rows[..., c + 1]), row)
@@ -776,6 +917,24 @@ def inline_hits(rows: torch.Tensor, active: torch.Tensor, fw: torch.Tensor, rc: 
         if aligned:
             win["occ_word2"] = _take(_w64(rows[..., 12], rows[..., 13]), row)
     return any_hit, win
+
+
+def records_hits(rec: torch.Tensor, quad: torch.Tensor, active: torch.Tensor, fw: torch.Tensor,
+                 rc: torch.Tensor, offsets, k: int, w: int):
+    """``_hits`` on the records layout: int32 records ``rec`` [N, J, 4]
+    (mm_pos, uid, start, end), each with the ``useq_quad`` row of its
+    window's first word, which holds both candidates (a valid candidate
+    lies in the record's unitig: no rank and no extent read). Returns
+    (any_hit, the winner's unitig_id, unitig_len, pos and mt)."""
+    r = rec.to(torch.int64)
+    mm_pos, start, end = r[..., 0], r[..., 2], r[..., 3]
+    base = torch.clamp(mm_pos - (k - w), min=0)
+    q = quad[(base * 2) >> 6]
+    f = {"mm_pos": mm_pos, "start": start, "end": end, "base": base, "q0": q[..., 0],
+         "q1": q[..., 1], "q2": q[..., 2], "woff": (base * 2) & 63}
+    any_hit, row, pos, mt = _hits(f, active, fw, rc, offsets, k)
+    return any_hit, {"unitig_id": _take(r[..., 1], row), "unitig_len": _take(end - start, row),
+                     "pos": pos, "mt": mt}
 
 
 def occ_fields(out: dict, fused14: bool) -> dict:
@@ -824,75 +983,100 @@ def mphf_lookup(d: dict, keys: torch.Tensor, level_limit: int | None = None):
 
 def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int | None = None,
                probe_start: int = 0, defer_valid: bool = False,
-               mphf_level_limit: int | None = None) -> dict:
-    """Batched SSHash K2U, any engine, on packed positions (grouped16 or
-    Elias-Fano bounds) or the speed tier's inline rows (``_inline_k2u``),
+               mphf_level_limit: int | None = None, bucket_range=None) -> dict:
+    """Batched SSHash K2U, any engine and layout (``SSHash.device_arrays``),
     plain torch (``mazu_tpu.kphf.sshash.sshash_k2u``).
 
     ``fw``: int64 bit patterns of forward k-mer words. Returns int64
     unitig_id, unitig_len, pos and uint8 mt (0 miss, 1 identity, 2 twin).
     A lane's bucket is ``fold_hash32(mm) & (T-1)`` (direct) or the MPHF
     value of its minimizer (fast32's BooPHF32, parity's 64-bit BooPHF; a
-    lane the MPHF rejects has no occurrences).
+    lane the MPHF rejects has no occurrences). Its rows are
+    [p[b], p[b + 1]) of the bucket bounds, or on the fixedcap layouts
+    [b B, (b + 1) B), B = ``meta.cap``: a lane then has B occurrences
+    (fixedcap) or the count in slot 0 (fixedcap2), and a heavy bucket is
+    the marker in slot 0, not a count above ``skew_param``.
 
     ``mode="full"`` is exact for every key: each bucket's rows up to the
     static ``probe_bound`` (lanes mask rows past their count, so no bound
     comes back to the host; rows go in blocks of up to ``ROW_BUDGET``
     lane-rows, and the first hit in row order wins), each candidate
-    checked with ``us_is_valid_pos``, the winner mapped to its unitig, and
-    heavy buckets resolved through the skew table. ``probe_start`` skips
-    rows [0, probe_start) for every lane (the caller guarantees they were
-    probed and missed). With the unitig set's ``uproj`` records the winner's
-    unitig record also gives occ_word, occ_word2, occ_cnt and occ_start.
+    checked against its unitig's extent, the winner mapped to its unitig,
+    and heavy buckets resolved through the skew table. ``probe_start``
+    skips rows [0, probe_start) for every lane (the caller guarantees they
+    were probed and missed). With the unitig set's ``uproj`` records the
+    winner's unitig record also gives occ_word, occ_word2, occ_cnt and
+    occ_start.
 
     ``mode="main"`` probes the first ``min(probe_bound, probe_limit)`` rows
     of each bucket and adds bool ``use_skew`` (a heavy bucket) and
     ``unresolved`` (rows past the probed depth, and the cases below), which
-    the caller's compacted phases settle. Two probes:
+    the caller's compacted phases settle.
 
-    - with the ``useqrec`` window records (and, at ``probe_limit <= 3``,
-      the ``bpos`` rows): one record per row carries the candidate's words
-      and its unitig's extent, id and first two occurrence words. A
-      candidate that spelled the query but failed the record's extent check
-      (the reference's mt == 3 sentinel) leaves its lane unresolved. Adds
-      occ_word, occ_word2 and occ_cnt.
-    - otherwise one ``words2`` row pair per row. ``defer_valid`` drops the
-      in-loop ``us_is_valid_pos`` and validates only the winner, with its
-      rank (``us_validate_rank``): a failed winner clears the lane's hit and
-      leaves it unresolved, and its ``pos`` keeps the winner's useq
-      position. ``mphf_level_limit`` (fast32) runs the truncated MPHF
-      chain: lanes it cannot place are unresolved and have no occurrences.
-      With ``uproj``, adds occ_word, occ_word2, occ_cnt and occ_start.
+    The probe by layout:
+
+    - row layouts (``ROW_KINDS``): each row is one gather that also
+      carries the unitig's id and extent, against which the candidates are
+      checked; fused rows add occ_word, occ_cnt, occ_start and (aligned
+      rows) occ_word2. ``defer_valid`` changes nothing there.
+    - records: one record and one ``useq_quad`` row a candidate row.
+    - packed or flat32 positions: one ``words2`` row pair a row, each
+      candidate checked with ``us_is_valid_pos``; the winner is mapped to
+      its unitig after the loop. ``defer_valid`` (main mode) drops the
+      in-loop check and validates only the winner, with its rank
+      (``us_validate_rank``): a failed winner clears the lane's hit and
+      leaves it unresolved. ``mphf_level_limit`` (fast32, main mode) runs
+      the truncated MPHF chain: lanes it cannot place are unresolved and
+      have no occurrences. With ``uproj``, main mode adds occ_word,
+      occ_word2, occ_cnt and occ_start.
+    - packed positions with the ``useqrec`` window records (main mode,
+      ``probe_start`` 0; and at ``probe_limit <= 3`` the ``bpos`` rows):
+      one record per row carries the candidate's words and its unitig's
+      extent, id and first two occurrence words. A candidate that spelled
+      the query but failed the record's extent check (the reference's
+      mt == 3 sentinel) leaves its lane unresolved. Adds occ_word,
+      occ_word2 and occ_cnt.
 
     Unresolved lanes of the records, of ``defer_valid`` or of
     ``mphf_level_limit`` must be re-probed from row 0.
 
-    On inline rows each row is one gather that also carries the unitig's
-    id and extent, against which the candidates are checked; fused rows add
-    occ_word, occ_cnt, occ_start and (inline2) occ_word2. ``defer_valid``
-    changes nothing there."""
+    ``bucket_range=(lo, hi)`` (direct engine with ``flat2`` bounds or
+    ``bpos`` rows, not fixedcap) queries one shard of the bucket table: the
+    arrays hold buckets [lo, hi) only, their bounds rebased to the shard's
+    rows (``shard_arrays``). Lanes whose bucket is not in the range have no
+    occurrences, so their outputs are exact zeros and a one-hot sum over
+    the shards gives the whole table's answer; bool ``mine`` flags the
+    range's lanes."""
     m = d["meta"]
     us = d["us"]
-    if m.pos_kind not in ("packed", "inline", "inline2") or \
-            m.prefix_kind not in ("grouped16", "flat32", "ef"):
-        raise ValueError("the port's SSHash query covers packed, inline and inline2 positions "
-                         "with grouped16, flat32 or ef bounds")
-    usrec = mode == "main" and probe_start == 0 and "useqrec" in us
+    pk = m.pos_kind
+    if pk not in POS_KINDS:
+        raise ValueError(f"no {pk!r} SSHash position layout: one of {POS_KINDS}")
     if defer_valid and mode != "main":
         raise ValueError("defer_valid is a main-mode contract: its caller re-probes failed lanes")
+    usrec = mode == "main" and probe_start == 0 and pk == "packed" and "useqrec" in us
     k, w = m.k, m.w
     rc = revcomp(fw, k)
     mm, offset, _is_fw, canon = canonical_minimizer_batch(fw, k, w, m.seed, ordering=m.ordering)
     offset = offset.to(torch.int64)
     rc_offset = (k - w) - offset
     use_bpos = (
-        "bpos" in d and mode == "main" and probe_start == 0 and probe_limit is not None
-        and 0 < probe_limit <= d["bpos"].shape[1] - 1
+        "bpos" in d and mode == "main" and pk == "packed" and probe_start == 0
+        and probe_limit is not None and 0 < probe_limit <= d["bpos"].shape[1] - 1
     )
-    mphf_unres = dead = None
+    mphf_unres = dead = mine = row0 = None
     if m.direct_t:
         hc = fold_hash32(mm) & (m.direct_t - 1)
+        if bucket_range is not None:
+            if pk == "fixedcap" or not (use_bpos or "flat2" in d.get("prefix", {})):
+                raise AssertionError("bucket_range requires the direct engine with flat2/bpos rows")
+            lo, hi = bucket_range
+            mine = (hc >= lo) & (hc < hi)
+            local_t = d["bpos"].shape[0] if use_bpos else d["prefix"]["flat2"].shape[0]
+            hc = torch.clamp(hc - lo, 0, local_t - 1)
     else:
+        if bucket_range is not None:
+            raise AssertionError("bucket_range requires engine='direct'")
         if mode == "main" and mphf_level_limit is not None:
             h, mphf_unres = mphf_lookup(d["mphf"], mm, level_limit=mphf_level_limit)
         else:
@@ -904,26 +1088,54 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
         brow = mask32(d["bpos"][hc])
         n_occs = brow[:, 3]
         ps = torch.zeros_like(n_occs)
+    elif m.direct_t and pk in ("fixedcap", "fixedcap2"):
+        # direct addressing: no bounds read; slot 0 tells a heavy bucket
+        # (and, on fixedcap2, the bucket's count)
+        ps = hc * m.cap
+        row0 = d["pos"]["inline"][ps]
+        if pk == "fixedcap2":
+            f0 = mask32(row0[:, 1])
+            n_occs = torch.where(f0 >= 0xFFFFFFFE, 0, f0 >> 29)
+        else:
+            n_occs = torch.full_like(hc, m.cap)
     else:
         ps, pe = _prefix_pair(d, hc)
         n_occs = pe - ps
+    if mine is not None and row0 is None:
+        n_occs = torch.where(mine, n_occs, 0)
     if dead is not None:
         n_occs = torch.where(dead, 0, n_occs)
-    if m.skew_param >= 0:
+    if row0 is not None:
+        use_skew = mask32(row0[:, 1]) == 0xFFFFFFFE
+    elif m.skew_param >= 0:
         use_skew = n_occs > m.skew_param
     else:
         use_skew = torch.zeros_like(n_occs, dtype=torch.bool)
-    last_km = us["meta"].total_len - k
     bound = m.probe_bound
     if mode == "main" and probe_limit is not None:
         bound = min(bound, int(probe_limit))
-    if m.pos_kind != "packed":
-        return _inline_k2u(d, fw, rc, canon, (offset, rc_offset), ps, n_occs, use_skew, bound,
-                           mode, probe_start, mphf_unres)
-    pos_win = None
-    if use_bpos:
-        pos_win = brow[:, :bound]
-    elif probe_start == 0 and 1 < bound <= 8:
+    if pk in ROW_KINDS or pk == "records":
+        res = _row_k2u(d, fw, rc, canon, (offset, rc_offset), ps, n_occs, use_skew, bound, mode,
+                       probe_start, mphf_unres)
+    else:
+        res = _position_k2u(d, fw, rc, canon, (offset, rc_offset), ps, n_occs, use_skew, bound,
+                            mode, probe_start, defer_valid, mphf_unres, usrec,
+                            brow[:, :bound] if use_bpos else None)
+    if mine is not None:
+        res["mine"] = mine
+    return res
+
+
+def _position_k2u(d: dict, fw, rc, canon, offsets, ps, n_occs, use_skew, bound: int, mode: str,
+                  probe_start: int, defer_valid: bool, mphf_unres, usrec: bool, pos_win):
+    """``sshash_k2u`` on packed or flat32 positions (the reference's
+    ``probe_body_generic`` and ``probe_body_usrec``)."""
+    m = d["meta"]
+    us = d["us"]
+    k, w = m.k, m.w
+    offset, rc_offset = offsets
+    last_km = us["meta"].total_len - k
+    if pos_win is None and m.pos_kind == "packed" and probe_start == 0 and 1 < bound <= 8:
         pos_win = torch.stack(_pos_window(d, ps, bound), dim=1)
     n_pos = d["pos"]["meta"].length
 
@@ -1054,33 +1266,39 @@ def sshash_k2u(d: dict, fw: torch.Tensor, mode: str = "full", probe_limit: int |
     return res
 
 
-def _inline_k2u(d: dict, fw, rc, canon, offsets, ps, n_occs, use_skew, bound: int, mode: str,
-                probe_start: int, mphf_unres) -> dict:
-    """``sshash_k2u`` on inline or inline2 rows (the reference's
-    ``probe_body_inline``/``probe_body_inline2``): rows [probe_start, bound)
-    of each bucket, a block of rows at a time, first hit in row order; then
-    the skew table in full mode. Fused rows add their occurrence fields
-    (``occ_fields``), except in full mode on a fast32 index: its skew table
-    (``skew_mphf``) carries none, so the projection of its skew lanes reads
-    the offsets table (the reference reports them with no occurrences, C10)."""
+def _row_k2u(d: dict, fw, rc, canon, offsets, ps, n_occs, use_skew, bound: int, mode: str,
+             probe_start: int, mphf_unres) -> dict:
+    """``sshash_k2u`` on a row layout or on records (the reference's
+    ``probe_body_inline``, ``probe_body_inline2`` and
+    ``probe_body_records``): rows [probe_start, bound) of each bucket, a
+    block of rows at a time, first hit in row order; then the skew table in
+    full mode. Fused rows add their occurrence fields (``occ_fields``),
+    except in full mode on a fast32 index: its skew table (``skew_mphf``)
+    carries none, so the projection of its skew lanes reads the offsets
+    table (the reference reports them with no occurrences, C10)."""
     m = d["meta"]
-    rows = d["pos"]["inline"]
-    aligned = m.pos_kind == "inline2"
-    fused, fused14 = fused_kind(m.pos_kind, rows.shape[1])
+    records = m.pos_kind == "records"
+    rows = d["pos"]["records" if records else "inline"]
+    fused, fused14 = (False, False) if records else fused_kind(m.pos_kind, rows.shape[1])
     last = max(rows.shape[0] - 1, 0)
     z = torch.zeros_like(fw)
     found = torch.zeros_like(fw, dtype=torch.bool)
     out = {"unitig_id": z, "unitig_len": z, "pos": z, "mt": torch.zeros_like(fw, dtype=torch.uint8)}
     if fused:
         out.update(occ_word=z, occ_oc=z)
-        if aligned:
+        if m.pos_kind in ALIGNED:
             out["occ_word2"] = z
     block = max(1, min(bound - probe_start, ROW_BUDGET // max(fw.shape[0], 1)))
     for j0 in range(probe_start, bound, block):
         js = torch.arange(j0, min(j0 + block, bound), device=fw.device)
         active = (js[None, :] < n_occs[:, None]) & ~use_skew[:, None]
-        any_hit, win = inline_hits(rows[torch.clamp(ps[:, None] + js, 0, last)], active, fw, rc,
-                                   offsets, m.k, m.w, aligned, fused, fused14)
+        block_rows = rows[torch.clamp(ps[:, None] + js, 0, last)]
+        if records:
+            any_hit, win = records_hits(block_rows, d["useq_quad"], active, fw, rc, offsets, m.k,
+                                        m.w)
+        else:
+            any_hit, win = inline_hits(block_rows, active, fw, rc, offsets, m.k, m.w, m.pos_kind,
+                                       fused, fused14)
         take = any_hit & ~found
         for key, v in win.items():
             out[key] = torch.where(take, v, out[key])
@@ -1161,3 +1379,80 @@ def skew_resolve(d: dict, fw, rc, canon, use_skew, out: dict, fused14: bool = Fa
         for key, v in (("unitig_id", r_uid), ("unitig_len", r_ulen), ("pos", r_pos), ("mt", r_mt)):
             out[key] = torch.where(hit, v, out[key])
     return out
+
+
+def shard_arrays(k2u: dict, prefix: np.ndarray, n_shards: int) -> list:
+    """The bucket shards of a direct SSHash's arrays ``k2u`` (host NumPy,
+    ``flat2`` bounds and a row layout with its rows in bucket order, fused
+    or not), laid out as ``mazu_tpu.parallel.sharding.shard_fused_arrays``
+    lays them out: shard s owns buckets [lo, hi) of ``n_shards`` equal
+    ranges and holds their ``flat2`` pairs rebased to its first row and
+    its rows, both zero-padded to the largest shard's, beside the shared
+    arrays. ``prefix`` is the SSHash's ``occs_prefix_sum``. Returns
+    [(local arrays, lo, hi)] for ``sshash_k2u(..., bucket_range=(lo, hi))``."""
+    m = k2u["meta"]
+    if not (m.direct_t and "flat2" in k2u.get("prefix", {}) and "inline" in k2u["pos"]):
+        raise ValueError("bucket shards need a direct SSHash with flat2 bounds and row layout")
+    T = m.direct_t
+    prefix = np.asarray(prefix, dtype=np.int64)
+    bounds = np.linspace(0, T, n_shards + 1).astype(np.int64)
+    flat2, rows = k2u["prefix"]["flat2"], k2u["pos"]["inline"]
+    row_lo, row_hi = prefix[bounds[:-1]], prefix[bounds[1:]]
+    max_t = int((bounds[1:] - bounds[:-1]).max())
+    max_rows = max(1, int((row_hi - row_lo).max()))
+    shared = {key: v for key, v in k2u.items() if key not in ("prefix", "pos")}
+    out = []
+    for s in range(n_shards):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        f2 = np.zeros((max_t, 2), dtype=flat2.dtype)
+        f2[: hi - lo] = flat2[lo:hi] - flat2.dtype.type(row_lo[s])
+        local = np.zeros((max_rows, rows.shape[1]), dtype=rows.dtype)
+        local[: row_hi[s] - row_lo[s]] = rows[row_lo[s] : row_hi[s]]
+        out.append(({**shared, "prefix": {"flat2": f2},
+                     "pos": {"inline": local, "meta": meta(length=max_rows)}}, lo, hi))
+    return out
+
+
+class TwoPhaseSSHash:
+    """Two-phase query of one SSHash (``mazu_tpu``'s ``TwoPhaseSSHash``,
+    ``bench.py``'s ``2phase`` mode): the main probe (no skew reads) over
+    the whole batch, then the lanes it flags ``use_skew`` compacted into a
+    batch padded to a power of two of at least 64 and run in full mode. The
+    results' unitig_id, unitig_len, pos and mt equal one full-mode call's.
+
+    ``ss.device_arrays()`` (the engine's default layout) go to ``device``,
+    the card by default. The lane list's count is the one host read of a
+    query."""
+
+    def __init__(self, ss: SSHash, device=None):
+        from ..convert import arrays_from_numpy, resolve_device
+
+        self.device = resolve_device(device)
+        self.d = arrays_from_numpy(ss.device_arrays(), self.device)
+
+    def main(self, fw: torch.Tensor) -> dict:
+        return sshash_k2u(self.d, fw, mode="main")
+
+    def full(self, fw: torch.Tensor) -> dict:
+        return sshash_k2u(self.d, fw)
+
+    def k2u(self, fw_words: np.ndarray) -> dict:
+        """The query of u64 words as NumPy arrays: the main phase's dict
+        without ``use_skew``, its skew lanes' four K2U fields from the
+        full-mode pass."""
+        from ..convert import words_to
+        from ..ops.compact import flagged_lanes
+
+        fw = words_to(fw_words, self.device)
+        r = self.main(fw)
+        lanes, n = flagged_lanes(r.pop("use_skew"), fw.shape[0])
+        n = int(n)
+        if n:
+            lanes = lanes[:n]
+            padded = torch.zeros(1 << max(6, (n - 1).bit_length()), dtype=fw.dtype,
+                                 device=fw.device)
+            padded[:n] = fw[lanes]
+            s = self.full(padded)
+            for key in ("unitig_id", "unitig_len", "pos", "mt"):
+                r[key] = r[key].index_put((lanes,), s[key][:n])
+        return {key: v.cpu().numpy() for key, v in r.items()}

@@ -195,9 +195,24 @@ def test_get_ref_pos_csr(csr_case, extra):
 
 
 def test_decode_occs_names_missing_tables():
-    u2 = {"meta": meta(enc="wm", n_occs=1)}
-    with pytest.raises(ValueError, match="wm.*A2"):
-        decode_occs(u2, torch.zeros(1, dtype=torch.int64))
+    """The wavelet-matrix encoding, once refused here, decodes as the
+    reference's (byte planes through ``wm_access``); an encoding neither
+    package has still raises, naming it."""
+    from mazu_tpu.bits.wm import WaveletMatrix as MWM
+    from mazu_tpu.index.unitig_table import decode_occs as m_decode_occs
+    from mazu_tpu.pytree import meta as m_meta
+
+    rng = np.random.default_rng(3)
+    want_d = {"meta": m_meta(enc="wm", n_planes=2, ref_shift=9, pos_mask=255, n_occs=40)}
+    for b, alpha in enumerate((5, 3)):
+        want_d[f"wm{b}"] = MWM.build(rng.integers(0, alpha, 40).astype(np.uint8),
+                                     alpha).device_arrays()
+    idx = rng.integers(0, 40, (16, 3))
+    got = decode_occs(arrays_from_numpy(want_d, "cpu"), torch.from_numpy(idx))
+    for g, w in zip(got, m_decode_occs(want_d, idx, np)):
+        assert_same(g, w)
+    with pytest.raises(ValueError, match="rle"):
+        decode_occs({"meta": meta(enc="rle", n_occs=1)}, torch.zeros(1, dtype=torch.int64))
 
 
 # ------------------------------------------------------------ index_metadata

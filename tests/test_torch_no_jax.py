@@ -2,7 +2,8 @@
 indexes (the mono2 KCDict, the SSHash capacity tier, the MPHF capacity
 tier, built on the device's code path and also with its MPHF in the
 ``mrows`` layout, the SSHash speed tier and the pufferfish dense and sparse
-indexes) answer queries, the device pack and BooPHF32 build run, a lab
+indexes; the speed tier's fixedcap rows, ``TwoPhaseSSHash`` and a
+wavelet-matrix occurrence table) answer queries, the device pack and BooPHF32 build run, a lab
 kernel's plain version runs, and a tiny serve pass (FASTQ, packing in the
 host library, device k-merization, map, pseudoalignment), ``validate_self``,
 a flat streaming pass, a read mapper and the CLI's parity build, its
@@ -80,6 +81,21 @@ fw = torch.from_numpy(words.view(np.int64))
 chk = TwoPhaseIndexQuery(sp, device="cpu").checksum_query(fw)
 nr = torch.ones(512, dtype=torch.bool)
 assert ReadBatchQuery(sp, device="cpu").checksum_query(fw, words, nr) == chk
+fq = QueryIndex(arrays_from_numpy(sp.device_arrays(fused=True, pos_kind="fixedcap"), "cpu"))
+assert ReadBatchQuery(fq).checksum_query(fw, words, nr)[0] == chk[0]
+from mazu_tpu_torch.kphf.sshash import TwoPhaseSSHash, sshash_k2u
+assert (TwoPhaseSSHash(sp.k2u, device="cpu").k2u(words)["unitig_id"] == uid).all()
+f2 = arrays_from_numpy(sp.k2u.device_arrays(pos_kind="fixedcap2"), "cpu")
+assert (sshash_k2u(f2, fw)["unitig_id"].numpy() == uid).all()
+from mazu_tpu_torch.bits.wm import WaveletMatrix
+from mazu_tpu_torch.index.modindex import ModIndex, get_ref_pos_padded
+from mazu_tpu_torch.index.unitig_table import WMUnitigTable
+sym = np.arange(300, dtype=np.uint8) % 7
+assert (WaveletMatrix.build(sym, 7).access(np.arange(300)) == sym).all()
+wq = QueryIndex(arrays_from_numpy(
+    ModIndex(sp.k2u, WMUnitigTable.from_piscem(sp.u2pos), sp.refs).device_arrays(), "cpu"))
+out = get_ref_pos_padded(wq.arrays(), fw, wq.max_occs)
+assert bool((out["mt"] > 0).all()) and (out["unitig_id"].numpy() == uid).all()
 
 from mazu_tpu_torch.index.modindex import get_ref_pos_padded
 from mazu_tpu_torch.ops import gather_lab
@@ -166,7 +182,7 @@ def test_port_imports_and_queries_without_jax():
                  "io.fasta", "io.fastq", "io.cuttlefish", "io.reads", "index.streaming",
                  "index.validate", "index.colors", "index.pseudoalign", "io.native",
                  "index.mapping", "index.tuning", "kphf.runshare", "cli", "io.checkpoint",
-                 "bits.elias_fano", "index.piscem_index"):
+                 "bits.elias_fano", "index.piscem_index", "bits.wm"):
         assert f"mazu_tpu_torch.{name}" in mods, name
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, *mods], capture_output=True, text=True,

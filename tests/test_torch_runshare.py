@@ -21,6 +21,7 @@ from mazu_tpu.kphf.runshare import sshash_k2u_reads_runshare as m_runshare
 import mazu_tpu_torch.kphf.sshash as psshash
 from mazu_tpu_torch.convert import arrays_from_numpy
 from mazu_tpu_torch.index import twophase as ptp
+from mazu_tpu_torch.index.modindex import QueryIndex
 from mazu_tpu_torch.index.validate import valid_kmer_windows
 from mazu_tpu_torch.kphf.runshare import _forward_fill, run_starts, sshash_k2u_reads_runshare
 
@@ -176,15 +177,26 @@ def test_read_batch_query_checksum(name):
 
 
 def test_refused_layouts():
-    """Run sharing reads a direct SSHash's inline rows: fixedcap rows
-    (not ported) raise by name, a fast32 index or inline2 rows raise."""
-    _, port = pair("direct")
+    """Run sharing reads a direct SSHash's inline or fixedcap rows, as the
+    reference's asserts: fixedcap rows equal the reference's run sharing
+    (at a budget it does not overflow); fixedcap2 rows raise by name, as
+    do inline2 rows and a fast32 index."""
+    ref, port = pair("direct")
     words, nr = read_batch(toy_recipe()[0], port.k, n=256)
     fw, nrt = tensor(words), torch.from_numpy(nr)
-    d = arrays_from_numpy(port.device_arrays(fused=True), "cpu")["k2u"]
-    for kind in ("fixedcap", "fixedcap2"):
-        with pytest.raises(ValueError, match=kind):
-            sshash_k2u_reads_runshare({**d, "meta": d["meta"].replace(pos_kind=kind)}, fw, nrt)
+    host = ref.device_arrays(fused=True, pos_kind="fixedcap")["k2u"]
+    want = m_runshare(jax.device_put(host), jnp.asarray(words), jnp.asarray(nr), jnp,
+                      budget_div=1)
+    got = sshash_k2u_reads_runshare(
+        arrays_from_numpy(port.device_arrays(fused=True, pos_kind="fixedcap"), "cpu")["k2u"],
+        fw, nrt)
+    assert set(got) == set(want)
+    for key in want:
+        assert_same(got[key], np.asarray(want[key]), key)
+    _, shallow = pair("bucket")  # skew 2: fixedcap2's count fits its 3 bits
+    d = arrays_from_numpy(shallow.device_arrays(fused=True, pos_kind="fixedcap2"), "cpu")["k2u"]
+    with pytest.raises(ValueError, match="fixedcap2"):
+        sshash_k2u_reads_runshare(d, fw, nrt)
     d2 = arrays_from_numpy(port.device_arrays(pos_kind="inline2"), "cpu")["k2u"]
     with pytest.raises(ValueError, match="inline rows"):
         sshash_k2u_reads_runshare(d2, fw, nrt)
@@ -192,3 +204,45 @@ def test_refused_layouts():
     d3 = arrays_from_numpy(fast.device_arrays(), "cpu")["k2u"]
     with pytest.raises(ValueError, match="direct-engine"):
         sshash_k2u_reads_runshare(d3, fw, nrt)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("name", ["direct", "bucket"])
+def test_runshare_fixedcap_matches_reference(name, fused):
+    """Run sharing on fixedcap rows: each run reads its bucket's B =
+    ``meta.cap`` rows and has B occurrences, a heavy bucket is slot 0's
+    marker. Equal to the reference's at a budget it does not overflow
+    (``budget_div=1``), key for key, and to the main probe's four fields
+    and ``use_skew`` on the same rows."""
+    ref, port = pair(name)
+    words, nr = read_batch(toy_recipe()[0], ref.k, pad=300)
+    host = ref.device_arrays(fused=fused, pos_kind="fixedcap")
+    want = m_runshare(jax.device_put(host["k2u"]), jnp.asarray(words), jnp.asarray(nr), jnp,
+                      budget_div=1)
+    d = arrays_from_numpy(port.device_arrays(fused=fused, pos_kind="fixedcap"), "cpu")
+    fw, nrt = tensor(words), torch.from_numpy(nr)
+    got = sshash_k2u_reads_runshare(d["k2u"], fw, nrt)
+    assert not bool(want["run_overflow"]) and set(got) == set(want)
+    for key in want:
+        assert_same(got[key], np.asarray(want[key]), key)
+    main = psshash.sshash_k2u(d["k2u"], fw, mode="main")
+    for key in ("unitig_id", "unitig_len", "pos", "mt", "use_skew"):
+        assert torch.equal(got[key], main[key]), key
+    assert bool(got["use_skew"].any()) and int((got["mt"] > 0).sum()) > N // 2
+
+
+@pytest.mark.parametrize("name", ["direct", "bucket"])
+def test_read_batch_query_fixedcap(name):
+    """``ReadBatchQuery`` over a ``QueryIndex`` of fused fixedcap rows; its
+    checksum equals ``TwoPhaseIndexQuery``'s on the same layout and on the
+    default one."""
+    _, port = pair(name)
+    words, nr = read_batch(toy_recipe()[0], port.k, pad=300, seed=6)
+    fw, nrt = tensor(words), torch.from_numpy(nr)
+    rb = ptp.ReadBatchQuery(QueryIndex(arrays_from_numpy(
+        port.device_arrays(fused=True, pos_kind="fixedcap"), "cpu")))
+    assert rb.index.arrays()["k2u"]["meta"].pos_kind == "fixedcap"
+    got = rb.checksum_query(fw, words, nrt)
+    tp = ptp.TwoPhaseIndexQuery(port, device="cpu", pos_kind="fixedcap")
+    assert got == tp.checksum_query(fw)
+    assert got[0] == ptp.TwoPhaseIndexQuery(port, device="cpu").checksum_query(fw)[0]

@@ -189,11 +189,25 @@ def test_k2_wrapper_checks_layout(pair):
 
 
 def test_port_layouts_not_ported_raise(pair):
+    """The layouts that once raised here are ported: flat32 bounds over
+    packed positions and fixedcap rows equal the reference's arrays, and
+    its query on them; an engine the reference lacks still raises."""
     ref, port, *_ = pair
-    with pytest.raises(ValueError, match="the port has no"):
-        port.k2u.device_arrays(prefix_kind="flat32", pos_kind="packed")
-    with pytest.raises(ValueError, match="the port has no"):
-        port.k2u.device_arrays(pos_kind="fixedcap")
+    work = capacity_queries(ref.k2u.unitigs, 500, seed=9)
+    for kw in (dict(prefix_kind="flat32", pos_kind="packed"), dict(pos_kind="fixedcap")):
+        want, got = ref.k2u.device_arrays(**kw), port.k2u.device_arrays(**kw)
+        if "flat2" in got["prefix"]:
+            # the reference's direct build may keep its flat prefix beside
+            np.testing.assert_array_equal(got["prefix"].pop("flat2"), want["prefix"].pop("flat2"))
+            want["prefix"].pop("flat", None)
+        same_tree(got, want)
+        want = ref.k2u.device_arrays(**kw)
+        d = arrays_from_numpy(port.k2u.device_arrays(**kw), "cpu")
+        for mode in ("main", "full"):
+            w = msshash.sshash_k2u(want, work, np, mode=mode)
+            g = psshash.sshash_k2u(d, tensor(work), mode=mode)
+            for key in w:
+                assert_same(g[key], w[key], f"{kw} {mode} {key}")
     # inline rows are ported: with grouped16 bounds the whole tree is the
     # reference's, and the query on it equals the reference's
     want = ref.k2u.device_arrays(prefix_kind="grouped16", pos_kind="inline")
