@@ -232,8 +232,9 @@ Phases, each printing its own lines; any failure exits non-zero:
     queries through ``OneGraphIndexQuery`` on the layout the tier rule
     picks, 16 rolled chunks, replayed and eager, against a CPU oracle of one
     chunk. Then the same build, ``validate-fasta`` and ``map`` with
-    ``--engine mono2`` on a ``--cli-mono2-mbp`` genome (5 Mbp: the 50 Mbp
-    table would spend minutes compressed into the file), its K1 launches
+    ``--engine mono2`` on a ``--cli-mono2-mbp`` genome (2 Mbp: the 50 Mbp
+    table would spend minutes compressed into the file, and the run's time
+    limit leaves this leg about 20 s), its K1 launches
     counted into K1's and its first 1,024 reads' hits held to the CPU's;
 20. synth3000-mphf, the MPHF tier at 2^31 bases or more (runs after
     phase 19, before phase 18): the earlier indexes' card memory left for
@@ -244,7 +245,7 @@ Phases, each printing its own lines; any failure exits non-zero:
     allocation and the host's peak; ``device_arrays(**MPHF_LAYOUT)`` on
     the host by part, the move to the card and its bytes by array; the
     tier rule must keep it in the capacity tier; the card's build against
-    the same build on CPU tensors at ``--mphf-check-mbp`` (20 Mbp), byte
+    the same build on CPU tensors at ``--mphf-check-mbp`` (10 Mbp), byte
     for byte; K3 against its plain version on 2^20 uniform queries (~28%
     of lanes past base 2^31) at level limits None and 4 and probe limits
     1-3 and on phase 16's tiles plus the k-mers of the five unitigs around
@@ -262,12 +263,37 @@ Phases, each printing its own lines; any failure exits non-zero:
     the mapper (6d) by the tier rule and the first 1,024 reads' hits equal
     to ``ReadMapper`` on CPU tensors; its profiled passes; then the index
     is freed;
+22. the rest of the KCDict (after 19): a cuckoo KCDict through the CLI
+    (``index build piscem --engine cuckoo`` over ``--cuckoo-mbp`` of the
+    genome as cuttlefish files, ``validate-fasta``; ``kphf build cuckoo
+    --validate`` over ``--cuckoo-kphf-mbp``), its padded query of 2^20 on the card against the CPU and
+    the sampled truth; a wide-slot mono2 dictionary over a 2^24-base
+    unitig and the mono layout of the same keys, main and full K2U on the
+    card against the CPU, ``get_ref_pos_compact`` on it launching no K1;
+    22c (after 6d, on the mono2 index): ``bucket_range`` on four shards of
+    its table, whose one-hot sum is the whole table's answer, side-table
+    hits from their owner alone;
+23. the sharded queries, each held to the unsharded query on the card
+    (itself held to the CPU on 2^16 lanes or to the sampled truth): 23a
+    (after 22c) a ``DistMesh`` over NCCL at world size 1 (the
+    data-parallel and mono sharded queries), then ``SerialMesh`` at 1x4
+    and 2x4 (the data-parallel query launching K1 on every rank, the mono
+    sharded query); 23b (after 21, on synth50-speed's fused inline2 rows)
+    the fused sharded query at 1x4 and 2x4, a sharded checkpoint of four
+    shards saved, loaded shard by shard onto the card and queried, and
+    ``validate_k2u_self_sharded`` through it (every k-mer, or a stated
+    prefix where that would pass 60 s); 23c (after 14, on
+    synth300-capacity's direct SSHash) the bucket-sharded and all-to-all
+    K2U (the all-to-all's ``routed_ok`` share) and the compact sharded
+    query with and without the ``bpos`` rows and ``useqrec`` records, at
+    1x4 and 2x4; per-shard seconds, bytes a shard and the whole;
 18. one profiled replayed pass and one profiled eager pass of each of the
     paths of phases 6, 6a and 6c (its index moved to the card again; the
     serve pass's device pass alone; the flat streaming pass on the device),
-    7, 8, 8b, 8d, 21a's fixedcap2 path (its rows built again), 12, 17
-    and 19: device busy share and the kernels that take the time.
-    It runs last
+    7, 8, 8b, 8d, 21a's fixedcap2 path (its rows built again), 12, 17 and
+    19, recording the device alone: device busy share and the kernels that
+    take the time (an eager pass is not profiled once the run passes
+    ``EAGER_PROFILE_UNTIL_S``, and a line says so). It runs last
     because a profiler session slows the host's launches for the rest of
     the process (measured: the MPHF pass took 1.6-2x longer after one).
 
@@ -289,8 +315,8 @@ output streams at that read rate; its ``before_ms`` is its frozen first
 design's time in the same turns. A kernel's ``launches`` on a path run as a
 graph count the eager warm-up's and the captured launches: a replay
 adds none; K1's are those of phase 6's, 6e's and 6a's first replayed
-passes, of phase 6d's first mapper run and of phase 19's mono2 CLI
-calls, K2's and K3's those of their
+passes, of phase 6d's first mapper run, of phase 23a's data-parallel
+queries and of phase 19's mono2 CLI calls, K2's and K3's those of their
 main path's first replayed pass and of their mapper's first run (K3's on
 phases 17 and 20). K3's record also holds phase 20's numbers (``gbp_*``). The last
 two lines are the kernels' JSON record and the result
@@ -382,10 +408,23 @@ VALIDATE_CHUNK = 1 << 20
 SPEED_CH = 8  # rolled chunks of a reads1graph pass (bench.py:946-1010, MAZU_BENCH_CHUNKS)
 READ_BATCH = 1 << 18  # read k-mers a reads1graph chunk (MAZU_BENCH_BATCH)
 READS = 8192  # reads of the reads path (bench.py:637-657, MAZU_BENCH_READS)
+LAYOUT_ORACLE = 1 << 18  # lanes of phase 21b's CPU oracles
+SHARD_M2 = BATCH // 4  # phase-2 lanes a data shard of the sharded queries (phase 23)
+# phase 18 profiles no more eager passes past this many seconds of the run,
+# so that a slow machine still ends inside the 1,200 s limit
+EAGER_PROFILE_UNTIL_S = 1100.0
+
+
+T0 = time.perf_counter()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def mark(phase: str) -> None:
+    """A phase's start, in seconds since the script started."""
+    log(f"[time] phase {phase} starts at {time.perf_counter() - T0:.1f} s")
 
 
 def bound(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
@@ -610,18 +649,24 @@ def main():
     ap.add_argument("--mbp", type=float, default=50.0, help="mono2 genome size in Mbp")
     ap.add_argument("--cap-mbp", type=float, default=300.0, help="capacity genome size in Mbp")
     ap.add_argument("--mphf-mbp", type=float, default=300.0, help="MPHF genome size in Mbp")
-    ap.add_argument("--cli-mono2-mbp", type=float, default=5.0,
+    ap.add_argument("--cli-mono2-mbp", type=float, default=2.0,
                     help="genome size in Mbp of the CLI's mono2 leg")
+    ap.add_argument("--cuckoo-mbp", type=float, default=2.0,
+                    help="genome size in Mbp of phase 22's cuckoo KCDict leg")
+    ap.add_argument("--cuckoo-kphf-mbp", type=float, default=0.5,
+                    help="genome size in Mbp of phase 22's `kphf build cuckoo --validate`")
     ap.add_argument("--gbp-mbp", type=float, default=3000.0,
                     help="genome size in Mbp of the MPHF tier at 2^31 bases or more (phase 20)")
-    ap.add_argument("--mphf-check-mbp", type=float, default=20.0,
+    ap.add_argument("--mphf-check-mbp", type=float, default=10.0,
                     help="genome size in Mbp of phase 20's check of the card's build against "
                          "the same build on CPU tensors")
     args = ap.parse_args()
 
+    mark("1")
     # 1. card
     dev, smi = card()
 
+    mark("2")
     # 2. kernel builds, one nvcc per source, together
     t0 = time.perf_counter()
     (lib, ptxas), (lib2, ptxas2), (lib3, ptxas3), (lib4, ptxas4), (lib5, _) = compile_all(
@@ -632,9 +677,11 @@ def main():
     for line in ptxas_lines(ptxas):
         log(f"[build] {line}")
 
+    mark("3")
     # 3. the lab kernels, and the card's random-read rates from device memory
     labs, sector_rate = lab_kernels(dev, smi, lib4.name, ptxas4)
 
+    mark("4")
     # 4. index
     t0 = time.perf_counter()
     n_bases = int(args.mbp * 1e6)
@@ -660,6 +707,7 @@ def main():
         f"{table.numel() * 4} bytes (host: {host['k2u']['table'].shape}, "
         f"{host['k2u']['table'].nbytes} bytes)")
 
+    mark("5")
     # 5. kernel vs plain version
     truth = synth.sample_queries_truth(us, BATCH, seed=1)
     work = truth[0]
@@ -702,6 +750,7 @@ def main():
         f"its bound, {k1_ms / k1_block_floor:.2f}x its block floor; no single torch call "
         f"computes the probe ({smi})")
 
+    mark("6")
     # 6. main path
     t0 = time.perf_counter()
     work_cpu = torch.from_numpy(work.view(np.int64))
@@ -744,36 +793,47 @@ def main():
         raise AssertionError(f"worst overflow {worst} > M2 {M2}")
     derived_capture_raises(dev)
     del og, og_eager
+    mark("6e")
     # 6e. bench.py's reads1graph traffic on this index, beside phase 8b's
     reads_launches = mono2_reads(index, host, gpu_index, smi)
 
+    mark("6a-6b")
     # 6a-6b. the serve pass and the validation oracles on this index
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, serve = serve_phase(index, host, gpu_index, dev, smi, tmp)
         validation_phase(index, gpu_index, dev, tmp)
+        mark("6c-6d")
         # 6c-6d. the streaming index and the read mapper on this index
         stream = streaming_phase(index, host, gpu_index, dev, smi, tmp)
         map_launches = mapping_phase("map mono2", index, gpu_index,
                                      QueryIndex(arrays_from_numpy(host, "cpu")), mono2_probe,
                                      smi, tmp)
+    mark("22c, 23a")
+    # 22c, 23a. bucket_range and the data-parallel and mono sharded queries
+    dp_launches = mono2_shards(index, host, gpu_index, work, fw, dev, smi)
     log(f"[main] mono2_probe launches: {launches} on the main path, {reads_launches} on "
-        f"reads1graph, {serve_launches} on the serve pass, {map_launches} in the read mapper")
+        f"reads1graph, {serve_launches} on the serve pass, {map_launches} in the read mapper, "
+        f"{dp_launches} in the data-parallel queries")
     k1 = record("mono2_probe", "mono2_probe.cu", "mazu_tpu/ops/pallas_query.py:46",
-                launches + reads_launches + serve_launches + map_launches, max_err, k1_ms,
+                launches + reads_launches + serve_launches + map_launches + dp_launches, max_err,
+                k1_ms,
                 plain_ms, k1_bound, sector_floor_ms=k1_floor, block_floor_ms=k1_block_floor)
     # the card's copy of the index goes now; phase 18 builds it again
     profile_mono2 = mono2_profile(host, fw, M2, times, serve, stream)
     del gpu_index, d, table, r
     torch.cuda.empty_cache()
 
+    mark("7-8")
     # 7-8. the pufferfish dense and sparse paths over this genome
     profile_pf1 = [pf1_path(kind, genome, n_bases, truth, dev, smi) for kind in ("dense", "sparse")]
     torch.cuda.empty_cache()
+    mark("8a-8e")
     # 8a-8e. the SSHash speed tier over this genome
     profile_speed = speed(genome, n_bases, truth, dev, smi)
     del genome, index
     torch.cuda.empty_cache()
 
+    mark("9")
     # 9. K2 build report
     log(f"[k2 build] {lib2.name}")
     for line in ptxas_lines(ptxas2):
@@ -783,16 +843,24 @@ def main():
     torch.cuda.empty_cache()
     k3, profile_mphf = mphf(args, dev, smi, sector_rate)
     torch.cuda.empty_cache()
+    mark("19")
     # 19. the CLI
     profile_cli = cli_phase(args, dev, smi, k1)
     torch.cuda.empty_cache()
+    mark("22a-22b")
+    # 22a-22b. the cuckoo KCDict through the CLI, wide slots
+    kcdict_rest(args, dev, smi)
+    mark("20")
     # 20. synth3000-mphf: the MPHF tier past 2^31 bases, built on the card
     gbp(args, dev, smi, sector_rate, lib5, k3)
 
+    mark("18")
     # 18. profiled passes
-    for profile in (profile_mono2, *profile_pf1, profile_speed, profile_cap, profile_mphf,
-                    profile_cli):
+    for i, profile in enumerate((profile_mono2, *profile_pf1, profile_speed, profile_cap,
+                                 profile_mphf, profile_cli)):
+        mark(f"18.{i}")
         profile()
+    mark("end")
     log(json.dumps({"kernels": [k1, k2, k3, *labs]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -2205,6 +2273,7 @@ def mono2_reads(index, host: dict, gpu_index, smi) -> int:
 def speed(genome, n_bases: int, truth, dev, smi):
     """Phases 8a-8e: the SSHash speed tier over phase 4's genome. Returns a
     function that runs the profiled passes of 8b and 8d."""
+    mark("8a")
     # 8a. the speed index, in its two fused layouts
     t0 = time.perf_counter()
     index = synth.build_speed_index(n_bases, seed=0, device=dev, chunk=1 << 22, genome=genome)
@@ -2239,6 +2308,7 @@ def speed(genome, n_bases: int, truth, dev, smi):
     if gpu2.nbytes() != speed_bytes(index):
         raise AssertionError(f"speed_bytes {speed_bytes(index)} != the layout's {gpu2.nbytes()}")
 
+    mark("8b")
     # 8b. bench.py's reads1graph pass: the k-mers of reads of READ_LEN bases
     stack_cpu = reads1graph_stack(index.refs, k)
     fw_r = stack_cpu.to(dev)
@@ -2251,9 +2321,11 @@ def speed(genome, n_bases: int, truth, dev, smi):
         READ_BATCH * SPEED_CH, 3, None, smi)
     log(f"[reads1graph] worst overflow {worst} within M2; the rates above are read k-mers/s")
 
+    mark("8c")
     # 8c. bench.py's reads path (BASELINE config 3)
     reads_phase(index, cpu1, gpu1, dev, smi)
 
+    mark("8d")
     # 8d. uniform queries: phase 5's batch through the speed layout
     t0 = time.perf_counter()
     work, uid, off, foreign = truth
@@ -2282,6 +2354,7 @@ def speed(genome, n_bases: int, truth, dev, smi):
         "speed uniform", gpu2, og_u.checksum_pass_rolled, og_ue.checksum_pass_rolled, fw_u,
         CH * host_chk_u, BATCH * CH, PASSES, None, smi)
 
+    mark("8e")
     # 8e. the read mapper, in the speed tier by the rule, then in the
     # capacity tier asked for (its K2 launches not counted: a comparison)
     qc = QueryIndex(arrays_from_numpy(index.device_arrays(**synth.CAPACITY_LAYOUT), "cpu")).to(dev)
@@ -2290,8 +2363,12 @@ def speed(genome, n_bases: int, truth, dev, smi):
                       rival=dict(qi=qc, driver="CompactQuery", tier="capacity", probe=bpos_probe))
     del cpu1, cpu2, qc
 
+    mark("21")
     # 21. the rest of the SSHash layouts and the wavelet-matrix table
     profile_layouts = layouts(index, truth, fw_u, times_u, dev, smi)
+    mark("23b")
+    # 23b. the fused sharded query and a sharded checkpoint of these rows
+    speed_shards(index, fw_u, dev, smi)
 
     def profile():
         profile_both("reads1graph", lambda: og_r.checksum_pass(fw_r),
@@ -2362,6 +2439,7 @@ def layouts(index, truth, fw_u, times_u: dict, dev, smi):
     inline_rate = BATCH * CH / times_u["graph"]
     found = {}
 
+    mark("21a")
     # 21a. fused fixedcap2 and fixedcap rows through OneGraphIndexQuery
     for kind in ("fixedcap2", "fixedcap"):
         host, gpu_qi = fixedcap_rows(index, kind, dev, smi)
@@ -2395,11 +2473,13 @@ def layouts(index, truth, fw_u, times_u: dict, dev, smi):
             f"{inline_rate:.1f} ({smi})")
         del og, og_e
         if kind == "fixedcap":
+            mark("21d")
             # 21d. run sharing on the fixedcap rows
             fixedcap_reads(index, cpu_qi, gpu_qi, dev, smi)
         del host, cpu_qi, gpu_qi
         torch.cuda.empty_cache()
 
+    mark("21b")
     # 21b. the other layouts through the padded query
     for tag, kw in OTHER_LAYOUTS:
         host = index.device_arrays(**kw)
@@ -2407,18 +2487,21 @@ def layouts(index, truth, fw_u, times_u: dict, dev, smi):
         gpu_qi = QueryIndex(arrays_from_numpy(host, "cpu")).to(dev)
         del host
         t0 = time.perf_counter()
-        want = get_ref_pos_padded(cpu_qi.arrays(), work_cpu, mo)
+        want = get_ref_pos_padded(cpu_qi.arrays(), work_cpu[:LAYOUT_ORACLE], mo)
         cpu_s = time.perf_counter() - t0
-        same_out(tag, get_ref_pos_padded(gpu_qi.arrays(), fw_u, mo), want)
+        got = get_ref_pos_padded(gpu_qi.arrays(), fw_u, mo)
+        same_out(tag, {kk: v[:LAYOUT_ORACLE] for kk, v in got.items()}, want)
         ms = cuda_ms(lambda: get_ref_pos_padded(gpu_qi.arrays(), fw_u, mo), 3)
         m = gpu_qi.arrays()["k2u"]["meta"]
         log(f"[layout {tag}] pos_kind {m.pos_kind}, prefix_kind {m.prefix_kind}: "
-            f"get_ref_pos_padded on {BATCH} queries == CPU on every lane ({cpu_s:.1f} s); "
+            f"get_ref_pos_padded on {BATCH} queries, the first {LAYOUT_ORACLE} == CPU on every "
+            f"lane ({cpu_s:.1f} s); "
             f"{ms:.2f} ms on the card = {BATCH / ms * 1e3:.1f} queries/s; {gpu_qi.nbytes()} "
             f"bytes on the card ({smi})")
-        del cpu_qi, gpu_qi, want
+        del cpu_qi, gpu_qi, want, got
         torch.cuda.empty_cache()
 
+    mark("21c")
     # 21c. TwoPhaseSSHash, bench.py's 2phase mode
     tp = TwoPhaseSSHash(index.k2u, device=dev)
     got = tp.k2u(work)
@@ -2442,6 +2525,7 @@ def layouts(index, truth, fw_u, times_u: dict, dev, smi):
         f"{BATCH * TWOPHASE_ITERS / dt:.1f} queries/s, host words in and out ({smi})")
     del tp, full
 
+    mark("21e")
     # 21e. bucket_range: the one-hot sum of four shards
     host = index.k2u.device_arrays()
     whole_d = arrays_from_numpy(host, dev)
@@ -2468,6 +2552,7 @@ def layouts(index, truth, fw_u, times_u: dict, dev, smi):
     del host, whole_d, whole, acc
     torch.cuda.empty_cache()
 
+    mark("21f")
     # 21f. the wavelet-matrix occurrence table
     t0 = time.perf_counter()
     wt = WMUnitigTable.from_piscem(index.u2pos)
@@ -2710,6 +2795,7 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
     """Phases 10-14; returns K2's record for the kernels line and the
     capacity path's profiled pass. ``sector_rate``: phase 3's random-sector
     rate (sectors/s), for K2's sector floor."""
+    mark("10")
     # 10. the capacity index
     t0 = time.perf_counter()
     index = synth.build_capacity_index(int(args.cap_mbp * 1e6), seed=0, device=dev, chunk=1 << 24)
@@ -2734,6 +2820,7 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
         f"{t_arrays:.1f} s, to card {t_card:.1f} s; {gpu_index.nbytes()} bytes on the card "
         f"(bpos {k2u['bpos'].numel() * 4}, useqrec {k2u['us']['useqrec'].numel() * 8})")
 
+    mark("11")
     # 11. K2 against its plain version
     work, uid, upos = synth.sample_capacity_queries(us, BATCH, seed=1)
     fw = torch.from_numpy(work.view(np.int64)).to(dev)
@@ -2783,6 +2870,7 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
         f"the same rate ({smi})")
     del want
 
+    mark("12")
     # 12. the capacity main path
     launches, m2c, profile = sshash_path(
         "cap main", cpu_index, gpu_index, work, uid, upos, fw,
@@ -2802,14 +2890,17 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
     del qs
     torch.cuda.empty_cache()
 
+    mark("12a")
     # 12a. the speed layout of this build
     capacity_speed(index, work, uid, upos, fw, smi)
 
+    mark("13")
     # 13. K3 build report
     log(f"[k3 build] {lib3}")
     for line in ptxas_lines(ptxas3):
         log(f"[k3 build] {line}")
 
+    mark("14")
     # 14. K3 on the direct layout: these arrays without bpos and useqrec,
     # with uproj records
     uproj = torch.from_numpy(build_uproj(index.u2pos, us).view(np.int64)).to(dev)
@@ -2828,6 +2919,9 @@ def capacity(args, dev, smi, lib3: str, ptxas3: str, sector_rate: float):
     log(f"[k3 direct] N=1, N=257 and 2^20 at probe limits 1-3: bit-identical on all ten fields; "
         f"N={BATCH} at probe limit {PLIM}: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms "
         f"({smi})")
+    mark("23c")
+    # 23c. the bucket-sharded, all-to-all and compact sharded queries
+    capacity_shards(index, gpu_index, cpu_index.arrays()["k2u"], fw, dev, smi)
     return record("bpos_probe", "bpos_probe.cu", "mazu_tpu/ops/pallas_capacity.py:266",
                   launches, max_err, k2_ms, k2_plain_ms, k2_bound,
                   sector_floor_ms=k2_floor), profile
@@ -2923,6 +3017,7 @@ def lane_counts(k2u: dict, fw: torch.Tensor, plim: int, mlim) -> dict:
 def mphf(args, dev, smi, sector_rate: float):
     """Phases 15-17; returns K3's record for the kernels line and the MPHF
     path's profiled pass (``sector_rate`` as for ``capacity``)."""
+    mark("15")
     # 15. the MPHF index
     t0 = time.perf_counter()
     index = synth.build_mphf_index(int(args.mphf_mbp * 1e6), seed=0, device=dev, chunk=1 << 24)
@@ -2954,6 +3049,7 @@ def mphf(args, dev, smi, sector_rate: float):
         f"{k2u['pos']['words'].numel() * 8}, MPHF words {k2u['mphf']['words'].numel() * 4}, "
         f"uproj {k2u['us']['uproj'].numel() * 8})")
 
+    mark("16")
     # 16. K3 against its plain version
     work, uid, upos = synth.sample_capacity_queries(us, BATCH, seed=1)
     fw = torch.from_numpy(work.view(np.int64)).to(dev)
@@ -3023,9 +3119,11 @@ def mphf(args, dev, smi, sector_rate: float):
         log(f"[k3 mphf] N={BATCH} at probe limit {PLIM}, level limit {mlim}: kernel "
             f"{cuda_ms(lambda: kern_l(k2u, fw), 20):.4f} ms ({smi})")
 
+    mark("17")
     # 17. the MPHF main path
     launches, _, profile = sshash_path("mphf main", cpu_index, gpu_index, work, uid, upos, fw,
                                        synth.MPHF_QUERY, capacity_probe, smi)
+    mark("17a")
     # 17a. C10 on the card
     qs = c10_on_card(index, gpu_index, work, fw)
     # 6d on the MPHF index: the read mapper in the capacity tier by the
@@ -3464,8 +3562,14 @@ def graph_and_eager(tag: str, index, graph_pass, eager_pass, x: torch.Tensor, wa
 
 
 def profile_both(tag: str, run_graph, run_eager, times: dict):
-    """Phase 18: one profiled replayed pass and one profiled eager pass."""
+    """Phase 18: one profiled replayed pass and one profiled eager pass
+    (the eager one only before ``EAGER_PROFILE_UNTIL_S``)."""
     profile_pass(f"{tag} graph", run_graph, times["graph"])
+    now = time.perf_counter() - T0
+    if now > EAGER_PROFILE_UNTIL_S:
+        log(f"[profile {tag} eager] not profiled: the run is at {now:.1f} s, past "
+            f"{EAGER_PROFILE_UNTIL_S:.0f} s")
+        return
     profile_pass(f"{tag} eager", run_eager, times["eager"])
 
 
@@ -3488,16 +3592,530 @@ def derived_capture_raises(dev):
     torch.cuda.synchronize()
 
 
-def profile_pass(tag: str, run, pass_s: float):
+def kcdict_rest(args, dev, smi: str) -> None:
+    """Phases 22a-22b: the cuckoo KCDict through the CLI (``index build
+    piscem --engine cuckoo`` over ``--cuckoo-mbp`` of synth's genome as
+    cuttlefish files, its padded query on the card against the CPU and the
+    sampled truth, ``validate-fasta``; ``kphf build cuckoo --validate`` over
+    ``--cuckoo-kphf-mbp``, since it places the same keys again on the host),
+    then a wide-slot mono2 dictionary (a unitig of 2^24 bases) and the mono
+    layout of the same keys, queried on the card against the CPU; K1 never
+    sees the wide dictionary."""
+    from mazu_tpu_torch.containers.unitig_set import UnitigSet
+    from mazu_tpu_torch.index.spt import SPT
+    from mazu_tpu_torch.io import checkpoint
+    from mazu_tpu_torch.kphf.kcdict import KCDict
+
+    phase_t0 = time.perf_counter()
+    c_bases, kc_bases = int(args.cuckoo_mbp * 1e6), int(args.cuckoo_kphf_mbp * 1e6)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix, kprefix, fa, npz, knpz = (os.path.join(tmp, x)
+                                          for x in ("c", "kc", "c.fa", "c.npz", "k.npz"))
+        synth.write_cf(prefix, c_bases, fasta=fa)
+        synth.write_cf(kprefix, kc_bases)
+        _, build_s = run_cli("cli cuckoo", ["index", "build", "piscem", "-p", prefix, "-o", npz,
+                                            "--engine", "cuckoo"])
+        ci = checkpoint.load_index(npz)
+        kc = ci.k2u
+        if kc.scheme != "cuckoo" or kc.side is not None:
+            raise AssertionError(f"[cli cuckoo] built {kc.scheme}")
+        _, val_s = run_cli("cli cuckoo", ["index", "validate-fasta", "-i", npz, "-f", fa])
+        _, kb_s = run_cli("cli cuckoo", ["kphf", "build", "cuckoo", "-p", kprefix, "-o", knpz,
+                                         "--validate"])
+    host = ci.device_arrays()
+    work, uid, off, foreign = synth.sample_queries_truth(kc.unitigs, BATCH, seed=3)
+    work_cpu = torch.from_numpy(work.view(np.int64))
+    fw = work_cpu.to(dev)
+    gq = QueryIndex(arrays_from_numpy(host, "cpu")).to(dev)
+    mo = gq.max_occs
+    want = get_ref_pos_padded(arrays_from_numpy(host, "cpu"), work_cpu, mo)
+    reset_launches()
+    got = get_ref_pos_padded(gq.arrays(), fw, mo)
+    for key, w in want.items():
+        g = got[key].cpu()
+        if w.dim() == 2:
+            g, w = torch.where(want["valid"], g, 0), torch.where(want["valid"], w, 0)
+        if not torch.equal(g, w):
+            raise AssertionError(f"[cuckoo] the padded query on the card differs from the CPU in "
+                                 f"{key}")
+    hit = want["mt"].numpy() > 0
+    if not (hit[~foreign].all() and not hit[foreign].any()
+            and np.array_equal(want["unitig_id"].numpy()[~foreign], uid[~foreign])
+            and np.array_equal(want["pos"].numpy()[~foreign], off[~foreign])):
+        raise AssertionError("[cuckoo] the query disagrees with the sampled lanes")
+    pad_ms = cuda_ms(lambda: get_ref_pos_padded(gq.arrays(), fw, mo), 5)
+    k2u_ms = cuda_ms(lambda: kcdict_k2u(gq.arrays()["k2u"], fw), 10)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    log(f"[cuckoo] {c_bases} bases ({kc.n_kmers} k-mers), T={kc.T} buckets of "
+        f"{kc.table.nbytes} table bytes (the card's L2: {l2}), salt {kc.salt}: "
+        f"build through the CLI {build_s:.2f} s, validate-fasta {val_s:.2f} s, kphf build "
+        f"--validate over {kc_bases} bases {kb_s:.2f} s; padded query of {BATCH} on the card "
+        f"equals the CPU and the sampled truth: {pad_ms:.3f} ms, its two-row K2U "
+        f"{k2u_ms:.3f} ms; "
+        f"{gq.nbytes()} bytes on the card ({smi})")
+    del gq, got, want, ci, host
+
+    mark("22b")
+    # 22b. wide slots: a unitig of 2^24 bases
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    L = 1 << 24
+    codes = rng.integers(0, 4, L + 6 * 200).astype(np.uint8)
+    accum = np.concatenate([[0, L], L + 200 * np.arange(1, 7)]).astype(np.int64)
+    us = UnitigSet(31, SeqVector.from_codes(codes), accum)
+    occ = (np.array([0, 0, 1, 2, 3, 4, 5, 6]), np.array([0, 7, 1, 2, 3, 4, 5, 6]),
+           np.array([0, 9, 0, 0, 0, 0, 0, 0]), np.array([1, 0, 1, 1, 1, 1, 1, 1]))
+    lens = np.array([L] + [200] * 6 + [L + 9])
+    names = [f"r{i}" for i in range(8)]
+    u2 = SPT(us, names, *occ, lens).piscem_table()
+    wide = KCDict.from_unitig_set(us, 0.5, u2, "mono2")
+    wide_s = time.perf_counter() - t0
+    if wide.slot_words != 10 or wide.occ32:
+        raise AssertionError(f"[wide] {wide.slot_words}-word slots, occ32={wide.occ32}")
+    wmo = max(1, u2.max_occs())
+    wi = ModIndex(wide, u2, synth.RefSeqCollection.from_lens(lens, names), index_type="t")
+    host2 = wi.device_arrays(fused=True)
+    t2, s2 = wide.table.reshape(wide.T, 2, 10), wide.side.reshape(-1, 2, 10)
+    mono = {**host2["k2u"], "table": t2[:, :, :8].reshape(wide.T, 16),
+            "side": s2[:, :, :8].reshape(-1, 16),
+            "meta": host2["k2u"]["meta"].replace(scheme="mono", sw=8, split=False)}
+    pos = rng.permutation(np.concatenate([rng.integers(0, L - 31, BATCH - 4096),
+                                          accum[1] + rng.integers(0, 1169, 4096)]))
+    words = us.get_kmer_u64(pos)
+    flip = rng.random(BATCH) < 0.5
+    words[flip] = revcomp_np(words[flip], 31)
+    words_cpu = torch.from_numpy(words.view(np.int64))
+    wfw = words_cpu.to(dev)
+    head = min(LAYOUT_ORACLE, BATCH)
+    for name, kd in (("mono2", host2["k2u"]), ("mono", mono)):
+        cpu_d, gpu_d = arrays_from_numpy(kd, "cpu"), arrays_from_numpy(kd, dev)
+        for mode in ("main", "full"):
+            want = kcdict_k2u(cpu_d, words_cpu[:head], mode=mode)
+            got = kcdict_k2u(gpu_d, wfw, mode=mode)
+            for key, w in want.items():
+                if not torch.equal(got[key][:head].cpu(), w):
+                    raise AssertionError(f"[wide] {name} {mode}: the card differs from the CPU "
+                                         f"in {key}")
+        if int((want["unitig_len"] == L).sum()) == 0:
+            raise AssertionError("[wide] no lane in the 2^24-base unitig")
+        wms = cuda_ms(lambda: kcdict_k2u(gpu_d, wfw), 5)
+        log(f"[wide] {name} {kd['meta'].sw}-word slots: main and full K2U of {BATCH} on the "
+            f"card, the first {head} equal to the CPU ({int((want['mt'] > 0).sum())} hits, "
+            f"{int((want['unitig_len'] == L).sum())} in the 2^24-base unitig); full {wms:.3f} ms "
+            f"({smi})")
+        del cpu_d, gpu_d
+    wq = QueryIndex(arrays_from_numpy(host2, "cpu")).to(dev)
+    reset_launches()
+    get_ref_pos_compact(wq.arrays(), wfw, wmo, m2=BATCH // 4)
+    got = get_ref_pos_compact(wq.arrays(), wfw[:head], wmo, m2=head // 4)
+    if mono2_probe.LAUNCHES:
+        raise AssertionError("[wide] K1 ran on a wide mono2 dictionary")
+    want = get_ref_pos_compact(arrays_from_numpy(host2, "cpu"), words_cpu[:head], wmo,
+                               m2=head // 4)
+    for key in ("unitig_id", "unitig_len", "pos", "mt", "n_occs", "valid", "over_budget"):
+        if not torch.equal(got[key].cpu(), want[key]):
+            raise AssertionError(f"[wide] the compact query differs from the CPU in {key}")
+    log(f"[wide] mono2 build on the host {wide_s:.1f} s ({wide.n_kmers} k-mers, T={wide.T}, "
+        f"side T={wide.side_T}); get_ref_pos_compact of {BATCH} on the card with no K1 "
+        f"launch, the first {head} equal to the CPU's; {wq.nbytes()} bytes on the card; phase 22 in "
+        f"{time.perf_counter() - phase_t0:.1f} s")
+    del wq, got, want, wide, wi, host2, mono
+    torch.cuda.empty_cache()
+
+
+def speed_shards(index, fw: torch.Tensor, dev, smi: str) -> None:
+    """Phase 23b on synth50-speed's fused inline2 rows: the fused sharded
+    query through ``SerialMesh`` at 1x4 and 2x4 against the unsharded query
+    on the card (held to the CPU on 2^16 lanes); then a sharded checkpoint
+    of four shards saved, loaded shard by shard onto the card and queried,
+    and ``validate_k2u_self_sharded`` through the loaded query."""
+    from mazu_tpu_torch.index.validate import validate_k2u_self_sharded
+    from mazu_tpu_torch.io import sharded_ckpt
+    from mazu_tpu_torch.parallel import sharding
+    from mazu_tpu_torch.parallel.mesh import SerialMesh
+
+    phase_t0 = time.perf_counter()
+    host = index.device_arrays(**synth.SPEED_LAYOUT)
+    gq = QueryIndex(arrays_from_numpy(host, "cpu")).to(dev)
+    d, mo, m2 = gq.arrays(), gq.max_occs, SHARD_M2
+
+    def single(f):
+        return get_ref_pos_compact(d, f, mo, merge=False, m2=m2, probe_limit=2)
+
+    head = 1 << 16
+    want = get_ref_pos_compact(arrays_from_numpy(host, "cpu"), fw[:head].cpu(), mo, m2=head,
+                               probe_limit=2)
+    got = get_ref_pos_compact(d, fw[:head], mo, m2=head, probe_limit=2)
+    for kk in ("unitig_id", "unitig_len", "pos", "mt", "n_occs", "valid"):
+        if not torch.equal(got[kk].cpu(), want[kk]):
+            raise AssertionError(f"[shard fused] the unsharded card query differs from the CPU "
+                                 f"in {kk}")
+    del host, got, want
+    single_s = wall_s(lambda: single(fw))
+    t0 = time.perf_counter()
+    shared, stacked = sharding.shard_fused_arrays(index, 4)
+    part_s = time.perf_counter() - t0
+    shared_dev, stacked_dev = sharding.place_sharded(shared, stacked, SerialMesh(1, 4, dev))
+    del stacked
+    for nd in (1, 2):
+        mesh = SerialMesh(nd, 4, dev)
+        q = sharding.build_fused_sharded_query(shared, shared_dev, stacked_dev, mesh, m2=m2,
+                                               max_occs=mo)
+        check_sharded(f"fused {nd}x4", q(fw), single, fw, nd, m2)
+        mesh.reset_seconds()
+        shard_log("shard fused", mesh, shared_dev, stacked_dev, wall_s(lambda: q(fw)), single_s,
+                  smi)
+    del shared_dev, stacked_dev, q
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "fused")
+        t0 = time.perf_counter()
+        sharded_ckpt.save_fused_sharded(ck, index, 4)
+        save_s = time.perf_counter() - t0
+        files = {f: os.path.getsize(os.path.join(ck, f)) for f in sorted(os.listdir(ck))}
+        t0 = time.perf_counter()
+        mesh = SerialMesh(2, 4, dev)
+        q = sharded_ckpt.make_fused_sharded_query_from_ckpt(ck, mesh, m2=m2)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    check_sharded("fused ckpt 2x4", q(fw), single, fw, 2, m2)
+    log(f"[shard ckpt] four fused shards of synth50-speed: partition {part_s:.1f} s, save "
+        f"(the partition again, savez_compressed) {save_s:.1f} s, load shard by shard onto the card {load_s:.1f} s; "
+        f"files {files}; the loaded query (2x4) equals the unsharded query on {BATCH} lanes")
+    # validate_k2u_self_sharded: every k-mer if a batch's rate allows 60 s;
+    # a data shard's phase 2 holds all its lanes (sequential k-mers cluster
+    # in the 3-occurrence unitigs)
+    n_all = index.k2u.unitigs.n_kmers
+    batch = 2 * m2
+    t0 = time.perf_counter()
+    validate_k2u_self_sharded(q, index.k2u, batch=batch, n_kmers=batch)
+    per = time.perf_counter() - t0
+    n_val = n_all if per * n_all / batch <= 60 else max(1, int(15 / per)) * batch
+    t0 = time.perf_counter()
+    validate_k2u_self_sharded(q, index.k2u, batch=batch, n_kmers=n_val)
+    log(f"[shard ckpt] validate_k2u_self_sharded through the loaded query: "
+        f"{'every k-mer' if n_val >= n_all else f'the first {n_val} of {n_all} k-mers'}, both "
+        f"strands, in {time.perf_counter() - t0:.1f} s (a batch of {batch}: {per:.2f} s); "
+        f"phase 23b in {time.perf_counter() - phase_t0:.1f} s ({smi})")
+    del q, gq
+    torch.cuda.empty_cache()
+
+
+def bucket_alltoall(ss, k2u: dict, cpu_k2u: dict, fw: torch.Tensor, dev, smi: str) -> None:
+    """The bucket-sharded and all-to-all K2U of SSHash ``ss`` (one
+    partition, four shards) through ``SerialMesh`` at 1x4 and 2x4, against
+    the unsharded full-mode K2U on the card's arrays ``k2u`` (held to
+    ``cpu_k2u``, the same arrays on the CPU, on 2^16 lanes); the all-to-all
+    query's ``routed_ok`` share."""
+    from mazu_tpu_torch.parallel import sharding
+    from mazu_tpu_torch.parallel.mesh import SerialMesh
+
+    want = sshash_k2u(k2u, fw)
+    head = 1 << 16
+    cpu = sshash_k2u(cpu_k2u, fw[:head].cpu())
+    for kk in ("unitig_id", "unitig_len", "pos", "mt"):
+        if not torch.equal(want[kk][:head].cpu(), cpu[kk]):
+            raise AssertionError(f"[shard bucket] the unsharded K2U differs from the CPU in {kk}")
+    single_s = wall_s(lambda: sshash_k2u(k2u, fw))
+    t0 = time.perf_counter()
+    shared, stacked = sharding.shard_sshash_buckets(ss, 4)
+    part_s = time.perf_counter() - t0
+    shared_dev, stacked_dev = sharding.place_sharded(shared, stacked, SerialMesh(1, 4, dev))
+    del shared, stacked
+    n_buckets = len(ss.occs_prefix_sum) - 1
+    for nd in (1, 2):
+        mesh = SerialMesh(nd, 4, dev)
+        for name, build in (
+                ("bucket", sharding.build_bucket_sharded_query),
+                ("alltoall", lambda *a: sharding.build_alltoall_sharded_query(*a, n_buckets))):
+            q = build(shared_dev, stacked_dev, mesh)
+            got = q(fw)
+            ok = got.get("routed_ok", torch.ones_like(fw, dtype=torch.bool))
+            for kk in ("unitig_id", "unitig_len", "pos", "mt"):
+                if not torch.equal(torch.where(ok, got[kk], 0), torch.where(ok, want[kk], 0)):
+                    raise AssertionError(f"[shard {name}] {nd}x4 differs from the unsharded K2U "
+                                         f"in {kk}")
+            mesh.reset_seconds()
+            qs = wall_s(lambda: q(fw))
+            share = f", routed_ok {float(ok.float().mean()):.6f}" if name == "alltoall" else ""
+            shard_log(f"shard {name} (equals the unsharded K2U on the routed lanes{share})", mesh,
+                      shared_dev, stacked_dev, qs, single_s, smi)
+            del q, got
+    log(f"[shard bucket] bucket and all-to-all queries in {time.perf_counter() - t0:.1f} s "
+        f"(partition {part_s:.1f} s)")
+    del shared_dev, stacked_dev
+    torch.cuda.empty_cache()
+
+
+def capacity_shards(index, gpu_index, cpu_k2u: dict, fw: torch.Tensor, dev, smi: str) -> None:
+    """Phase 23c on synth300-capacity's direct SSHash: the bucket-sharded
+    and all-to-all K2U (``bucket_alltoall``; ``cpu_k2u``: the index's K2U
+    arrays on the CPU), then the compact sharded query with and without the
+    ``bpos`` rows and ``useqrec`` records, through ``SerialMesh`` at 1x4
+    and 2x4, its merged answers against the unsharded padded query on the
+    card."""
+    from mazu_tpu_torch.index.validate import merge_sharded_out
+    from mazu_tpu_torch.parallel import sharding
+    from mazu_tpu_torch.parallel.mesh import SerialMesh
+
+    phase_t0 = time.perf_counter()
+    d = gpu_index.arrays()
+    bucket_alltoall(index.k2u, d["k2u"], cpu_k2u, fw, dev, smi)
+    mo, m2 = gpu_index.max_occs, SHARD_M2
+    padded = get_ref_pos_padded(d, fw, mo)
+    padded_s = wall_s(lambda: get_ref_pos_padded(d, fw, mo))
+    for bi_uq in (False, True):
+        t0 = time.perf_counter()
+        shared, stacked = sharding.shard_compact_arrays(index, 4, bucket_inline=bi_uq,
+                                                        useqrec=bi_uq)
+        part_s = time.perf_counter() - t0
+        shared_dev, stacked_dev = sharding.place_sharded(shared, stacked, SerialMesh(1, 4, dev))
+        del stacked
+        for nd in (1, 2):
+            mesh = SerialMesh(nd, 4, dev)
+            q = sharding.build_compact_sharded_query(shared, shared_dev, stacked_dev, mesh, m2=m2,
+                                                     max_occs=mo, probe_limit=3)
+            out = q(fw)
+            if bool(out["over_budget"].any()):
+                raise AssertionError("[shard compact] over budget")
+            merged = merge_sharded_out(cpu_tree(
+                {kk: out[kk] for kk in ("main", "lanes", "slot_real", "n_ovf", "phase2")}))
+            for kk in ("unitig_id", "unitig_len", "pos", "mt"):
+                if not np.array_equal(merged[kk], padded[kk].cpu().numpy()):
+                    raise AssertionError(f"[shard compact] {nd}x4 bpos/useqrec={bi_uq}: merged "
+                                         f"{kk} differs from the unsharded padded query")
+            mesh.reset_seconds()
+            shard_log(f"shard compact bpos+useqrec={bi_uq} (partition {part_s:.1f} s; the "
+                      f"unsharded: the padded query)", mesh, shared_dev, stacked_dev,
+                      wall_s(lambda: q(fw)), padded_s, smi)
+            del q, out
+        del shared_dev, stacked_dev, shared
+        torch.cuda.empty_cache()
+    log(f"[shard cap] phase 23c in {time.perf_counter() - phase_t0:.1f} s")
+
+
+# ---------------------------------------------------------------- 22-23
+def cpu_tree(t):
+    if isinstance(t, dict):
+        return {kk: cpu_tree(v) for kk, v in t.items()}
+    return t.cpu()
+
+
+def wall_s(fn) -> float:
+    """Seconds of one call, the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def same_pieces(tag: str, got: dict, want: dict) -> None:
+    """A sharded query's ``merge=False`` pieces of one data shard equal the
+    unsharded query's: every field, but phase-2 slots past the flagged
+    count and projections of invalid occurrences."""
+    def eq(a, b, what, mask=None):
+        a, b = a.cpu(), b.cpu()
+        if mask is not None:
+            m = mask if mask.dim() == a.dim() else mask[:, None]
+            a, b = torch.where(m, a, 0), torch.where(m, b, 0)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"[{tag}] {what} differs from the unsharded query")
+
+    for key in ("overflow", "slot_real", "n_ovf", "over_budget"):
+        eq(got[key].reshape(want[key].shape), want[key], key)
+    sr = want["slot_real"].cpu()
+    eq(got["lanes"], want["lanes"], "lanes", sr)
+    for key in ("unitig_id", "unitig_len", "pos", "mt", "n_occs", "valid"):
+        eq(got["main"][key], want["main"][key], f"main {key}")
+    for key in ("ref_id", "ref_pos", "orient"):
+        eq(got["main"][key], want["main"][key], f"main {key}", want["main"]["valid"].cpu())
+    for key in ("unitig_id", "unitig_len", "pos", "mt", "n_occs"):
+        eq(got["phase2"][key], want["phase2"][key], f"phase2 {key}", sr)
+    v2 = want["phase2"]["valid"].cpu() & sr[:, None]
+    eq(got["phase2"]["valid"].cpu() & sr[:, None], v2, "phase2 valid")
+    for key in ("ref_id", "ref_pos", "orient"):
+        eq(got["phase2"][key], want["phase2"][key], f"phase2 {key}", v2)
+
+
+def data_shard(out: dict, d: int, n_data: int, n: int, m2: int) -> dict:
+    """Data shard ``d``'s pieces of a sharded ``merge=False`` result."""
+    lane, slot = slice(d * (n // n_data), (d + 1) * (n // n_data)), slice(d * m2, (d + 1) * m2)
+    return {"main": {kk: v[lane] for kk, v in out["main"].items()},
+            "overflow": out["overflow"][lane], "lanes": out["lanes"][slot],
+            "slot_real": out["slot_real"][slot],
+            "phase2": {kk: v[slot] for kk, v in out["phase2"].items()},
+            "n_ovf": out["n_ovf"][d], "over_budget": out["over_budget"][d]}
+
+
+def check_sharded(tag: str, out: dict, single, fw: torch.Tensor, n_data: int, m2: int) -> None:
+    """Each data shard of ``out`` against ``single(fw slice)``, the
+    unsharded query on one card."""
+    n = fw.shape[0]
+    for d in range(n_data):
+        same_pieces(f"{tag} data shard {d}", data_shard(out, d, n_data, n, m2),
+                    single(fw[d * (n // n_data): (d + 1) * (n // n_data)]))
+
+
+def shard_log(tag: str, mesh, shared_dev: dict, stacked_dev: dict, query_s: float,
+              single_s: float, smi: str) -> None:
+    """Per-shard seconds (``SerialMesh.seconds``), bytes a shard and the
+    whole, and the query's time over the unsharded query's."""
+    per = ", ".join(f"({d},{b}) {t * 1e3:.1f}" for (d, b), t in mesh.seconds.items())
+    shard_b = [tree_bytes({k: v for k, v in stk.items() if isinstance(v, torch.Tensor)})
+               for stk in stacked_dev.values()]
+    log(f"[{tag}] {mesh.n_data}x{mesh.n_bucket}: query {query_s * 1e3:.1f} ms, unsharded "
+        f"{single_s * 1e3:.1f} ms ({query_s / single_s:.2f}x); per shard (data, bucket) ms: "
+        f"{per}; bytes a shard {shard_b}, shared {tree_bytes(shared_dev)}, whole "
+        f"{sum(shard_b) + tree_bytes(shared_dev)} ({smi})")
+
+
+def mono2_shards(index, host: dict, gpu_index, work: np.ndarray, fw: torch.Tensor, dev,
+                 smi: str) -> int:
+    """Phases 22c and 23a on the synth50 mono2 index: ``bucket_range`` on
+    four shards of its table, then the data-parallel query (K1 on every
+    data rank) and the mono sharded query through ``DistMesh`` over NCCL at
+    world size 1 and through ``SerialMesh`` at 1x4 and 2x4, each held to
+    the unsharded query on the card, which is held to the CPU. Returns the
+    data-parallel queries' K1 launches."""
+    import functools
+
+    import torch.distributed as dist
+
+    from mazu_tpu_torch.index.validate import merge_sharded_out
+    from mazu_tpu_torch.parallel import sharding
+    from mazu_tpu_torch.parallel.mesh import DistMesh, SerialMesh
+
+    phase_t0 = time.perf_counter()
+    d = gpu_index.arrays()
+    mo = gpu_index.max_occs
+    n = BATCH
+    m2 = SHARD_M2
+    shared, stacked = sharding.shard_mono_arrays(index, 4)
+    mesh4 = SerialMesh(1, 4, dev)
+    t0 = time.perf_counter()
+    shared_dev, stacked_dev = sharding.place_sharded(shared, stacked, mesh4)
+    torch.cuda.synchronize()
+    log(f"[shard mono] four shards of the table ({stacked['table'].shape}) on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del stacked
+
+    mark("22c")
+    # 22c. bucket_range: the shards' one-hot sum is the whole table's answer
+    for mode in ("main", "full"):
+        whole = kcdict_k2u(d["k2u"], fw, mode=mode)
+        total = {kk: torch.zeros_like(v, dtype=torch.int64) for kk, v in whole.items()}
+        owners = torch.zeros(n, dtype=torch.int64, device=dev)
+        for b, stk in stacked_dev.items():
+            r = kcdict_k2u({**shared_dev["k2u"], "table": stk["table"]}, fw, mode=mode,
+                           bucket_range=(stk["blo"], stk["bhi"]))
+            hit = r["mt"] > 0
+            owners += (hit | r["unresolved"] if mode == "main" else hit).to(torch.int64)
+            for kk, v in r.items():
+                total[kk] += v.to(torch.int64)
+        for kk, v in whole.items():
+            if not torch.equal(total[kk], v.to(torch.int64)):
+                raise AssertionError(f"[bucket_range] {mode}: the shards' sum differs in {kk}")
+        if mode == "main":
+            if not bool((owners == 1).all()):
+                raise AssertionError("[bucket_range] main: a lane without exactly one owner")
+            unres = whole["unresolved"]
+        else:
+            side = unres & (whole["mt"] > 0)
+            if int(side.sum()) == 0 or int(owners[side].max()) != 1 or int(owners.max()) > 1:
+                raise AssertionError("[bucket_range] full: side-table hits not from one owner")
+            log(f"[bucket_range] four shards of synth50 mono2, main and full mode on {n} lanes: "
+                f"the one-hot sum equals the whole table's answer; every lane has one owner in "
+                f"main mode; {int(side.sum())} side-table hits, each from its owner alone")
+    del whole, total, owners, r
+
+    # the unsharded query on the card, held to the CPU on the first 2^16 lanes
+    def single(f):
+        return get_ref_pos_compact(d, f, mo, merge=False, m2=m2)
+
+    cpu = arrays_from_numpy(host, "cpu")
+    head = 1 << 16
+    want = get_ref_pos_compact(cpu, torch.from_numpy(work[:head].view(np.int64)), mo, m2=head)
+    got = get_ref_pos_compact(d, fw[:head], mo, m2=head)
+    for kk in ("unitig_id", "unitig_len", "pos", "mt", "n_occs", "valid"):
+        if not torch.equal(got[kk].cpu(), want[kk]):
+            raise AssertionError(f"[shard mono] the unsharded card query differs from the CPU "
+                                 f"in {kk}")
+    del got, want, cpu
+    single_s = wall_s(lambda: single(fw))
+
+    dp_pipe = functools.partial(get_ref_pos_compact, max_occs=mo, merge=False, m2=m2)
+    launches = 0
+    mark("23a")
+    # 23a. DistMesh over NCCL, world size 1 (NCCL takes one rank a card)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            dmesh = DistMesh(1, 1, device=dev)
+            reset_launches()
+            _, dpq = sharding.make_data_parallel_query(gpu_index, dp_pipe, dmesh)
+            out = dpq(fw)
+            launches += mono2_probe.LAUNCHES
+            check_sharded("dp nccl", out, single, fw, 1, m2)
+            mq = sharding.make_mono_sharded_query(index, dmesh, m2=m2, max_occs=mo)
+            out = mq(fw)
+            check_sharded("mono nccl", out, single, fw, 1, m2)
+            log(f"[shard nccl] DistMesh over NCCL at world size 1: the data-parallel query "
+                f"(K1 launched) and the mono sharded query equal the unsharded query on {n} "
+                f"lanes; query {wall_s(lambda: mq(fw)) * 1e3:.1f} ms")
+            del mq, out
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    for nd in (1, 2):
+        mesh = SerialMesh(nd, 4, dev)
+        reset_launches()
+        _, dpq = sharding.make_data_parallel_query(gpu_index, dp_pipe, mesh)
+        out = dpq(fw)
+        launches += mono2_probe.LAUNCHES
+        if mono2_probe.LAUNCHES != nd * 4:
+            raise AssertionError(f"[shard dp] {mono2_probe.LAUNCHES} K1 launches on {nd}x4")
+        check_sharded(f"dp {nd}x4", out, single, fw, nd, m2)
+        mesh.reset_seconds()
+        dp_s = wall_s(lambda: dpq(fw))
+        log(f"[shard dp] {nd}x4: equals the unsharded query; K1 launched on every rank; "
+            f"{dp_s * 1e3:.1f} ms, per rank ms "
+            f"{[round(t * 1e3, 1) for t in mesh.seconds.values()]} ({smi})")
+        mq = sharding.build_mono_sharded_query(shared, shared_dev, stacked_dev, mesh, m2=m2,
+                                               max_occs=mo)
+        out = mq(fw)
+        check_sharded(f"mono {nd}x4", out, single, fw, nd, m2)
+        merged = merge_sharded_out(cpu_tree(
+            {kk: out[kk] for kk in ("main", "lanes", "slot_real", "n_ovf", "phase2")}))
+        if not (merged["mt"] > 0).sum() > 0.9 * n:
+            raise AssertionError("[shard mono] fewer hits than the batch's share")
+        mesh.reset_seconds()
+        shard_log("shard mono", mesh, shared_dev, stacked_dev, wall_s(lambda: mq(fw)),
+                  single_s, smi)
+        del out, mq
+    log(f"[shard mono] phases 22c and 23a in {time.perf_counter() - phase_t0:.1f} s")
+    return launches
+
+
+def profile_pass(tag: str, run, pass_s: float) -> float:
     """One profiled pass (``run()``): device busy share, kernel launches,
-    the kernels that take the most device time and the probe kernels."""
+    the kernels that take the most device time and the probe kernels.
+    Returns the device busy microseconds."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # device activity alone first: the host ops' records cost seconds a
+    # pass to sum and no line reads them
+    for activities in ([ProfilerActivity.CUDA], [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if events:
+            break
     if not events:
         log(f"[profile {tag}] the profiler gave no per-kernel device records for this pass")
     busy_us = sum(e.self_device_time_total for e in events)
@@ -3509,6 +4127,7 @@ def profile_pass(tag: str, run, pass_s: float):
     # the twelve that take the most time, and every probe kernel of the repo
     for e in ranked[:12] + [e for e in ranked[12:] if "_probe_kernel" in e.key]:
         log(f"[profile {tag}] {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
+    return busy_us
 
 
 if __name__ == "__main__":

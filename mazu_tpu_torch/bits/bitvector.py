@@ -59,6 +59,11 @@ class BitVector:
         np.bitwise_or.at(words, positions >> 6, U64(1) << (positions.astype(U64) & U64(63)))
         return cls(words, n_bits)
 
+    def get_bit(self, pos) -> np.ndarray:
+        """Bit ``pos`` (bool)."""
+        pos = np.asarray(pos, dtype=np.int64)
+        return ((self.words[pos >> 6] >> (pos.astype(U64) & U64(63))) & U64(1)) != 0
+
     def rank(self, pos) -> np.ndarray:
         """Ones in [0, pos)."""
         pos = np.asarray(pos, dtype=np.int64)

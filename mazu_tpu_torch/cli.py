@@ -9,7 +9,7 @@ the card.
   mazu-tpu-torch index map            -i out.npz -f reads.(fa|fastq)[.gz]
   mazu-tpu-torch index colors         -i out.npz [-o colors.npz]
   mazu-tpu-torch index pseudomap      -i out.npz -f reads.(fa|fastq)[.gz] [--policy P] [--tau T] [--list]
-  mazu-tpu-torch kphf build (sshash|pfhash|sampled|mono|mono2) -p <cf_prefix> -o out.npz [--validate]
+  mazu-tpu-torch kphf build (sshash|pfhash|sampled|cuckoo|mono|mono2) -p <cf_prefix> -o out.npz [--validate]
   mazu-tpu-torch kphf validate -i kphf.npz
   mazu-tpu-torch kphf stats    -i kphf.npz
   mazu-tpu-torch kphf bench    -i kphf.npz -f queries.fa [--streaming] [--device]
@@ -21,8 +21,7 @@ pufferfish index directory (dense or sparse, told apart by its
 
 ``--torch-device`` (default ``cuda``) is where builds and queries run;
 without a card the CLI exits with ``convert.resolve_device``'s error
-unless it is given ``cpu``. The engines and K2U kinds the port lacks
-(``cuckoo``) exit with an error naming them.
+unless it is given ``cpu``.
 """
 
 from __future__ import annotations
@@ -58,7 +57,7 @@ def _build_parser():
             f.add_argument("-s", "--skew-param", type=int, default=DEFAULT_SKEW)
             f.add_argument("--engine",
                            choices=["parity", "fast32", "direct", "cuckoo", "mono", "mono2"],
-                           default="parity", help="K2U engine (cuckoo is not ported)")
+                           default="parity", help="K2U engine")
     st = idx.add_parser("stats", help="size accounting down the index stack")
     st.add_argument("-i", "--index", required=True)
     v = idx.add_parser("validate-fasta")
@@ -161,12 +160,6 @@ def main(argv=None):
         return 1
 
 
-def _not_ported(what: str):
-    from .err import MazuError
-
-    raise MazuError(f"the port has no {what} (ROADMAP A3)")
-
-
 def _main(argv=None):
     args = _build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
@@ -195,8 +188,6 @@ def _index(args, dev) -> None:
 
         t = time.time()
         if args.flavor == "piscem":
-            if args.engine == "cuckoo":
-                _not_ported("'cuckoo' engine")
             sp = None if args.skew_param <= 0 else args.skew_param
             idx = piscem_index_from_cf_prefix(args.cf_prefix, w=args.minimizer_size,
                                               skew_param=sp, engine=args.engine, device=dev)
@@ -272,20 +263,25 @@ def _build_k2u(args, dev):
     from .containers.unitig_set import UnitigSet
     from .io.cuttlefish import CfFiles
 
-    if args.flavor == "cuckoo" or getattr(args, "engine", None) == "cuckoo":
-        _not_ported("cuckoo K2U")
     us, _ = UnitigSet.from_cf(CfFiles(args.cf_prefix))
     if args.flavor == "sshash":
         from .kphf.sshash import SSHash
 
         sp = None if args.skew_param <= 0 else args.skew_param
-        return SSHash.from_unitig_set(us, args.minimizer_size, skew_param=sp, engine=args.engine,
+        # the reference's SSHash builds its parity engine under any name
+        # but fast32 and direct, "cuckoo" too
+        engine = "parity" if args.engine == "cuckoo" else args.engine
+        return SSHash.from_unitig_set(us, args.minimizer_size, skew_param=sp, engine=engine,
                                       device=dev)
     if args.flavor == "sampled":
         from .kphf.sampled import SampledPFHash
 
         return SampledPFHash.from_unitig_set(us, sample_size=args.sample_size,
                                              extension_size=args.extension_size, device=dev)
+    if args.flavor == "cuckoo":
+        from .kphf.kcdict import KCDict
+
+        return KCDict.from_unitig_set(us)
     if args.flavor in ("mono", "mono2"):
         from .kphf.kcdict import KCDict
 

@@ -38,6 +38,11 @@ class RefSeqCollection:
         return cls(sv, prefix_sum, names)
 
     @classmethod
+    def dummy(cls) -> "RefSeqCollection":
+        """An empty collection: no references, no sequence."""
+        return cls(None, np.zeros(1, dtype=np.int64), [])
+
+    @classmethod
     def from_lens(cls, ref_lens, names=None) -> "RefSeqCollection":
         lens = np.asarray(ref_lens, dtype=np.int64)
         return cls(None, np.concatenate([[0], np.cumsum(lens)]), names)
@@ -49,6 +54,19 @@ class RefSeqCollection:
     @property
     def n_refs(self) -> int:
         return len(self.prefix_sum) - 1
+
+    @property
+    def total_len(self) -> int:
+        return int(self.prefix_sum[-1])
+
+    def ref_len(self, i) -> np.ndarray:
+        i = np.asarray(i)
+        return self.prefix_sum[i + 1] - self.prefix_sum[i]
+
+    def ref_seq_str(self, i: int) -> str:
+        if self.seq is None:
+            raise ValueError("collection holds lengths only")
+        return self.seq.to_str(int(self.prefix_sum[i]), int(self.prefix_sum[i + 1]))
 
     def ref_kmers(self, i: int, k: int) -> np.ndarray:
         """All forward k-mer words of reference ``i``."""

@@ -17,7 +17,7 @@ import torch
 from .._words import srl_var
 from ..bits.bitvector import BitVector, bv_rank, bv_read_window, rank_in_word
 from ..bits.seqvector import SeqVector, sv_get_kmer
-from ..kmer import mask2k
+from ..kmer import mask2k, revcomp_np
 from ..pytree import meta
 
 
@@ -70,6 +70,9 @@ class UnitigSet:
         """Unitig id of useq position(s) ``pos``."""
         return np.searchsorted(self.accum, pos, side="right") - 1
 
+    def unitig_seq_str(self, i: int) -> str:
+        return self.useq.to_str(int(self.accum[i]), int(self.accum[i + 1]))
+
     def get_kmer_u64(self, pos) -> np.ndarray:
         return self.useq.get_kmer_u64(pos, self.k)
 
@@ -104,13 +107,29 @@ class UnitigSet:
             u = torch.searchsorted(kcum, o, right=True) - 1
             yield accum[u] + (o - kcum[u])
 
+    def all_canonical_kmers(self) -> np.ndarray:
+        """Canonical u64 word of every k-mer, in unitig order."""
+        fw = self.get_kmer_u64(self.kmer_start_positions())
+        return np.minimum(fw, revcomp_np(fw, self.k))
+
+    def ef_accum_lens(self):
+        """``accum`` as an Elias-Fano ``EFVector``."""
+        from ..bits.elias_fano import EFVector
+
+        return EFVector.from_array(self.accum.astype(np.uint64))
+
     def num_bits(self) -> int:
         """Size in bits, as the reference counts it: the packed sequence,
         the Elias-Fano code of ``accum`` and the boundary bitvector."""
-        from ..bits.elias_fano import EFVector
+        return 64 + self.useq.num_bits() + self.ef_accum_lens().num_bits() + self.bv.num_bits()
 
-        ef = EFVector.from_array(self.accum.astype(np.uint64))
-        return 64 + self.useq.num_bits() + ef.num_bits() + self.bv.num_bits()
+    def print_stats(self, log=print):
+        """Size accounting, in the reference's lines."""
+        nk, tl = self.n_kmers, self.total_len
+        log(f"{self.num_bits() / nk:.5f} bits per kmer")
+        log(f"seq: {self.useq.num_bits() / tl:.5f} bits per nuc")
+        log(f"bv: {self.bv.num_bits() / tl:.5f} bits per nuc")
+        log(f"accum_lens: {self.ef_accum_lens().num_bits() / nk:.5f} bits per km")
 
     def device_arrays(self, paired: bool = False) -> dict:
         """``paired=True`` adds the pair-packed views the capacity probes

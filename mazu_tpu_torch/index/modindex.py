@@ -271,9 +271,10 @@ def get_ref_pos_compact(
     d: dict,
     fw: torch.Tensor,
     max_occs: int,
+    budget_div: int = 4,
     merge: bool = True,
-    m2: int | None = None,
     probe_limit: int | None = None,
+    m2: int | None = None,
     m2b: int | None = None,
     defer_valid: bool = False,
     mphf_level_limit: int | None = None,
@@ -291,7 +292,7 @@ def get_ref_pos_compact(
     offsets table (``twophase._project_offsets``).
 
     Lanes the main phase does not settle are compacted into ``M = m2``
-    (default ``N // 4``) slots and resolved by ``get_ref_pos_padded``. With
+    (default ``max(64, N // budget_div)``) slots and resolved by ``get_ref_pos_padded``. With
     ``m2b`` the heavy phase is type-split (see ``_compact_split``), and
     ``probe_limit2``/``m2c`` add its middle phase. Results equal
     ``get_ref_pos_padded``'s unless ``over_budget`` is set: some block got
@@ -305,7 +306,7 @@ def get_ref_pos_compact(
     from .twophase import _main_probe, _project_main
 
     N = fw.shape[0]
-    M = int(m2) if m2 else max(64, N // 4)
+    M = int(m2) if m2 else max(64, N // budget_div)
     m_ = d["k2u"]["meta"]
     r, probe_start = _main_probe(d, fw, probe_limit, defer_valid, mphf_level_limit)
     p = _project_main(d, r, 2)

@@ -4,7 +4,8 @@ occurrence table of the tiling, and the references' lengths.
 
 ``piscem_index_from_spt`` builds the piscem index: an SSHash (engine
 ``parity``, the reference's default, or ``fast32``/``direct``) or a KCDict
-(``mono``/``mono2`` at load 0.25) over the packed piscem table.
+(``cuckoo`` at load 0.65, ``mono``/``mono2`` at load 0.25) over the packed
+piscem table.
 ``pufferfish_dense_index_from_cf_prefix`` builds pufferfish's dense index:
 a PFHash over the pf1 table. The dictionary builds run on ``device``, the
 card by default.
@@ -18,22 +19,22 @@ from ..kphf.sshash import SSHash
 from .modindex import ModIndex, index_metadata
 from .spt import SPT
 
-ENGINES = ("parity", "fast32", "direct", "mono", "mono2")
+ENGINES = ("parity", "fast32", "direct", "cuckoo", "mono", "mono2")
 
 
 def piscem_index_from_spt(spt: SPT, w: int, skew_param: int | None, seed: int = 0,
                           engine: str = "parity", device=None) -> ModIndex:
     table = spt.piscem_table()
-    if engine in ("mono", "mono2"):
+    if engine in ("cuckoo", "mono", "mono2"):
         from ..kphf.kcdict import KCDict
 
-        k2u = KCDict.from_unitig_set(spt.unitigs, table, load=0.25, scheme=engine)
+        k2u = KCDict.from_unitig_set(spt.unitigs, load=0.65 if engine == "cuckoo" else 0.25,
+                                     occ_table=table, scheme=engine)
     elif engine in ("parity", "fast32", "direct"):
         k2u = SSHash.from_unitig_set(spt.unitigs, w, skew_param=skew_param, seed=seed,
                                      engine=engine, device=device)
     else:
-        raise ValueError(f"the port has no {engine!r} engine (ROADMAP A3); it has "
-                         f"{', '.join(ENGINES)}")
+        raise ValueError(f"no {engine!r} engine: one of {', '.join(ENGINES)}")
     refs = spt.ref_seq_collection()
     return ModIndex(k2u, table, refs, index_type="Piscem", metadata=index_metadata(refs))
 

@@ -65,8 +65,21 @@ class SPT:
         return cls(unitigs, ref_names, *arrays, ref_lens)
 
     @property
+    def n_total_occs(self) -> int:
+        return len(self.occ_uid)
+
+    @property
+    def k(self) -> int:
+        return self.unitigs.k
+
+    @property
     def num_refs(self) -> int:
         return len(self.ref_lens)
+
+    def get_occ(self, uid: int, i: int) -> tuple:
+        """(ref_id, pos, o) of occurrence ``i`` of unitig ``uid``."""
+        p = int(self.offsets[uid]) + i
+        return (int(self.occ_ref[p]), int(self.occ_pos[p]), int(self.occ_o[p]))
 
     def ref_seq_collection(self) -> RefSeqCollection:
         """The references' lengths and names (no sequence)."""

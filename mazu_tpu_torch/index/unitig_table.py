@@ -88,6 +88,16 @@ class DenseUnitigTable:
     def num_bits(self) -> int:
         return 8 * (self.ctable.nbytes + self.offsets.nbytes)
 
+    @property
+    def n_total_occs(self) -> int:
+        return len(self.ctable)
+
+    def occs(self, uid: int):
+        """(ref_id, pos, o) NumPy arrays of unitig ``uid``'s occurrences."""
+        s, e = int(self.offsets[uid]), int(self.offsets[uid + 1])
+        w = torch.from_numpy(np.ascontiguousarray(self.ctable[s:e]).view(np.int64))
+        return tuple(x.numpy() for x in decode_pf1(w))
+
     def device_arrays(self) -> dict:
         return {
             "ctable": self.ctable,

@@ -206,3 +206,52 @@ def merge_sharded_out(out: dict) -> dict:
         for kk in main:
             main[kk][glo] = np.asarray(out["phase2"][kk])[sl][real]
     return main
+
+
+def validate_k2u_self_sharded(qf, k2u, batch: int, n_kmers: int | None = None):
+    """``validate_k2u_self`` through a sharded full query ``qf`` (a
+    ``parallel.sharding`` or ``io.sharded_ckpt`` query, words as int64
+    tensors in, ``merge=False`` pieces out): every unitig k-mer (the first
+    ``n_kmers`` when given), forward and reverse-complemented, must give
+    its exact K2U answer once the phases are merged (``merge_sharded_out``).
+    A batch is padded to ``batch`` lanes with its first k-mer."""
+    from ..convert import words_to
+    from ..kmer import revcomp_np
+
+    us = k2u.unitigs
+    k = us.k
+    pos = us.kmer_start_positions()
+    if n_kmers is not None:
+        pos = pos[: int(n_kmers)]
+    uid_true = us.pos_to_id(pos)
+    upos_true = pos - us.accum[uid_true]
+    ulen_true = us.unitig_len(uid_true)
+    fw = us.get_kmer_u64(pos)
+    for s in range(0, len(pos), batch):
+        sl = slice(s, min(s + batch, len(pos)))
+        n_real = sl.stop - sl.start
+        for words, want_mt in ((fw[sl], MATCH_IDENTITY), (revcomp_np(fw[sl], k), MATCH_TWIN)):
+            padded = np.zeros(batch, dtype=np.uint64)
+            padded[:n_real] = words
+            padded[n_real:] = words[0] if n_real else 0
+            out = qf(words_to(padded, "cpu"))
+            if bool(out["over_budget"].any()):
+                raise AssertionError("phase-2 over budget")
+            r = merge_sharded_out({kk: _host_tree(out[kk]) for kk in
+                                   ("main", "lanes", "slot_real", "n_ovf", "phase2")})
+            ok = ((r["mt"][:n_real] == want_mt) & (r["unitig_id"][:n_real] == uid_true[sl])
+                  & (r["pos"][:n_real] == upos_true[sl])
+                  & (r["unitig_len"][:n_real] == ulen_true[sl]))
+            if not ok.all():
+                bad = int(np.flatnonzero(~ok)[0])
+                raise AssertionError(
+                    f"sharded k2u self-validation failed at global kmer {s + bad}: "
+                    f"want (uid={uid_true[sl][bad]}, pos={upos_true[sl][bad]}, mt={want_mt}), "
+                    f"got (uid={r['unitig_id'][bad]}, pos={r['pos'][bad]}, mt={r['mt'][bad]})"
+                )
+
+
+def _host_tree(x):
+    if isinstance(x, dict):
+        return {kk: _host_tree(v) for kk, v in x.items()}
+    return x.cpu().numpy()

@@ -7,11 +7,10 @@ reference package's, so a file written by either loads in the other, on a
 machine with or without JAX. Strings are 0-d unicode arrays and files load
 with ``allow_pickle=False``.
 
-Every K2U of the port has a state: a KCDict (mono, mono2), an SSHash
-(parity, fast32, direct with either skew table kind), a PFHash and a
-SampledPFHash. A state the port lacks (a cuckoo KCDict, another KCDict
-layout) raises by name. Loaded arrays are host NumPy arrays; queries move
-them with ``device_arrays``.
+Every K2U of the port has a state: a KCDict (cuckoo, mono, mono2; slim
+or wide slots), an SSHash (parity, fast32, direct with either skew table
+kind), a PFHash and a SampledPFHash. Loaded arrays are host NumPy arrays;
+queries move them with ``device_arrays``.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ from ..index.modindex import ModIndex
 from ..index.unitig_table import DenseUnitigTable, PiscemUnitigTable
 from ..kphf.boophf import BooPHF
 from ..kphf.boophf32 import BooPHF32
-from ..kphf.kcdict import SW, SW2, KCDict
+from ..kphf.kcdict import KCDict
 from ..kphf.pfhash import PFHash
 from ..kphf.sampled import SampledPFHash
 from ..kphf.sshash import SSHash
@@ -112,7 +111,7 @@ def _k2u_state(k2u) -> dict:
             "us": _us_state(k2u.unitigs),
             "table": k2u.table,
             "T": np.int64(k2u.T),
-            "salt": np.int64(0),  # a cuckoo dictionary's second-hash salt: none here
+            "salt": np.int64(k2u.salt),
             "scheme": np.int64(_SCHEMES[k2u.scheme]),
             "occ32": np.int64(1 if k2u.occ32 else 0),
             "side_T": np.int64(k2u.side_T),
@@ -169,14 +168,14 @@ def _k2u_state(k2u) -> dict:
 
 
 def _kcdict_from(d) -> KCDict:
-    scheme = {v: k for k, v in _SCHEMES.items()}[int(d.get("scheme", 0))]
-    sw = d["table"].shape[1] // 2
-    if scheme == "cuckoo" or sw != (SW2 if scheme == "mono2" and not int(d["occ32"]) else SW):
-        layout = "cuckoo" if scheme == "cuckoo" else f"{scheme} {sw}-word-slot"
-        raise IndexLoad(f"the port has no {layout} KCDict (ROADMAP A3): it loads mono and "
-                        "mono2 dictionaries with slim slots")
-    return KCDict(_us_from(d["us"]), d["table"], int(d["T"]), d.get("side"), int(d["side_T"]),
-                  int(d["side_salt"]), scheme)
+    kc = KCDict(_us_from(d["us"]), d["table"], int(d["T"]), int(d["salt"]))
+    if "scheme" in d and int(d["scheme"]) != 0:
+        kc.scheme = {v: k for k, v in _SCHEMES.items()}[int(d["scheme"])]
+        kc.occ32 = bool(int(d.get("occ32", 0)))
+        kc.side_T = int(d["side_T"])
+        kc.side_salt = int(d["side_salt"])
+        kc.side = d.get("side")
+    return kc
 
 
 def _sshash_from(d) -> SSHash:

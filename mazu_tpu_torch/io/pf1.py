@@ -108,6 +108,14 @@ def read_compact_seq_vector(path: str) -> SeqVector:
     return SeqVector(iv.words, iv.length)
 
 
+def get_bits_per_element(path: str) -> int:
+    """The element width a compact int vector file records (its second
+    u64)."""
+    with open(path, "rb") as f:
+        read_u64(f)
+        return read_u64(f)
+
+
 def read_cereal_string_vec(f) -> list[str]:
     n = read_u64(f)
     return [_read_exact(f, read_u64(f)).decode() for _ in range(n)]

@@ -149,8 +149,7 @@ class SSHash:
         if self.direct_T:
             mm_bits = 32 * (self.direct_T + 1)
         else:
-            ef = EFVector.from_array(self.occs_prefix_sum.astype(np.uint64))
-            mm_bits = ef.num_bits() + self.mphf.num_bits()
+            mm_bits = self.ef_occs_prefix_sum().num_bits() + self.mphf.num_bits()
         nb = 64 + self.unitigs.num_bits() + self.pos.num_bits() + mm_bits
         if self.skew_mphf is not None:
             nb += self.skew_mphf.num_bits() + self.skew_pos.num_bits()
@@ -478,6 +477,10 @@ class SSHash:
             np.cumsum(dense, out=dense)
             self._prefix = dense
         return self._prefix
+
+    def ef_occs_prefix_sum(self) -> EFVector:
+        """``occs_prefix_sum`` as an Elias-Fano ``EFVector``."""
+        return EFVector.from_array(self.occs_prefix_sum.astype(np.uint64))
 
     def max_bucket(self) -> int:
         return self._max_bucket

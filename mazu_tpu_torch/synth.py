@@ -156,7 +156,7 @@ def build_index(n_bases: int, seed: int = 0, genome=None) -> ModIndex:
     that function's result for these arguments)."""
     unitigs, refs, spt = genome or synthetic_spt(n_bases, seed)
     u2pos = spt.piscem_table()
-    k2u = KCDict.from_unitig_set(unitigs, u2pos, load=LOAD)
+    k2u = KCDict.from_unitig_set(unitigs, load=LOAD, occ_table=u2pos, scheme="mono2")
     return ModIndex(k2u, u2pos, refs, index_type="Piscem-synth")
 
 

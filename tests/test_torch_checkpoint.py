@@ -5,8 +5,8 @@ and direct engines with either skew table, PFHash, SampledPFHash), whole
 indexes and bare K2Us. After each crossing, the file the reader writes back
 holds the same keys and the same bytes as the one it read, the loaded
 index's arrays equal those the writer's package loads from the same file,
-and a query on them equals the reference's. A cuckoo KCDict, which the
-port lacks, raises by name."""
+and a query on them equals the reference's. A cuckoo KCDict crosses in
+both directions."""
 
 import numpy as np
 import pytest
@@ -46,8 +46,8 @@ def _kcdict_pair(scheme: str, with_occs: bool = True):
     ref = MModIndex(MKCDict.from_unitig_set(mus, occ_table=mu2 if with_occs else None,
                                             scheme=scheme, load=0.25), mu2,
                     MRefs.from_lens(lens, names), index_type="t")
-    port = ModIndex(KCDict.from_unitig_set(pus, pu2 if with_occs else None, load=0.25,
-                                           scheme=scheme), pu2,
+    port = ModIndex(KCDict.from_unitig_set(pus, occ_table=pu2 if with_occs else None,
+                                           load=0.25, scheme=scheme), pu2,
                     RefSeqCollection.from_lens(lens, names), index_type="t")
     return ref, port
 
@@ -189,12 +189,30 @@ def test_unicode_scalars_and_no_pickle(tmp_path):
 
 
 def test_cuckoo_kcdict_raises_by_name(tmp_path):
+    """A cuckoo KCDict, which once raised by name, crosses in both
+    directions: the same bytes back, and a query equal to the reference's.
+    (The name is kept from when the port refused the scheme.)"""
     (seqs, k, occ, lens), _ = seq_recipe()
-    mus = MUnitigs.from_seqs(seqs, k)
-    a = str(tmp_path / "c.npz")
+    mus, pus = MUnitigs.from_seqs(seqs, k), UnitigSet.from_seqs(seqs, k)
+    a, b, c = (str(tmp_path / f"{x}.npz") for x in "abc")
     mck.save_k2u(MKCDict.from_unitig_set(mus), a)
-    with pytest.raises(IndexLoad, match="cuckoo KCDict"):
-        pck.load_k2u(a)
+    loaded = pck.load_k2u(a)
+    assert loaded.scheme == "cuckoo" and loaded.salt == int(_npz(a)["k2u/salt"])
+    pck.save_k2u(loaded, b)
+    pck.save_k2u(KCDict.from_unitig_set(pus), c)
+    fa, fb, fc = _npz(a), _npz(b), _npz(c)
+    for f in (fb, fc):
+        assert set(f) == set(fa)
+        for key in fa:
+            if key != "version":
+                assert f[key].tobytes() == fa[key].tobytes(), key
+    back = mck.load_k2u(c)
+    work = capacity_queries(mus, 512, seed=3)
+    want = m_k2u_batch({"k2u": back.device_arrays()}, work, np)
+    got = k2u_batch({"k2u": arrays_from_numpy(loaded.device_arrays(), "cpu")},
+                    torch.from_numpy(work.view(np.int64)))
+    for key in want:
+        assert_same(got[key], want[key], key)
 
 
 def test_format_version_checked(tmp_path):

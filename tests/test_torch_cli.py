@@ -98,6 +98,12 @@ BUILDS = {  # output name: build argv
                     "--validate"],
     "k_direct.npz": ["kphf", "build", "sshash", "-p", "{prefix}", "-o", "{o}/k_direct.npz",
                      "--engine", "direct"],
+    "cuckoo.npz": ["index", "build", "piscem", "-p", "{prefix}", "-o", "{o}/cuckoo.npz",
+                   "--engine", "cuckoo"],
+    "k_cuckoo.npz": ["kphf", "build", "cuckoo", "-p", "{prefix}", "-o", "{o}/k_cuckoo.npz",
+                     "--validate"],
+    "k_sshash_cuckoo.npz": ["kphf", "build", "sshash", "-p", "{prefix}", "-o",
+                            "{o}/k_sshash_cuckoo.npz", "--engine", "cuckoo"],
 }
 
 
@@ -151,6 +157,11 @@ COMMANDS = {
     "kphf stats pfhash": ["kphf", "stats", "-i", "{o}/k_pfhash.npz"],
     "kphf stats mono": ["kphf", "stats", "-i", "{o}/k_mono.npz"],
     "kphf stats mono2": ["kphf", "stats", "-i", "{o}/k_mono2.npz"],
+    "stats cuckoo": ["index", "stats", "-i", "{o}/cuckoo.npz"],
+    "validate cuckoo": ["index", "validate-fasta", "-i", "{o}/cuckoo.npz", "-f", "{fasta}"],
+    "map cuckoo": ["index", "map", "-i", "{o}/cuckoo.npz", "-f", "{fastq}"],
+    "kphf stats cuckoo": ["kphf", "stats", "-i", "{o}/k_cuckoo.npz"],
+    "kphf validate cuckoo": ["kphf", "validate", "-i", "{o}/k_cuckoo.npz"],
     "kphf validate sshash": ["kphf", "validate", "-i", "{o}/k_sshash.npz"],
     "kphf validate direct": ["kphf", "validate", "-i", "{o}/k_direct.npz"],
     "kphf validate sampled": ["kphf", "validate", "-i", "{o}/k_sampled.npz"],
@@ -175,13 +186,18 @@ def test_command(built, name):
         assert out.strip()
 
 
-def test_cuckoo_is_not_ported(data):
-    """The reference builds a cuckoo KCDict; the port exits 1 naming it."""
-    for argv in (["index", "build", "piscem", "-p", data["prefix"], "-o", "x.npz", "--engine",
-                  "cuckoo"],
-                 ["kphf", "build", "cuckoo", "-p", data["prefix"], "-o", "x.npz"]):
-        rc, out, err = _run(p_main, ["--torch-device", "cpu"] + argv)
-        assert rc == 1 and not out and "no cuckoo" in err.replace("'", "") and "A3" in err
+def test_cuckoo_is_not_ported(built):
+    """The cuckoo KCDict, once missing from the port, now builds through
+    both CLIs: the same files, and each CLI validates the other's. (The
+    name is kept from when the port refused the engine.)"""
+    for argv in (["kphf", "validate", "-i", "{o}/k_cuckoo.npz"],
+                 ["index", "validate-fasta", "-i", "{o}/cuckoo.npz", "-f", "{fasta}"]):
+        for who, fn, pre in (("ref", p_main, ["--torch-device", "cpu"]), ("port", m_main, [])):
+            o = str(built["out"][who])
+            rc, out, err = _run(fn, pre + [a.replace("{o}", o) for a in _fill(built, argv)])
+            assert rc == 0 and out.strip() == "valid", err
+    with np.load(built["out"]["port"] / "cuckoo.npz") as z:
+        assert int(z["k2u/scheme"]) == 0 and z["k2u/table"].shape[1] == 14
 
 
 def test_no_card_no_cpu_fallback(data, monkeypatch):

@@ -81,7 +81,7 @@ def build_tiled_pair():
                        mu2, MRefs(MSeqVector.from_str("".join(refs)), prefix, names), "t")
     pus = UnitigSet.from_seqs(seqs, K)
     pu2 = SPT(pus, names, *cols, lens).piscem_table()
-    port = pmi.ModIndex(KCDict.from_unitig_set(pus, pu2, load=0.25), pu2,
+    port = pmi.ModIndex(KCDict.from_unitig_set(pus, occ_table=pu2, scheme="mono2", load=0.25), pu2,
                         RefSeqCollection(SeqVector.from_str("".join(refs)), prefix, names), "t")
     return ref, port
 

@@ -7,8 +7,10 @@ wavelet-matrix occurrence table) answer queries, the device pack and BooPHF32 bu
 kernel's plain version runs, and a tiny serve pass (FASTQ, packing in the
 host library, device k-merization, map, pseudoalignment), ``validate_self``,
 a flat streaming pass, a read mapper and the CLI's parity build, its
-checkpoint loaded and validated, run, with ``jax`` blocked from
-importing."""
+checkpoint loaded and validated, a mono sharded query (``SerialMesh``,
+from a sharded checkpoint with ``validate_k2u_self_sharded``, and on two
+spawned gloo ranks, which load no JAX either) run, with ``jax`` blocked
+from importing."""
 
 import os
 import pkgutil
@@ -153,6 +155,22 @@ with tempfile.TemporaryDirectory() as tmp:
         assert cli_main(["--torch-device", "cpu", "index", "validate-fasta", "-i", npz,
                          "-f", fa]) == 0
     assert said.getvalue().splitlines() == [f"wrote {npz}", "valid"]
+from mazu_tpu_torch.index.validate import validate_k2u_self_sharded
+from mazu_tpu_torch.io import sharded_ckpt
+from mazu_tpu_torch.parallel import sharding
+from mazu_tpu_torch.parallel.launch import launch, sharded_queries_rank
+from mazu_tpu_torch.parallel.mesh import SerialMesh
+words = synth.sample_queries(index.k2u.unitigs, 512, seed=5)
+mono = sharding.make_mono_sharded_query(index, SerialMesh(1, 2), m2=512)(
+    torch.from_numpy(words.view(np.int64)))
+with tempfile.TemporaryDirectory() as tmp:
+    sharded_ckpt.save_mono_sharded(tmp, index, 2)
+    q2 = sharded_ckpt.make_mono_sharded_query_from_ckpt(tmp, SerialMesh(2, 2), m2=1024)
+    validate_k2u_self_sharded(q2, index.k2u, batch=2048, n_kmers=4096)
+outs = launch(sharded_queries_rank, 2, 1, 2, [("mono", "make_mono_sharded_query", (index,),
+                                                {"m2": 512}, words)])
+assert not any(o["jax_loaded"] for o in outs)
+assert all(torch.equal(o["mono"]["main"]["unitig_id"], mono["main"]["unitig_id"]) for o in outs)
 leaked = sorted(m for m in sys.modules if m == "mazu_tpu" or m.startswith("mazu_tpu."))
 assert not leaked, leaked
 print("OK", len(mods))
@@ -182,7 +200,8 @@ def test_port_imports_and_queries_without_jax():
                  "io.fasta", "io.fastq", "io.cuttlefish", "io.reads", "index.streaming",
                  "index.validate", "index.colors", "index.pseudoalign", "io.native",
                  "index.mapping", "index.tuning", "kphf.runshare", "cli", "io.checkpoint",
-                 "bits.elias_fano", "index.piscem_index", "bits.wm"):
+                 "bits.elias_fano", "index.piscem_index", "bits.wm", "parallel.mesh",
+                 "parallel.sharding", "parallel.launch", "io.sharded_ckpt"):
         assert f"mazu_tpu_torch.{name}" in mods, name
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, *mods], capture_output=True, text=True,

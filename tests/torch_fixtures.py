@@ -74,7 +74,7 @@ def build_pair(recipe):
 
     pus = UnitigSet.from_seqs(seqs, k)
     pu2 = SPT(pus, names, *occ, ref_lens).piscem_table()
-    pkc = KCDict.from_unitig_set(pus, pu2, load=0.25)
+    pkc = KCDict.from_unitig_set(pus, occ_table=pu2, scheme="mono2", load=0.25)
     port = ModIndex(pkc, pu2, RefSeqCollection.from_lens(ref_lens, names), index_type="t")
     return ref, port
 
@@ -391,3 +391,153 @@ def with_refs(pair, fasta_path):
     ref.refs = MRefs.from_fasta(str(fasta_path))
     port.refs = RefSeqCollection.from_fasta(str(fasta_path))
     return ref, port
+
+
+# ------------------------------------------------------------------ sharding
+SHARD_N = 512  # k-mers a sharded query
+SHARD_M2 = 256  # phase-2 lanes a data shard
+
+
+def sharding_pairs() -> dict:
+    """The toy recipe as a direct SSHash pair (``cap``) and a mono2 KCDict
+    pair (``mono``), a batch of hits, reverse complements and misses, and
+    the toy's max_occs."""
+    ref, port = build_capacity_pair(toy_recipe())
+    ref2, port2 = build_pair(toy_recipe())
+    return {"cap": (ref, port), "mono": (ref2, port2), "mo": max(1, ref2.max_occs()),
+            "work": capacity_queries(ref.k2u.unitigs, SHARD_N, seed=21)}
+
+
+SHARD_JOBS = ("dp", "bucket", "a2a", "fused", "mono", "compact", "compact_bpos_useqrec",
+              "compact_bpos")
+_COMPACT = {"compact": (False, False), "compact_bpos_useqrec": (True, True),
+            "compact_bpos": (True, False)}
+
+
+def port_job(name: str, pairs: dict):
+    """(builder name in ``mazu_tpu_torch.parallel.sharding.BUILDERS``,
+    positional args, keyword args) of one sharded query."""
+    import functools
+
+    from mazu_tpu_torch.index.modindex import get_ref_pos_compact
+
+    port, port2 = pairs["cap"][1], pairs["mono"][1]
+    if name == "dp":
+        return ("make_data_parallel_query",
+                (port2.device_arrays(fused=True),
+                 functools.partial(get_ref_pos_compact, max_occs=pairs["mo"], m2=SHARD_M2)), {})
+    if name in ("bucket", "a2a"):
+        b = "make_bucket_sharded_query" if name == "bucket" else "make_alltoall_sharded_query"
+        return b, (port.k2u,), {}
+    if name == "fused":
+        return "make_fused_sharded_query", (port,), {"m2": SHARD_M2, "probe_limit": 2}
+    if name == "mono":
+        return "make_mono_sharded_query", (port2,), {"m2": SHARD_M2}
+    bi, uq = _COMPACT[name]
+    return ("make_compact_sharded_query", (port,),
+            {"m2": SHARD_M2, "max_occs": pairs["mo"], "bucket_inline": bi, "useqrec": uq})
+
+
+def port_sharded(name: str, pairs: dict, shape) -> dict:
+    """The port's sharded query ``name`` under ``SerialMesh(*shape)`` on
+    the pairs' batch."""
+    from mazu_tpu_torch.parallel import sharding
+    from mazu_tpu_torch.parallel.mesh import SerialMesh
+
+    builder, args, kw = port_job(name, pairs)
+    q = sharding.BUILDERS[builder](*args, mesh=SerialMesh(*shape), **kw)
+    q = q[1] if isinstance(q, tuple) else q
+    return q(tensor(pairs["work"]))
+
+
+def ref_sharded(name: str, pairs: dict, shape) -> dict:
+    """The reference's sharded query ``name`` on a (data, bucket) mesh of
+    the virtual CPU devices (the all-to-all query: its 1-D bucket mesh),
+    run on the pairs' batch; NumPy outputs."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    import mazu_tpu.index.modindex as mmi
+    import mazu_tpu.parallel.sharding as ms
+
+    nd, nb = shape
+    devs = np.array(jax.devices()[: nd * nb])
+    mesh = Mesh(devs.reshape(nd, nb), ("data", "bucket"))
+    ref, ref2 = pairs["cap"][0], pairs["mono"][0]
+    if name == "dp":
+        q = ms.make_data_parallel_query(
+            ref2.device_arrays(fused=True),
+            functools.partial(mmi.get_ref_pos_compact, max_occs=pairs["mo"], m2=SHARD_M2),
+            mesh)[1]
+    elif name == "bucket":
+        q = ms.make_bucket_sharded_query(ref.k2u, mesh)
+    elif name == "a2a":
+        q = ms.make_alltoall_sharded_query(ref.k2u, Mesh(devs[:nb], ("bucket",)))
+    elif name == "fused":
+        q = ms.make_fused_sharded_query(ref, mesh, m2=SHARD_M2, probe_limit=2)
+    elif name == "mono":
+        q = ms.make_mono_sharded_query(ref2, mesh, m2=SHARD_M2)
+    else:
+        bi, uq = _COMPACT[name]
+        q = ms.make_compact_sharded_query(ref, mesh, m2=SHARD_M2, max_occs=pairs["mo"],
+                                          bucket_inline=bi, useqrec=uq)
+    return jax.tree_util.tree_map(np.asarray, q(jnp.asarray(pairs["work"])))
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _eq(got, want, what, mask=None):
+    g, w = _np(got), _np(want)
+    if g.dtype != w.dtype and g.dtype.itemsize == w.dtype.itemsize and w.dtype.kind == "u":
+        g = g.view(w.dtype)
+    assert g.shape == w.shape, f"{what}: shape {g.shape} != {w.shape}"
+    assert g.dtype == w.dtype, f"{what}: dtype {g.dtype} != {w.dtype}"
+    if mask is not None:
+        m = np.broadcast_to(mask if mask.ndim == g.ndim else mask[:, None], g.shape)
+        g, w = np.where(m, g, 0), np.where(m, w, 0)
+    assert np.array_equal(g, w), f"{what}: values differ"
+
+
+_PROJ = ("ref_id", "ref_pos", "orient")
+
+
+def assert_sharded_same(name: str, got: dict, want: dict):
+    """A port sharded output equals the reference's: every field exact,
+    but where it has no meaning (phase-2 slots past the flagged count,
+    projections of invalid occurrences)."""
+    if name in ("bucket", "a2a"):
+        assert set(got) == set(want), set(got) ^ set(want)
+        for key in want:
+            _eq(got[key], want[key], key)
+        return
+    if name == "dp":  # merged answers; over_budget comes a data shard each
+        assert not _np(got["over_budget"]).any() and not _np(want["over_budget"]).any()
+        for key in ("unitig_id", "unitig_len", "pos", "mt", "n_occs", "valid"):
+            _eq(got[key], want[key], key)
+        for key in _PROJ:
+            _eq(got[key], want[key], key, _np(want["valid"]))
+        return
+    assert set(got) == set(want), set(got) ^ set(want)
+    for key in ("overflow", "slot_real", "n_ovf", "over_budget"):
+        _eq(got[key], want[key], key)
+    sr = _np(want["slot_real"])
+    _eq(got["lanes"], want["lanes"], "lanes", sr)
+    main, wmain = got["main"], want["main"]
+    assert set(main) == set(wmain), set(main) ^ set(wmain)
+    for key in ("unitig_id", "unitig_len", "pos", "mt", "n_occs", "valid"):
+        _eq(main[key], wmain[key], f"main {key}")
+    for key in _PROJ:
+        _eq(main[key], wmain[key], f"main {key}", _np(wmain["valid"]))
+    p2, wp2 = got["phase2"], want["phase2"]
+    assert set(p2) == set(wp2)
+    for key in ("unitig_id", "unitig_len", "pos", "mt", "n_occs"):
+        _eq(p2[key], wp2[key], f"phase2 {key}", sr)
+    v2 = _np(wp2["valid"]) & sr[:, None]
+    _eq(_np(p2["valid"]) & sr[:, None], v2, "phase2 valid")
+    for key in _PROJ:
+        _eq(p2[key], wp2[key], f"phase2 {key}", v2)
