@@ -21,7 +21,8 @@ pufferfish index directory (dense or sparse, told apart by its
 
 ``--torch-device`` (default ``cuda``) is where builds and queries run;
 without a card the CLI exits with ``convert.resolve_device``'s error
-unless it is given ``cpu``.
+unless it is given ``cpu``. ``--trace FILE`` turns the tracer on (``trace``,
+with device stages) and writes what it kept to FILE at exit.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ def _build_parser():
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--torch-device", default="cuda",
                    help="torch device of the builds and queries (default: cuda)")
+    p.add_argument("--trace", metavar="FILE",
+                   help="keep the program's spans, counters and device stages and write them "
+                        "to FILE as Chrome trace JSON at exit")
     sub = p.add_subparsers(dest="tool", required=True)
 
     idx = sub.add_parser("index").add_subparsers(dest="cmd", required=True)
@@ -171,10 +175,21 @@ def _main(argv=None):
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    if args.tool == "index":
-        _index(args, dev)
-    else:
-        _kphf(args, dev)
+    if args.trace:
+        from . import trace
+
+        trace.reset()
+        trace.enable(stages=True)
+    try:
+        if args.tool == "index":
+            _index(args, dev)
+        else:
+            _kphf(args, dev)
+    finally:
+        if args.trace:
+            trace.dump(args.trace)
+            trace.disable()
+            trace.reset()
     return 0
 
 

@@ -21,7 +21,7 @@ import hashlib
 import numpy as np
 import torch
 
-from .. import MATCH_IDENTITY
+from .. import MATCH_IDENTITY, trace
 from ..ops.compact import flagged_lanes, flagged_lanes2
 from ..ops.mono2_probe import card_table
 from ..pytree import meta
@@ -308,9 +308,11 @@ def get_ref_pos_compact(
     N = fw.shape[0]
     M = int(m2) if m2 else max(64, N // budget_div)
     m_ = d["k2u"]["meta"]
+    trace.mark("main", fw)
     r, probe_start = _main_probe(d, fw, probe_limit, defer_valid, mphf_level_limit)
     p = _project_main(d, r, 2)
     overflow = p["overflow"] | r["unresolved"]
+    trace.mark("phase2", fw)
     if m2b is not None:
         if probe_limit2 is not None and m_.kind != "sshash":
             raise ValueError("probe_limit2 is an SSHash-only middle phase")
@@ -482,26 +484,27 @@ class ModIndex:
         occurrences projects with no further read. The direct engine's skew
         rows get the first three the same way. The occurrence table must
         hold a ctable (not a ``WMUnitigTable``)."""
-        if pos_kind is not None or prefix_kind is not None or bucket_inline or mphf_rows:
-            k2u = self.k2u.device_arrays(prefix_kind=prefix_kind, pos_kind=pos_kind,
-                                         bucket_inline=bucket_inline, mphf_rows=mphf_rows)
-        else:
-            k2u = self.k2u.device_arrays()
-        d = {
-            "k2u": k2u,
-            "u2pos": self.u2pos.device_arrays(),
-            "refs": self.refs.device_arrays(),
-            "meta": meta(k=self.k, index_type=self.index_type),
-        }
-        if (uproj or useqrec) and not hasattr(self.k2u, "pos"):
-            raise ValueError("uproj and useqrec records need an SSHash K2U")
-        if uproj:
-            d["k2u"]["us"]["uproj"] = build_uproj(self.u2pos, self.k2u.unitigs)
-        if useqrec:
-            d["k2u"]["us"]["useqrec"] = build_useqrec(self.u2pos, self.k2u.unitigs)
-        if fused and d["k2u"]["meta"].kind != "kcdict":
-            self.fuse(d["k2u"])
-        return d
+        with trace.span("index.device_arrays"):
+            if pos_kind is not None or prefix_kind is not None or bucket_inline or mphf_rows:
+                k2u = self.k2u.device_arrays(prefix_kind=prefix_kind, pos_kind=pos_kind,
+                                             bucket_inline=bucket_inline, mphf_rows=mphf_rows)
+            else:
+                k2u = self.k2u.device_arrays()
+            d = {
+                "k2u": k2u,
+                "u2pos": self.u2pos.device_arrays(),
+                "refs": self.refs.device_arrays(),
+                "meta": meta(k=self.k, index_type=self.index_type),
+            }
+            if (uproj or useqrec) and not hasattr(self.k2u, "pos"):
+                raise ValueError("uproj and useqrec records need an SSHash K2U")
+            if uproj:
+                d["k2u"]["us"]["uproj"] = build_uproj(self.u2pos, self.k2u.unitigs)
+            if useqrec:
+                d["k2u"]["us"]["useqrec"] = build_useqrec(self.u2pos, self.k2u.unitigs)
+            if fused and d["k2u"]["meta"].kind != "kcdict":
+                self.fuse(d["k2u"])
+            return d
 
     def fuse(self, k2u: dict) -> None:
         """The fusion pass over the rows and skew rows of an SSHash's arrays
@@ -682,12 +685,13 @@ class QueryIndex(torch.nn.Module):
     def to(self, device) -> "QueryIndex":
         """Every buffer on ``device``; off the host, the main table in its
         kernel's layout (``card_table``)."""
-        k2u = self._tree.get("k2u")
-        if torch.device(device).type != "cpu" and isinstance(k2u, dict) \
-                and isinstance(k2u.get("table"), _Buf):
-            name = k2u["table"].name
-            setattr(self, name, card_table(k2u["meta"], getattr(self, name)))
-        return super().to(device)
+        with trace.span("index.to_device"):
+            k2u = self._tree.get("k2u")
+            if torch.device(device).type != "cpu" and isinstance(k2u, dict) \
+                    and isinstance(k2u.get("table"), _Buf):
+                name = k2u["table"].name
+                setattr(self, name, card_table(k2u["meta"], getattr(self, name)))
+            return super().to(device)
 
     def _apply(self, *args, **kwargs):
         self.graphs.clear()

@@ -36,12 +36,12 @@ when it goes.
 from __future__ import annotations
 
 import gc
-import time
 import weakref
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..io.reads import kmerize_device, pad_reads, row_shape
 from ..ops.compact import flagged_lanes
 from .modindex import QueryIndex, get_ref_pos_compact, get_ref_pos_padded, merge_compact_k2u
@@ -54,11 +54,16 @@ ROLL_STEP = 40009  # chunk i of a rolled pass is roll(work, i * ROLL_STEP)
 class Captured:
     """One captured pass: its input buffer, its graph, its output tensor,
     and what the capture cost (seconds, and bytes of the graph's memory
-    pool as ``torch.cuda.memory_reserved`` grew)."""
+    pool as ``torch.cuda.memory_reserved`` grew), both read from its
+    ``graph.capture`` span (``span``). A marked pass (``trace.staged``)
+    keeps the events its graph records in ``marks``."""
 
-    def __init__(self, inp, graph, out, capture_s: float, pool_bytes: int):
+    marks = ()
+
+    def __init__(self, inp, graph, out, capture_s: float, pool_bytes: int, span=None):
         self.inp, self.graph, self.out = inp, graph, out
         self.capture_s, self.pool_bytes = capture_s, pool_bytes
+        self.span = span
 
 
 def capture(fn, x: torch.Tensor) -> Captured:
@@ -82,19 +87,21 @@ def capture(fn, x: torch.Tensor) -> Captured:
         gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph):
-                out = fn(inp)
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.synchronize(dev)
-        return Captured(inp, graph, out, time.perf_counter() - t0,
-                        torch.cuda.memory_reserved(dev) - reserved)
+        with trace.timed("graph.capture") as sp:
+            graph = torch.cuda.CUDAGraph()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    out = fn(inp)
+            finally:
+                if collecting:
+                    gc.enable()
+            torch.cuda.synchronize(dev)
+        pool = torch.cuda.memory_reserved(dev) - reserved
+        sp.set(seconds=sp.seconds, pool_bytes=pool)
+        trace.count("graph.captures")
+        return Captured(inp, graph, out, sp.seconds, pool, span=sp)
 
 
 def _use_graph(graph: bool, x: torch.Tensor) -> bool:
@@ -103,17 +110,41 @@ def _use_graph(graph: bool, x: torch.Tensor) -> bool:
     return graph and x.is_cuda
 
 
+def _graph_key(key, x: torch.Tensor) -> tuple:
+    """A graph's key in ``QueryIndex.graphs``: the caller's ``key``,
+    ``x``'s shape and dtype, and a flag where the pass is marked
+    (``trace.staged``), whose graph records its device stages."""
+    full = (key, tuple(x.shape), x.dtype)
+    return full + ("marked",) if trace.staged() else full
+
+
 def replay(index: QueryIndex, key, x: torch.Tensor, fn) -> torch.Tensor:
     """``fn(x)`` as a CUDA graph over ``index``'s buffers: captured on the
     first call for ``key`` and ``x``'s shape and dtype, replayed after. The
     result is the graph's output tensor, which the next replay overwrites."""
-    key = (key, tuple(x.shape), x.dtype)
-    g = index.graphs.get(key)
+    full = _graph_key(key, x)
+    g = index.graphs.get(full)
     if g is None:
-        g = index.graphs[key] = capture(fn, x)
+        marked = trace.collecting(fn)
+        g = index.graphs[full] = capture(marked, x)
+        g.marks = getattr(marked, "marks", ())
+        if g.span is not None:
+            g.span.set(kind=key[0] if isinstance(key, tuple) else key)
     g.inp.copy_(x)
     g.graph.replay()
+    trace.launched(g.marks)
     return g.out
+
+
+def _run_pass(index: QueryIndex, key, x: torch.Tensor, fn, graph: bool) -> torch.Tensor:
+    """``fn(x)``: replayed as a CUDA graph where ``_use_graph``, else run
+    eagerly (and marked where ``trace.staged``)."""
+    if _use_graph(graph, x):
+        return replay(index, key, x, fn)
+    marked = trace.collecting(fn)
+    out = marked(x)
+    trace.launched(getattr(marked, "marks", ()))
+    return out
 
 
 def replay_latest(index: QueryIndex, family: tuple, key, x: torch.Tensor, fn) -> torch.Tensor:
@@ -121,7 +152,7 @@ def replay_latest(index: QueryIndex, family: tuple, key, x: torch.Tensor, fn) ->
     tuple ``key``): a graph of the family captured for another key or shape
     is dropped first, so a caller whose batches change shape holds one
     graph's memory pool, not one a shape, and pays a capture at each change."""
-    full = (key, tuple(x.shape), x.dtype)
+    full = _graph_key(key, x)
     for old in [g for g in index.graphs if g != full and g[0][:len(family)] == family]:
         del index.graphs[old]
     return replay(index, key, x, fn)
@@ -201,25 +232,45 @@ class OneGraphIndexQuery:
             n, out.get("n_ovf_b", zero), out.get("over_budget_c", zero > 0).to(n.dtype)
         ])
 
+    @staticmethod
+    def phase2_counts(out: dict) -> torch.Tensor:
+        """int64 [2] of a ``merge=False`` result, on the device: the lanes
+        sent to phase 2 (``n_ovf``, plus ``n_ovf_b`` when type-split) and
+        the phase-2 slots that hold a real occurrence (``valid`` of a real
+        slot)."""
+        lanes = out["n_ovf"].to(torch.int64)
+        occs = (out["phase2"]["valid"] & out["slot_real"][:, None]).sum()
+        if "phase2b" in out:
+            lanes = lanes + out["n_ovf_b"]
+            occs = occs + (out["phase2b"]["valid"] & out["slot_real_b"][:, None]).sum()
+        return torch.stack([lanes, occs])
+
     def _run(self, chunks) -> torch.Tensor:
         """int64 [4] on the device: the pass checksum and the worst
-        (n_ovf, n_ovf_b, residue over m2c) over ``chunks``."""
+        (n_ovf, n_ovf_b, residue over m2c) over ``chunks``; a marked pass
+        (``trace.staged``) adds ``phase2_counts`` summed over them."""
         arrays = self.index.arrays()
-        tot = worst = 0
+        staged = trace.staged()
+        tot = worst = p2 = 0
         for chunk in chunks:
             out = get_ref_pos_compact(arrays, chunk, self.max_occs, **self.query_kw)
+            trace.mark("reduce", chunk)
             tot = tot + self.checksum(out)
             worst = torch.clamp(self._counts(out), min=worst)
-        return torch.cat([tot.reshape(1), worst])
+            if staged:
+                p2 = p2 + self.phase2_counts(out)
+        return torch.cat([tot.reshape(1), worst] + ([p2] if staged else []))
 
     def _rolled(self, work: torch.Tensor) -> torch.Tensor:
         return self._run(torch.roll(work, i * ROLL_STEP) for i in range(self.CH))
 
     def _pass(self, kind: str, fn, x: torch.Tensor):
-        if _use_graph(self.graph, x):
-            key = (kind, self.CH, self.max_occs, tuple(sorted(self.query_kw.items())))
-            return self._finish(replay(self.index, key, x, fn))
-        return self._finish(fn(x))
+        key = (kind, self.CH, self.max_occs, tuple(sorted(self.query_kw.items())))
+        with trace.pass_span("query.pass"):
+            with trace.span("query.launch"):
+                res = _run_pass(self.index, key, x, fn, self.graph)
+            with trace.span("query.readback"):
+                return self._finish(res)
 
     def checksum_pass(self, stack: torch.Tensor):
         """One pass over a [CH, batch] stack on the index's device.
@@ -235,7 +286,12 @@ class OneGraphIndexQuery:
         return self._pass("rolled", self._rolled, work)
 
     def _finish(self, res: torch.Tensor):
-        tot, wa, wb, wc = res.tolist()
+        vals = res.tolist()
+        trace.settle()
+        tot, wa, wb, wc = vals[:4]
+        if len(vals) > 4:
+            slots = self.CH * (self.M2 + (self.M2B or 0)) * self.max_occs
+            count_phase2(vals[4], vals[5], slots)
         if wc:
             raise RuntimeError(
                 "middle-phase residue capacity (m2c) exceeded: results for the lanes past "
@@ -261,6 +317,13 @@ class OneGraphIndexQuery:
                 raise RuntimeError("phase-2 capacity exceeded")
             tot += int(self.checksum(out))
         return tot
+
+
+def count_phase2(lanes: int, occurrences: int, slots: int) -> None:
+    """The ``phase2.*`` counters of one marked pass."""
+    trace.count("phase2.lanes", lanes)
+    trace.count("phase2.occurrences", occurrences)
+    trace.count("phase2.slots", slots)
 
 
 def padded_checksum(out: dict) -> torch.Tensor:
@@ -386,13 +449,20 @@ def serve_chunk(arrays: dict, cb: dict, packed: dict, row_start: int, rows: int,
     ``merge_compact_k2u`` and the intersecting ``pseudoalign_from_k2u``
     over the color bitsets ``cb``. pa_chk sums the bitset words' int64 bit
     patterns, which wraps as the reference's u64 sum cast to int64 does,
-    plus the reads' hit counts."""
+    plus the reads' hit counts. A marked pass (``trace.staged``) adds a
+    fourth: the phase-2 slots that hold a real occurrence."""
+    trace.mark("kmerize", packed["words"])
     km, v = kmerize_device(packed, row_start, rows)
     out = get_ref_pos_compact(arrays, km.reshape(-1), max_occs, merge=False, m2=m2,
                               probe_limit=probe_limit)
+    trace.mark("pseudoalign", km)
     bits, n_hit, _ = pseudoalign_from_k2u(cb, merge_compact_k2u(out), v)
-    return torch.stack([OneGraphIndexQuery.checksum(out), bits.sum() + n_hit.sum(),
-                        out["n_ovf"].to(torch.int64)])
+    trace.mark("reduce", km)
+    res = [OneGraphIndexQuery.checksum(out), bits.sum() + n_hit.sum(),
+           out["n_ovf"].to(torch.int64)]
+    if trace.staged():
+        res.append(OneGraphIndexQuery.phase2_counts(out)[1])
+    return torch.stack(res)
 
 
 def _drop_graphs(index: QueryIndex, token, kind: str = "serve") -> None:
@@ -442,7 +512,8 @@ class RunServePass:
         """int64 [CH, 3] (map_chk, pa_chk, n_ovf) of a batch with Meta ``m``
         (``pad_reads``'s, to ``read_len``) already on the device as one
         ``serve_buffer``, with no host read; on a CUDA index the graph's
-        output, which the next replay overwrites."""
+        output, which the next replay overwrites. A marked pass
+        (``trace.staged``) gives [CH, 4]: ``serve_chunk``'s fourth column."""
         if m.R != self.n_reads * self.CH:
             raise ValueError(f"{m.R} reads; the pass takes {self.CH} x {self.n_reads}")
         if (m.stride, m.L) != row_shape(self.read_len, m.k):
@@ -452,20 +523,31 @@ class RunServePass:
         def run(x: torch.Tensor) -> torch.Tensor:
             return self._run(m, x)
 
-        if _use_graph(self.graph, flat):
-            key = ("serve", self._key, m, self.CH, self.M2, self.probe_limit)
-            return replay(self.index, key, flat, run)
-        return run(flat)
+        key = ("serve", self._key, m, self.CH, self.M2, self.probe_limit)
+        return _run_pass(self.index, key, flat, run, self.graph)
 
     def __call__(self, packed: dict):
         """(map_chk, pa_chk, n_ovf) lists, one entry a chunk, of a
         ``pack_reads`` dict: padded to ``read_len``, uploaded as one buffer,
         one host read."""
-        packed = pad_reads(packed, self.read_len)
-        flat = torch.from_numpy(serve_buffer(packed)).to(self.cb["bitsets"].device)
-        maps, pas, n_ovf = self.device_pass(flat, packed["meta"]).T.tolist()
-        if max(n_ovf) > self.M2:
-            raise RuntimeError(f"phase-2 capacity exceeded: {max(n_ovf)} overflow lanes in a "
-                               f"chunk (m2={self.M2}); results for the lanes past it are "
-                               f"unresolved")
+        with trace.pass_span("serve.pass"):
+            with trace.span("serve.pad"):
+                packed = pad_reads(packed, self.read_len)
+            with trace.span("serve.buffer"):
+                buf = serve_buffer(packed)
+            with trace.span("serve.upload"):
+                flat = torch.from_numpy(buf).to(self.cb["bitsets"].device)
+            with trace.span("serve.launch"):
+                res = self.device_pass(flat, packed["meta"])
+            with trace.span("serve.readback"):
+                cols = res.T.tolist()
+                trace.settle()
+                maps, pas, n_ovf = cols[:3]
+                if len(cols) > 3:
+                    count_phase2(sum(n_ovf), sum(cols[3]),
+                                 self.CH * self.M2 * self.index.max_occs)
+                if max(n_ovf) > self.M2:
+                    raise RuntimeError(f"phase-2 capacity exceeded: {max(n_ovf)} overflow lanes "
+                                       f"in a chunk (m2={self.M2}); results for the lanes past "
+                                       f"it are unresolved")
         return maps, pas, n_ovf

@@ -13,6 +13,7 @@ import ctypes
 
 import numpy as np
 
+from .. import trace
 from ..kmer import seq_to_codes
 from ..ops.cuda_build import CSRC, compile_host_library
 from ..pytree import meta
@@ -33,7 +34,8 @@ def library() -> ctypes.CDLL:
     """The host library, built and loaded once a process."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(compile_host_library(SOURCE)))
+        with trace.span("host_lib.build", source=SOURCE.name):
+            lib = ctypes.CDLL(str(compile_host_library(SOURCE)))
         for name, types in ARGTYPES.items():
             f = getattr(lib, name)
             f.argtypes = types
@@ -52,28 +54,29 @@ def fastq_pack(buf: bytes, k: int) -> dict | None:
     object a read. None when the text is not framed as the C passes take it
     (a malformed or truncated record, an empty sequence): the caller then
     reads it with ``io.fastq.read_fastq``, which raises the error."""
-    lib = library()
-    n = len(buf)
-    maxlen = ctypes.c_int64(0)
-    records = lib.fastq_count(buf, n, ctypes.addressof(maxlen))
-    if records < 0:
-        return None
-    k = int(k)
-    stride, L = row_shape(int(maxlen.value), k)
-    words = np.zeros(records * stride // 32 + 1, dtype=np.uint64)
-    badw = np.zeros(-(-records * stride // 64) + 1, dtype=np.uint64)
-    lengths = np.zeros(records, dtype=np.int32)
-    has_bad = lib.fastq_fill(buf, n, records, stride, _ptr(words), _ptr(badw), _ptr(lengths))
-    if has_bad < 0:
-        return None
-    out = {
-        "words": words,
-        "lengths": lengths,
-        "meta": meta(R=int(records), stride=stride, L=L, k=k, has_bad=bool(has_bad)),
-    }
-    if has_bad:
-        out["bad"] = badw
-    return out
+    with trace.span("reads.pack"):
+        lib = library()
+        n = len(buf)
+        maxlen = ctypes.c_int64(0)
+        records = lib.fastq_count(buf, n, ctypes.addressof(maxlen))
+        if records < 0:
+            return None
+        k = int(k)
+        stride, L = row_shape(int(maxlen.value), k)
+        words = np.zeros(records * stride // 32 + 1, dtype=np.uint64)
+        badw = np.zeros(-(-records * stride // 64) + 1, dtype=np.uint64)
+        lengths = np.zeros(records, dtype=np.int32)
+        has_bad = lib.fastq_fill(buf, n, records, stride, _ptr(words), _ptr(badw), _ptr(lengths))
+        if has_bad < 0:
+            return None
+        out = {
+            "words": words,
+            "lengths": lengths,
+            "meta": meta(R=int(records), stride=stride, L=L, k=k, has_bad=bool(has_bad)),
+        }
+        if has_bad:
+            out["bad"] = badw
+        return out
 
 
 def kmerize_batch(reads: list, k: int):

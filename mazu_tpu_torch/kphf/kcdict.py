@@ -39,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .._words import M32, mask32, srl, umin
 from ..kmer import revcomp, revcomp_np
 from ..pytree import meta
@@ -99,109 +100,66 @@ class KCDict:
         (``mono``, ``mono2``)."""
         if scheme not in SCHEMES:
             raise ValueError(f"no {scheme!r} KCDict scheme: one of {SCHEMES}")
+        with trace.span("kcdict.build", scheme=scheme):
+            return cls._build(unitigs, load, occ_table, scheme)
+
+    @classmethod
+    def _build(cls, unitigs, load, occ_table, scheme) -> "KCDict":
+        """``from_unitig_set``'s build, in its traced stages."""
         k = unitigs.k
         if unitigs.total_len >= 1 << 31:
             raise ValueError("unitig set too long for u32 unitig positions")
-        kpos = unitigs.kmer_start_positions()
-        words = unitigs.get_kmer_u64(kpos)
-        canon = np.minimum(words, revcomp_np(words, k))
-        canon_is_useq = canon == words  # stored orientation: bit 31 of khi
-        uid = unitigs.pos_to_id(kpos)
-        start = unitigs.accum[uid]
-        ulen = unitigs.accum[uid + 1] - start
-        upos = kpos - start
+        with trace.span("kcdict.keys"):
+            kpos = unitigs.kmer_start_positions()
+            words = unitigs.get_kmer_u64(kpos)
+            canon = np.minimum(words, revcomp_np(words, k))
+            canon_is_useq = canon == words  # stored orientation: bit 31 of khi
+            uid = unitigs.pos_to_id(kpos)
+            start = unitigs.accum[uid]
+            ulen = unitigs.accum[uid + 1] - start
+            upos = kpos - start
 
         n = len(canon)
         n_buckets = 1 << max(6, int(np.ceil(np.log2(max(n / (SLOTS * load), 64)))))
-        if scheme == "cuckoo":
-            placed = _place_two_choice(canon, n_buckets)
-            while placed is None:
-                n_buckets <<= 1
+        with trace.span("kcdict.place"):
+            if scheme == "cuckoo":
                 placed = _place_two_choice(canon, n_buckets)
-            bucket, slot, salt = placed
-            win = None
-        else:
-            bucket = (fold_hash32_np(canon) & U32(n_buckets - 1)).astype(np.int64)
-            order = np.argsort(bucket, kind="stable")
-            bs = bucket[order]
-            run_start = np.ones(n, dtype=bool)
-            if n:
-                run_start[1:] = bs[1:] != bs[:-1]
-            run_id = np.cumsum(run_start) - 1
-            within = np.arange(n) - np.flatnonzero(run_start)[run_id]
-            win_sorted = within < SLOTS
-            win = np.zeros(n, dtype=bool)
-            win[order] = win_sorted
-            slot = np.zeros(n, dtype=np.int64)
-            slot[order] = np.where(win_sorted, within, 0)
-            salt = 0
+                while placed is None:
+                    n_buckets <<= 1
+                    placed = _place_two_choice(canon, n_buckets)
+                bucket, slot, salt = placed
+                win = None
+            else:
+                bucket, slot, win = _place_one_hash(canon, n_buckets)
+                salt = 0
+                side = _place_side(canon[~win])
 
-        if occ_table is not None:
-            from ..index.unitig_table import needs_ctable
+        with trace.span("kcdict.rows"):
+            cols, occ32 = _slot_columns(canon, canon_is_useq, uid, upos, ulen, occ_table,
+                                        scheme)
+            sw = len(cols)
+            table = _empty_table(n_buckets, sw)
+            if win is None:
+                col = slot * sw
+                for j, c in enumerate(cols):
+                    table[bucket, col + j] = c
+                return cls(unitigs, table, n_buckets, salt)
 
-            needs_ctable(occ_table, "a KCDict's inline occurrence words")
-            ct = occ_table.ctable
-            cwords = ct.to_array() if hasattr(ct, "to_array") else np.asarray(ct)
-            off = occ_table.offsets
-            hi = max(len(cwords) - 1, 0)
-            first = cwords[np.clip(off[uid], 0, hi)]
-            cnt = (off[uid + 1] - off[uid]).astype(np.uint64)
-            second = cwords[np.clip(off[uid] + 1, 0, hi)]
-        else:
-            first = cnt = second = np.zeros(n, dtype=np.uint64)
-        khi = (canon >> U64(32)).astype(U32) | (canon_is_useq.astype(U32) << U32(31))
-
-        def split64(x):
-            return [(x & U64(M32)).astype(U32), (x >> U64(32)).astype(U32)]
-
-        cols = [(canon & U64(M32)).astype(U32), khi, uid.astype(U32)]
-        slim = bool((ulen < (1 << 24)).all())
-        if slim:
-            cols += [
-                (upos.astype(U32) & U32(0xFFFFFF)) | ((ulen.astype(U32) & U32(0xFF)) << U32(24)),
-                ((ulen.astype(U32) >> U32(8)) & U32(0xFFFF))
-                | (np.minimum(cnt, 0xFFFF).astype(U32) << U32(16)),
-            ] + split64(first)
-        else:
-            cols += [upos.astype(U32), ulen.astype(U32)] + split64(first) + [
-                np.minimum(cnt, M32).astype(U32)]
-        occ32 = scheme == "mono2" and slim and occ_table is not None and bool(
-            (first < (1 << 32)).all() and (second < (1 << 32)).all())
-        if occ32:
-            cols = cols[:5] + [first.astype(U32), second.astype(U32)]
-        elif scheme == "mono2":
-            cols += split64(second)
-        sw = len(cols)
-
-        table = _empty_table(n_buckets, sw)
-        if win is None:
-            col = slot * sw
+            colw = (slot * sw)[win]
+            bw = bucket[win]
             for j, c in enumerate(cols):
-                table[bucket, col + j] = c
-            return cls(unitigs, table, n_buckets, salt)
-
-        colw = (slot * sw)[win]
-        bw = bucket[win]
-        for j, c in enumerate(cols):
-            table[bw, colw + j] = c[win]
-        self = cls(unitigs, table, n_buckets, salt)
-        self.scheme = scheme
-        self.occ32 = occ32
-        side_idx = np.flatnonzero(~win)
-        ns = len(side_idx)
-        if ns:
-            side_T = 1 << max(6, int(np.ceil(np.log2(max(ns / SLOTS / 0.3, 64)))))
-            placed = _place_two_choice(canon[side_idx], side_T)
-            while placed is None:
-                side_T <<= 1
-                placed = _place_two_choice(canon[side_idx], side_T)
-            sbucket, sslot, ssalt = placed
-            side = _empty_table(side_T, sw)
-            scol = sslot * sw
-            for j, c in enumerate(cols):
-                side[sbucket, scol + j] = c[side_idx]
-            self.side, self.side_T, self.side_salt = side, side_T, ssalt
-        return self
+                table[bw, colw + j] = c[win]
+            self = cls(unitigs, table, n_buckets, salt)
+            self.scheme = scheme
+            self.occ32 = occ32
+            if side is not None:
+                side_T, sbucket, sslot, ssalt = side
+                side_table = _empty_table(side_T, sw)
+                scol = sslot * sw
+                for j, c in enumerate(cols):
+                    side_table[sbucket, scol + j] = c[~win]
+                self.side, self.side_T, self.side_salt = side_table, side_T, ssalt
+            return self
 
     def device_arrays(self) -> dict:
         """A mono2 dictionary without occ32 ships slot rows ([2T, sw]: the
@@ -228,6 +186,84 @@ class KCDict:
         if self.side is not None:
             d["side"] = self.side.reshape(-1, sw) if split else self.side
         return d
+
+
+def _place_one_hash(canon: np.ndarray, n_buckets: int):
+    """(bucket, slot, win) of the one-hash schemes: each key's bucket by
+    ``fold_hash32``, the first SLOTS keys of a bucket (a stable sort)
+    winning its slots; ``win`` is False for the keys left over."""
+    n = len(canon)
+    bucket = (fold_hash32_np(canon) & U32(n_buckets - 1)).astype(np.int64)
+    order = np.argsort(bucket, kind="stable")
+    bs = bucket[order]
+    run_start = np.ones(n, dtype=bool)
+    if n:
+        run_start[1:] = bs[1:] != bs[:-1]
+    run_id = np.cumsum(run_start) - 1
+    within = np.arange(n) - np.flatnonzero(run_start)[run_id]
+    win_sorted = within < SLOTS
+    win = np.zeros(n, dtype=bool)
+    win[order] = win_sorted
+    slot = np.zeros(n, dtype=np.int64)
+    slot[order] = np.where(win_sorted, within, 0)
+    return bucket, slot, win
+
+
+def _place_side(keys: np.ndarray):
+    """(side_T, bucket, slot, salt) of the side table's two-choice
+    placement of the keys left over, or None where there are none."""
+    ns = len(keys)
+    if not ns:
+        return None
+    side_T = 1 << max(6, int(np.ceil(np.log2(max(ns / SLOTS / 0.3, 64)))))
+    placed = _place_two_choice(keys, side_T)
+    while placed is None:
+        side_T <<= 1
+        placed = _place_two_choice(keys, side_T)
+    return (side_T, *placed)
+
+
+def _slot_columns(canon, canon_is_useq, uid, upos, ulen, occ_table, scheme: str):
+    """(the u32 columns of every key's slot, occ32): the key, its unitig
+    mapping and, from ``occ_table``, its unitig's occurrence words (see
+    ``KCDict.from_unitig_set``)."""
+    n = len(canon)
+    if occ_table is not None:
+        from ..index.unitig_table import needs_ctable
+
+        needs_ctable(occ_table, "a KCDict's inline occurrence words")
+        ct = occ_table.ctable
+        cwords = ct.to_array() if hasattr(ct, "to_array") else np.asarray(ct)
+        off = occ_table.offsets
+        hi = max(len(cwords) - 1, 0)
+        first = cwords[np.clip(off[uid], 0, hi)]
+        cnt = (off[uid + 1] - off[uid]).astype(np.uint64)
+        second = cwords[np.clip(off[uid] + 1, 0, hi)]
+    else:
+        first = cnt = second = np.zeros(n, dtype=np.uint64)
+    khi = (canon >> U64(32)).astype(U32) | (canon_is_useq.astype(U32) << U32(31))
+
+    def split64(x):
+        return [(x & U64(M32)).astype(U32), (x >> U64(32)).astype(U32)]
+
+    cols = [(canon & U64(M32)).astype(U32), khi, uid.astype(U32)]
+    slim = bool((ulen < (1 << 24)).all())
+    if slim:
+        cols += [
+            (upos.astype(U32) & U32(0xFFFFFF)) | ((ulen.astype(U32) & U32(0xFF)) << U32(24)),
+            ((ulen.astype(U32) >> U32(8)) & U32(0xFFFF))
+            | (np.minimum(cnt, 0xFFFF).astype(U32) << U32(16)),
+        ] + split64(first)
+    else:
+        cols += [upos.astype(U32), ulen.astype(U32)] + split64(first) + [
+            np.minimum(cnt, M32).astype(U32)]
+    occ32 = scheme == "mono2" and slim and occ_table is not None and bool(
+        (first < (1 << 32)).all() and (second < (1 << 32)).all())
+    if occ32:
+        cols = cols[:5] + [first.astype(U32), second.astype(U32)]
+    elif scheme == "mono2":
+        cols += split64(second)
+    return cols, occ32
 
 
 def _empty_table(n_buckets: int, sw: int = SW) -> np.ndarray:

@@ -22,6 +22,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from .. import trace
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
@@ -42,7 +44,8 @@ def compile_library(source: Path) -> tuple[Path, str]:
         nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source),
     ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with trace.span("kernel.build", source=source.name):
+        res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name} ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, lib)

@@ -10,6 +10,7 @@ module and script entry points."""
 
 import contextlib
 import io
+import json
 import os
 import re
 import subprocess
@@ -198,6 +199,24 @@ def test_cuckoo_is_not_ported(built):
             assert rc == 0 and out.strip() == "valid", err
     with np.load(built["out"]["port"] / "cuckoo.npz") as z:
         assert int(z["k2u/scheme"]) == 0 and z["k2u/table"].shape[1] == 14
+
+
+def test_trace_option_dumps_the_build_spans(data, tmp_path):
+    """``--trace FILE`` writes the program's spans as Chrome trace JSON at
+    exit: a mono2 build shows ``kcdict.build`` and, inside it,
+    ``kcdict.place``."""
+    path = tmp_path / "trace.json"
+    rc, out, err = _run(p_main, ["--torch-device", "cpu", "--trace", str(path), "kphf", "build",
+                                 "mono2", "-p", data["prefix"], "-o", str(tmp_path / "k.npz")])
+    assert rc == 0, err
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e["ph"] == "X"]
+    names = [e["name"] for e in spans]
+    build = names.index("kcdict.build")
+    place = spans[names.index("kcdict.place")]
+    assert place["args"]["parent"] == build
+    assert spans[build]["ts"] <= place["ts"]
+    assert place["ts"] + place["dur"] <= spans[build]["ts"] + spans[build]["dur"]
 
 
 def test_no_card_no_cpu_fallback(data, monkeypatch):
