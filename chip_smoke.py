@@ -5,7 +5,7 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. card check (fails without CUDA) and the card's name and power limit;
-2. build of the four kernel sources from ``mazu_tpu_torch/csrc``, and of
+2. build of the five kernel sources from ``mazu_tpu_torch/csrc``, and of
    K3's source with the MPHF layout's far reads plain (written into the
    build directory, phase 20's comparison), one nvcc each, run together
    (phases 3, 9 and 13 print the reports of the lab, second and third
@@ -48,6 +48,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    the index, half reverse-complemented, 5% foreign); both timed; the DRAM
    sectors and 64-byte blocks of a lane's row in the reference's 56-byte
    rows and in the card's 64-byte rows, and the floors they give;
+5b. the phase-2 kernel (``ops/mono2_phase2``, ``csrc/mono2_phase2.cu``)
+   against its plain version (``get_ref_pos_padded`` on the compacted
+   lanes) on the same card tensors, every field of the real slots
+   bit-identical and its side-table count exact: K1's adversarial batches
+   and a tile of the most-occurring unitigs' keys, each at n_ovf = N, 0
+   and N + 5 and through ``get_ref_pos_compact``; the benchmark cells'
+   chunk shapes (2^20 and 245,760 slots) on the lanes the main phase
+   leaves, at n_ovf 0 and M, and replayed from one CUDA graph whose n_ovf
+   buffer is rewritten between replays; each timed in turns with the
+   plain version, alone and inside the compacted query, beside its byte
+   bound and its sector floor; then an index with a unitig of 300
+   occurrences (more cells than a block's threads), also against the CPU;
 6. the mono2 main path: ``OneGraphIndexQuery.checksum_pass_rolled`` over
    16 rolled chunks of that batch, checked against the port's plain path
    on CPU tensors for chunk 0. Before it, ``TwoPhaseIndexQuery``'s
@@ -303,7 +315,10 @@ lane reads; each output written once) over 3.35 TB/s, or its integer
 operations over 67 T/s where that is larger. K1's, K2's and K3's
 ``sector_floor_ms`` is the DRAM sectors their lanes touch over phase 3's
 random-sector rate (K1's ``block_floor_ms``: its 64-byte blocks at the
-same rate). L1's, L3's and L4's ``large_batch_ms`` is their work at the
+same rate); the phase-2 kernel's is its real slots' row sectors at that
+rate plus its output bytes at 3.35 TB/s, and its ``compact_ms`` and
+``compact_plain_ms`` time ``get_ref_pos_compact`` with it and with the
+plain phase 2. L1's, L3's and L4's ``large_batch_ms`` is their work at the
 rate the same kernel reaches from L2 on phase 3's larger batch: it shows
 the launch and tail share, and is no floor, since the kernel's own costs
 set it. Their ``l2_floor_ms`` is: the bytes they move through the L2 (a
@@ -326,6 +341,7 @@ JSON. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -381,7 +397,7 @@ from mazu_tpu_torch.kphf.sshash import (
     TwoPhaseSSHash, _pos_get, _prefix_pair, mphf_lookup, shard_arrays, sshash_k2u,
 )
 from mazu_tpu_torch.labs import cuda_ms, dma_lab, gather_probe
-from mazu_tpu_torch.ops import bpos_probe, capacity_probe, gather_lab, mono2_probe
+from mazu_tpu_torch.ops import bpos_probe, capacity_probe, gather_lab, mono2_phase2, mono2_probe
 from mazu_tpu_torch.ops.cuda_build import compile_all
 from mazu_tpu_torch import synth
 
@@ -410,6 +426,12 @@ READ_BATCH = 1 << 18  # read k-mers a reads1graph chunk (MAZU_BENCH_BATCH)
 READS = 8192  # reads of the reads path (bench.py:637-657, MAZU_BENCH_READS)
 LAYOUT_ORACLE = 1 << 18  # lanes of phase 21b's CPU oracles
 SHARD_M2 = BATCH // 4  # phase-2 lanes a data shard of the sharded queries (phase 23)
+# (lanes, m2) of a chunk of the benchmark's cells: tx50-mono2.kmers, tx50-mono2.reads
+P2_SHAPES = ((1 << 20, 1 << 20), (2048 * 120, 2048 * 120))
+P2_TURNS = 3  # timed turns of the phase-2 kernel and its plain version
+P2_OUT = 7 * 8 + 1  # bytes of a phase-2 slot's K2U fields and count
+P2_CELL = 8 + 8 + 4 + 1  # bytes of a phase-2 output cell: ref_id, ref_pos, orient, valid
+MANY_OCCS = 300  # occurrences of one unitig of phase 5b's many-occurrence index
 # phase 18 profiles no more eager passes past this many seconds of the run,
 # so that a slow machine still ends inside the 1,200 s limit
 EAGER_PROFILE_UNTIL_S = 1100.0
@@ -593,6 +615,247 @@ def compare_cases(tag: str, d: dict, cases: dict, runs, dev) -> int:
     return err
 
 
+@contextlib.contextmanager
+def plain_phase2():
+    """``get_ref_pos_compact``'s phase 2 on its plain path while inside: the
+    phase-2 kernel's oracle on the same card tensors."""
+    real = mono2_phase2.engages
+    mono2_phase2.engages = lambda d, device: False
+    try:
+        yield
+    finally:
+        mono2_phase2.engages = real
+
+
+def side_count(d: dict, fw: torch.Tensor, lanes: torch.Tensor, n: int) -> int:
+    """The real slots (the first ``n``) whose key the main table does not
+    hold, where the dictionary has a side table: what the phase-2 kernel's
+    counter must read."""
+    if "side" not in d["k2u"] or not n:
+        return 0
+    return int(kcdict_k2u(d["k2u"], fw[lanes[:n]], mode="main")["unresolved"].sum())
+
+
+def same_slots(what: str, got: dict, want: dict, n: int) -> None:
+    """Every field of ``got`` equal to ``want``'s on the first ``n`` slots,
+    with the same keys, dtypes and shapes."""
+    if list(got) != list(want):
+        raise AssertionError(f"[p2] {what}: keys {list(got)}, plain gives {list(want)}")
+    for key, w in want.items():
+        g = got[key]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"[p2] {what}: {key} is {g.dtype}{tuple(g.shape)}, plain gives "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        if not torch.equal(g[:n], w[:n]):
+            raise AssertionError(f"[p2] {what}: kernel and plain version differ in {key} on the "
+                                 f"real slots")
+
+
+def compare_phase2(d: dict, fw: torch.Tensor, lanes: torch.Tensor, n_ovf: int, mo: int,
+                   what: str) -> None:
+    """The phase-2 kernel against ``get_ref_pos_padded(d, fw[lanes], mo)``
+    on the same card tensors: every field bit-identical on the real slots,
+    and its side-table count equal to ``side_count``."""
+    side = torch.zeros((), dtype=torch.int64, device=fw.device)
+    nt = torch.tensor(n_ovf, dtype=torch.int64, device=fw.device)
+    got = mono2_phase2.mono2_phase2(d, fw, lanes, nt, mo, side_probes=side)
+    n = min(n_ovf, lanes.shape[0])
+    same_slots(what, got, get_ref_pos_padded(d, fw[lanes], mo), n)
+    if int(side) != side_count(d, fw, lanes, n):
+        raise AssertionError(f"[p2] {what}: {int(side)} side probes counted, "
+                             f"{side_count(d, fw, lanes, n)} real slots missed the main table")
+
+
+def same_compact(what: str, got: dict, want: dict) -> None:
+    """Two ``get_ref_pos_compact(merge=False)`` results equal: every piece,
+    and phase 2 on its real slots."""
+    if set(got) != set(want):
+        raise AssertionError(f"[p2] {what}: pieces {sorted(got)} / {sorted(want)}")
+    for key in ("overflow", "lanes", "slot_real", "n_ovf", "over_budget"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"[p2] {what}: {key} differs")
+    for key, w in want["main"].items():
+        if not torch.equal(got["main"][key], w):
+            raise AssertionError(f"[p2] {what}: main.{key} differs")
+    same_slots(what, got["phase2"], want["phase2"], int(want["slot_real"].sum()))
+
+
+def phase2_cases(host: dict, index, work: np.ndarray, seed: int = 9) -> dict:
+    """Adversarial batches for the phase-2 kernel: K1's (``k1_cases``:
+    N = 1, ragged sizes around the 256-slot block and 2^20 + 37, all
+    misses, all side-table keys, ...) and a tile of keys of the unitigs
+    with the index's most occurrences, half reverse-complemented."""
+    cases = k1_cases(host["k2u"], work)
+    us = index.k2u.unitigs
+    accum = np.asarray(us.accum)
+    cnt = np.diff(np.asarray(index.u2pos.offsets))
+    rng = np.random.default_rng(seed)
+    u = rng.choice(np.flatnonzero(cnt == cnt.max()), mono2_phase2.TILE)
+    span = accum[u + 1] - accum[u] - us.k + 1
+    words = np.asarray(us.get_kmer_u64(accum[u] + (rng.random(len(u)) * span).astype(np.int64)),
+                       dtype=np.uint64)
+    flip = rng.random(len(u)) < 0.5
+    words[flip] = revcomp_np(words[flip], us.k)
+    cases[f"max-occurrence unitigs ({cnt.max()})"] = words
+    return cases
+
+
+def many_occ_index(seed: int = 3):
+    """A mono2-occ32 index over 64 random unitigs of ``synth.PIECE`` bases,
+    each its own reference, where unitig 0 also lies on ``MANY_OCCS`` - 1
+    other places of the references: phase 2's cells outnumber a block's
+    threads."""
+    from mazu_tpu_torch.containers.refseq import RefSeqCollection
+    from mazu_tpu_torch.containers.unitig_set import UnitigSet
+    from mazu_tpu_torch.index.spt import SPT
+    from mazu_tpu_torch.kphf.kcdict import KCDict
+
+    rng = np.random.default_rng(seed)
+    n = 64
+    sv = SeqVector.from_codes(rng.integers(0, 4, n * synth.PIECE, dtype=np.uint8))
+    accum = np.arange(n + 1, dtype=np.int64) * synth.PIECE
+    unitigs = UnitigSet(synth.K, sv, accum)
+    names = [f"r{i}" for i in range(n)]
+    extra = MANY_OCCS - 1
+    spt = SPT(unitigs, names,
+              np.concatenate([np.arange(n), np.zeros(extra, dtype=np.int64)]),
+              np.concatenate([np.arange(n), rng.integers(0, n, extra)]),
+              np.concatenate([np.zeros(n, dtype=np.int64), rng.integers(0, synth.PIECE, extra)]),
+              np.concatenate([np.ones(n, dtype=np.int64), rng.integers(0, 2, extra)]),
+              np.full(n, synth.PIECE, dtype=np.int64))
+    u2pos = spt.piscem_table()
+    k2u = KCDict.from_unitig_set(unitigs, load=synth.LOAD, occ_table=u2pos, scheme="mono2")
+    return ModIndex(k2u, u2pos, RefSeqCollection(sv, accum, names), index_type="many-occs")
+
+
+def phase2_phase(tag: str, index, host: dict, gpu_index, work: np.ndarray, dev, smi,
+                 sector_rate: float) -> dict:
+    """Phase 5b: the phase-2 kernel (``ops/mono2_phase2``) on the card
+    against its plain version on the same card tensors, every field of the
+    real slots bit-identical and its side-table count exact: on
+    ``phase2_cases`` (each at n_ovf = N, 0 and N + 5, and through
+    ``get_ref_pos_compact``), at the benchmark cells' chunk shapes
+    (``P2_SHAPES``: the lanes of ``work`` the main phase leaves, and n_ovf
+    0 and M; replayed from one CUDA graph at two n_ovf written into its
+    buffer; timed in turns with the plain version, alone and inside the
+    compacted query) and on ``many_occ_index``. Returns its entry of the
+    kernels line (``launches`` filled in by the caller)."""
+    d = gpu_index.arrays()
+    mo = gpu_index.max_occs
+    if not mono2_phase2.engages(d, dev):
+        raise AssertionError(f"[{tag}] the phase-2 kernel does not engage on this index")
+    cases = phase2_cases(host, index, work)
+    for name, words in cases.items():
+        fw = torch.from_numpy(np.ascontiguousarray(words).view(np.int64)).to(dev)
+        lanes = torch.arange(fw.shape[0], device=dev)
+        for n in (fw.shape[0], 0, fw.shape[0] + 5):
+            compare_phase2(d, fw, lanes, n, mo, f"{name}, n_ovf {n}")
+        with plain_phase2():
+            want = get_ref_pos_compact(d, fw, mo, merge=False, m2=fw.shape[0])
+        same_compact(name, get_ref_pos_compact(d, fw, mo, merge=False, m2=fw.shape[0]), want)
+    log(f"[{tag}] {'; '.join(cases)}: bit-identical on every field of the real slots at "
+        f"n_ovf = N, 0 and N + 5, side probes counted exactly, and through get_ref_pos_compact")
+    out = None
+    for N, M in P2_SHAPES:
+        fw = torch.from_numpy(np.ascontiguousarray(work[:N]).view(np.int64)).to(dev)
+        with plain_phase2():
+            want = get_ref_pos_compact(d, fw, mo, merge=False, m2=M)
+        same_compact(f"N={N} M={M}", get_ref_pos_compact(d, fw, mo, merge=False, m2=M), want)
+        lanes, n_ovf = want["lanes"], want["n_ovf"]
+        n = min(int(n_ovf), M)
+        for nn in (0, M):
+            compare_phase2(d, fw, lanes, nn, mo, f"N={N} M={M}, n_ovf {nn}")
+        # replayed: one graph of the kernel, its n_ovf read from a buffer
+        nbuf = n_ovf.clone()
+        side = torch.zeros((), dtype=torch.int64, device=dev)
+        mono2_phase2.mono2_phase2(d, fw, lanes, nbuf, mo)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gout = mono2_phase2.mono2_phase2(d, fw, lanes, nbuf, mo, side_probes=side)
+        for nn in (n, n // 2):
+            nbuf.fill_(nn)
+            side.zero_()
+            graph.replay()
+            same_slots(f"N={N} replayed at n_ovf {nn}", gout, get_ref_pos_padded(d, fw[lanes], mo),
+                       nn)
+            if int(side) != side_count(d, fw, lanes, nn):
+                raise AssertionError(f"[{tag}] N={N} replayed at n_ovf {nn}: side count "
+                                     f"{int(side)}")
+        del graph, gout
+
+        def kernel():
+            return mono2_phase2.mono2_phase2(d, fw, lanes, n_ovf, mo)
+
+        def plain():
+            return get_ref_pos_padded(d, fw[lanes], mo)
+
+        def compact():
+            return get_ref_pos_compact(d, fw, mo, merge=False, m2=M)
+
+        def compact_plain():
+            with plain_phase2():
+                return compact()
+
+        times = {"kernel": [], "plain": [], "compact": [], "compact_plain": []}
+        for _ in range(P2_TURNS):
+            for key, fn, iters in (("kernel", kernel, 20), ("plain", plain, 3),
+                                   ("compact", compact, 5), ("compact_plain", compact_plain, 3)):
+                times[key].append(cuda_ms(fn, iters))
+        med = {key: statistics.median(v) for key, v in times.items()}
+        occs = int(want["phase2"]["n_occs"][:n].sum())
+        n_side = side_count(d, fw, lanes, n)
+        out_bytes = n * (P2_OUT + P2_CELL * mo)
+        # each real lane reads its slot's lane index and word, one 64-byte
+        # row (two 56-byte side rows where the main row misses), its two
+        # offsets and its occurrence words, and writes its outputs
+        p2_bound = bound(n * (8 + 8 + 4 * mono2_probe.ROW_WORDS + 16) + 2 * 4 * SLOTS * SW * n_side
+                         + 8 * occs + out_bytes)
+        sec, _ = row_spans(d["k2u"], fw[lanes[:n]], 4 * mono2_probe.ROW_WORDS)
+        floor = (sec / sector_rate + out_bytes / HBM_BPS) * 1e3
+        log(f"[{tag}] N={N} M={M} max_occs={mo}: {n} real slots ({n / M:.4f} of M), {occs} "
+            f"occurrences ({occs / max(n, 1):.3f} a slot), {n_side} side probes; bit-identical to "
+            f"the plain version through get_ref_pos_compact, at n_ovf 0 and M, and replayed at "
+            f"n_ovf {n} and {n // 2}")
+        log(f"[{tag}] N={N} M={M}: kernel {med['kernel']:.4f} ms {times['kernel']}, plain "
+            f"{med['plain']:.4f} ms {times['plain']} ({med['plain'] / med['kernel']:.1f}x); "
+            f"get_ref_pos_compact {med['compact']:.4f} ms against {med['compact_plain']:.4f} ms on "
+            f"the plain phase 2; bound {p2_bound[0]:.4f} ms ({p2_bound[1]}, kernel at "
+            f"{p2_bound[0] / med['kernel']:.1%}); sector floor {floor:.4f} ms ({sec} DRAM row "
+            f"sectors at {sector_rate / 1e9:.3f} G/s, {out_bytes} output bytes at "
+            f"{HBM_BPS / 1e12:.2f} TB/s; kernel at {floor / med['kernel']:.1%}) ({smi})")
+        if out is None:  # the first shape is the record's
+            out = record("mono2_phase2", "mono2_phase2.cu",
+                         "none (plain jnp: mazu_tpu/index/modindex.py get_ref_pos_compact)", 0, 0,
+                         med["kernel"], med["plain"], p2_bound, sector_floor_ms=floor,
+                         compact_ms=med["compact"], compact_plain_ms=med["compact_plain"])
+        del want, lanes, n_ovf, fw
+        torch.cuda.empty_cache()
+    mi = many_occ_index()
+    mh = mi.device_arrays()
+    mq = QueryIndex(arrays_from_numpy(mh, "cpu")).to(dev)
+    md, mmo = mq.arrays(), mq.max_occs
+    us = mi.k2u.unitigs
+    words = np.concatenate([us.get_kmer_u64(np.arange(0, synth.PIECE - us.k + 1, 7)),
+                            synth.sample_queries_truth(us, 4096, seed=2)[0]])
+    fw = torch.from_numpy(np.ascontiguousarray(words, dtype=np.uint64).view(np.int64)).to(dev)
+    lanes = torch.arange(fw.shape[0], device=dev)
+    for n in (fw.shape[0], 0, 1000):
+        compare_phase2(md, fw, lanes, n, mmo, f"many occurrences, n_ovf {n}")
+    with plain_phase2():
+        want = get_ref_pos_compact(md, fw, mmo, merge=False, m2=fw.shape[0])
+    same_compact("many occurrences", get_ref_pos_compact(md, fw, mmo, merge=False,
+                                                         m2=fw.shape[0]), want)
+    cpu = get_ref_pos_padded(arrays_from_numpy(mh, "cpu"), fw.cpu(), mmo)
+    got = mono2_phase2.mono2_phase2(md, fw, lanes, torch.tensor(fw.shape[0], device=dev), mmo)
+    same_slots("many occurrences against the CPU", {kk: v.cpu() for kk, v in got.items()}, cpu,
+               fw.shape[0])
+    log(f"[{tag}] many-occurrence index (max_occs {mmo}, {fw.shape[0]} lanes): bit-identical "
+        f"to the plain version on the card and on the CPU")
+    del mq, md
+    return out
+
+
 def card() -> tuple[torch.device, str]:
     """The CUDA device, and its name and power limit as nvidia-smi gives
     them; exits without a card."""
@@ -609,7 +872,7 @@ def card() -> tuple[torch.device, str]:
 
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a main path)."""
-    for mod in (mono2_probe, bpos_probe, capacity_probe):
+    for mod in (mono2_probe, bpos_probe, capacity_probe, mono2_phase2):
         mod.LAUNCHES = 0
     for name in gather_lab.LAUNCHES:
         gather_lab.LAUNCHES[name] = 0
@@ -669,12 +932,12 @@ def main():
     mark("2")
     # 2. kernel builds, one nvcc per source, together
     t0 = time.perf_counter()
-    (lib, ptxas), (lib2, ptxas2), (lib3, ptxas3), (lib4, ptxas4), (lib5, _) = compile_all(
-        [mono2_probe.SOURCE, bpos_probe.SOURCE, capacity_probe.SOURCE, gather_lab.SOURCE,
-         k3_plain_reads_source()])
-    log(f"[build] {lib.name}, {lib2.name}, {lib3.name}, {lib4.name} and {lib5.name} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in ptxas_lines(ptxas):
+    (lib, ptxas), (lib2, ptxas2), (lib3, ptxas3), (lib4, ptxas4), (lib5, _), (lib6, ptxas6) = \
+        compile_all([mono2_probe.SOURCE, bpos_probe.SOURCE, capacity_probe.SOURCE,
+                     gather_lab.SOURCE, k3_plain_reads_source(), mono2_phase2.SOURCE])
+    log(f"[build] {lib.name}, {lib2.name}, {lib3.name}, {lib4.name}, {lib5.name} and {lib6.name} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_lines(ptxas) + ptxas_lines(ptxas6):
         log(f"[build] {line}")
 
     mark("3")
@@ -750,6 +1013,10 @@ def main():
         f"its bound, {k1_ms / k1_block_floor:.2f}x its block floor; no single torch call "
         f"computes the probe ({smi})")
 
+    mark("5b")
+    # 5b. the phase-2 kernel against its plain version
+    p2 = phase2_phase("p2", index, host, gpu_index, work, dev, smi, sector_rate)
+
     mark("6")
     # 6. main path
     t0 = time.perf_counter()
@@ -791,6 +1058,9 @@ def main():
         CH * host_chk, BATCH * CH, PASSES, mono2_probe, smi)
     if worst > M2:
         raise AssertionError(f"worst overflow {worst} > M2 {M2}")
+    p2["launches"] = mono2_phase2.LAUNCHES
+    if not p2["launches"]:
+        raise AssertionError("[main] the replayed pass never launched the phase-2 kernel")
     derived_capture_raises(dev)
     del og, og_eager
     mark("6e")
@@ -861,7 +1131,7 @@ def main():
         mark(f"18.{i}")
         profile()
     mark("end")
-    log(json.dumps({"kernels": [k1, k2, k3, *labs]}))
+    log(json.dumps({"kernels": [k1, p2, k2, k3, *labs]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

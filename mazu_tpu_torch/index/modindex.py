@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import MATCH_IDENTITY, trace
+from ..ops import mono2_phase2
 from ..ops.compact import flagged_lanes, flagged_lanes2
 from ..ops.mono2_probe import card_table
 from ..pytree import meta
@@ -292,7 +293,9 @@ def get_ref_pos_compact(
     offsets table (``twophase._project_offsets``).
 
     Lanes the main phase does not settle are compacted into ``M = m2``
-    (default ``max(64, N // budget_div)``) slots and resolved by ``get_ref_pos_padded``. With
+    (default ``max(64, N // budget_div)``) slots and resolved by ``get_ref_pos_padded`` on
+    ``fw[lanes]``, or, where ``ops.mono2_phase2.engages`` (a mono2-occ32
+    KCDict on the card), by that kernel, which writes only the real slots. With
     ``m2b`` the heavy phase is type-split (see ``_compact_split``), and
     ``probe_limit2``/``m2c`` add its middle phase. Results equal
     ``get_ref_pos_padded``'s unless ``over_budget`` is set: some block got
@@ -302,7 +305,10 @@ def get_ref_pos_compact(
     ``slot_real``, ``phase2``, ``n_ovf``, ``over_budget``; with ``m2b`` also
     ``lanes_b``, ``slot_real_b``, ``phase2b``, ``n_ovf_b``, and with
     ``probe_limit2`` ``over_budget_c``) without materializing merged
-    [N, max_occs] tensors."""
+    [N, max_occs] tensors. In a marked pass (``trace.staged``) an unsplit
+    result also holds ``side_probes``: the real phase-2 lanes whose key the
+    main table did not hold, sent on to a mono or mono2 KCDict's side table
+    (0 on other dictionaries)."""
     from .twophase import _main_probe, _project_main
 
     N = fw.shape[0]
@@ -320,12 +326,19 @@ def get_ref_pos_compact(
                               probe_start=probe_start, probe_limit2=probe_limit2, m_c=m2c)
     lanes, n_ovf = flagged_lanes(overflow, M)
     over_budget = n_ovf > M
+    slot_real = torch.arange(M, device=fw.device) < torch.clamp(n_ovf, max=M)
+    # a marked pass counts the real lanes sent on to the side table
+    side = torch.zeros((), dtype=torch.int64, device=fw.device) if trace.staged() else None
     # these lanes include ones the main probe found (more occurrences than
     # it projects): the re-probe starts at row 0, not at probe_start
-    out2 = get_ref_pos_padded(d, fw[lanes], max_occs)
-    slot_real = torch.arange(M, device=fw.device) < torch.clamp(n_ovf, max=M)
+    if mono2_phase2.engages(d, fw.device):
+        out2 = mono2_phase2.mono2_phase2(d, fw, lanes, n_ovf, max_occs, side_probes=side)
+    else:
+        out2 = get_ref_pos_padded(d, fw[lanes], max_occs)
+        if side is not None and m_.kind == "kcdict" and "side" in d["k2u"]:
+            side = (r["unresolved"][lanes] & slot_real).sum()
     if not merge:
-        return {
+        out = {
             "main": {**{kk: r[kk] for kk in _K2U_FIELDS}, **p},
             "overflow": overflow,
             "lanes": lanes,
@@ -334,6 +347,9 @@ def get_ref_pos_compact(
             "n_ovf": n_ovf,
             "over_budget": over_budget,
         }
+        if side is not None:
+            out["side_probes"] = side
+        return out
     full = _merge_compact(p, [(out2, lanes, slot_real)], max_occs)
     full["over_budget"] = over_budget
     return full

@@ -234,16 +234,18 @@ class OneGraphIndexQuery:
 
     @staticmethod
     def phase2_counts(out: dict) -> torch.Tensor:
-        """int64 [2] of a ``merge=False`` result, on the device: the lanes
-        sent to phase 2 (``n_ovf``, plus ``n_ovf_b`` when type-split) and
-        the phase-2 slots that hold a real occurrence (``valid`` of a real
-        slot)."""
+        """int64 [3] of a ``merge=False`` result, on the device: the lanes
+        sent to phase 2 (``n_ovf``, plus ``n_ovf_b`` when type-split), the
+        phase-2 slots that hold a real occurrence (``valid`` of a real
+        slot), and the real lanes sent on to the side table
+        (``side_probes``, which a marked pass's result holds; else 0)."""
         lanes = out["n_ovf"].to(torch.int64)
         occs = (out["phase2"]["valid"] & out["slot_real"][:, None]).sum()
         if "phase2b" in out:
             lanes = lanes + out["n_ovf_b"]
             occs = occs + (out["phase2b"]["valid"] & out["slot_real_b"][:, None]).sum()
-        return torch.stack([lanes, occs])
+        side = out.get("side_probes", torch.zeros_like(lanes))
+        return torch.stack([lanes, occs, side])
 
     def _run(self, chunks) -> torch.Tensor:
         """int64 [4] on the device: the pass checksum and the worst
@@ -291,7 +293,7 @@ class OneGraphIndexQuery:
         tot, wa, wb, wc = vals[:4]
         if len(vals) > 4:
             slots = self.CH * (self.M2 + (self.M2B or 0)) * self.max_occs
-            count_phase2(vals[4], vals[5], slots)
+            count_phase2(vals[4], vals[5], slots, vals[6])
         if wc:
             raise RuntimeError(
                 "middle-phase residue capacity (m2c) exceeded: results for the lanes past "
@@ -319,11 +321,12 @@ class OneGraphIndexQuery:
         return tot
 
 
-def count_phase2(lanes: int, occurrences: int, slots: int) -> None:
+def count_phase2(lanes: int, occurrences: int, slots: int, side_probes: int) -> None:
     """The ``phase2.*`` counters of one marked pass."""
     trace.count("phase2.lanes", lanes)
     trace.count("phase2.occurrences", occurrences)
     trace.count("phase2.slots", slots)
+    trace.count("phase2.side_probes", side_probes)
 
 
 def padded_checksum(out: dict) -> torch.Tensor:
@@ -450,7 +453,8 @@ def serve_chunk(arrays: dict, cb: dict, packed: dict, row_start: int, rows: int,
     over the color bitsets ``cb``. pa_chk sums the bitset words' int64 bit
     patterns, which wraps as the reference's u64 sum cast to int64 does,
     plus the reads' hit counts. A marked pass (``trace.staged``) adds a
-    fourth: the phase-2 slots that hold a real occurrence."""
+    fourth and a fifth: the phase-2 slots that hold a real occurrence and
+    the phase-2 lanes sent on to the side table."""
     trace.mark("kmerize", packed["words"])
     km, v = kmerize_device(packed, row_start, rows)
     out = get_ref_pos_compact(arrays, km.reshape(-1), max_occs, merge=False, m2=m2,
@@ -461,7 +465,7 @@ def serve_chunk(arrays: dict, cb: dict, packed: dict, row_start: int, rows: int,
     res = [OneGraphIndexQuery.checksum(out), bits.sum() + n_hit.sum(),
            out["n_ovf"].to(torch.int64)]
     if trace.staged():
-        res.append(OneGraphIndexQuery.phase2_counts(out)[1])
+        res.extend(OneGraphIndexQuery.phase2_counts(out)[1:].unbind())
     return torch.stack(res)
 
 
@@ -513,7 +517,7 @@ class RunServePass:
         (``pad_reads``'s, to ``read_len``) already on the device as one
         ``serve_buffer``, with no host read; on a CUDA index the graph's
         output, which the next replay overwrites. A marked pass
-        (``trace.staged``) gives [CH, 4]: ``serve_chunk``'s fourth column."""
+        (``trace.staged``) gives [CH, 5]: ``serve_chunk``'s fourth and fifth columns."""
         if m.R != self.n_reads * self.CH:
             raise ValueError(f"{m.R} reads; the pass takes {self.CH} x {self.n_reads}")
         if (m.stride, m.L) != row_shape(self.read_len, m.k):
@@ -545,7 +549,7 @@ class RunServePass:
                 maps, pas, n_ovf = cols[:3]
                 if len(cols) > 3:
                     count_phase2(sum(n_ovf), sum(cols[3]),
-                                 self.CH * self.M2 * self.index.max_occs)
+                                 self.CH * self.M2 * self.index.max_occs, sum(cols[4]))
                 if max(n_ovf) > self.M2:
                     raise RuntimeError(f"phase-2 capacity exceeded: {max(n_ovf)} overflow lanes "
                                        f"in a chunk (m2={self.M2}); results for the lanes past "

@@ -1,7 +1,9 @@
 """The argument blocks of the CUDA kernels K1 (``csrc/mono2_probe.cu``), K2
-(``csrc/bpos_probe.cu``) and K3 (``csrc/capacity_probe.cu``) against their
-ctypes mirrors (``ops/mono2_probe._Args``, ``ops/bpos_probe._Args``,
-``ops/capacity_probe._Args``), and the C entries of the lab kernels
+(``csrc/bpos_probe.cu``), K3 (``csrc/capacity_probe.cu``) and the mono2
+phase 2 (``csrc/mono2_phase2.cu``) against their ctypes mirrors
+(``ops/mono2_probe._Args``, ``ops/bpos_probe._Args``,
+``ops/capacity_probe._Args``, ``ops/mono2_phase2._Args``), and the C
+entries of the lab kernels
 (``csrc/gather_lab.cu``) against ``ops/gather_lab.ARGTYPES``.
 
 A field that drifts on one side shifts every field after it, and the
@@ -18,7 +20,7 @@ import re
 
 import pytest
 
-from mazu_tpu_torch.ops import bpos_probe, capacity_probe, gather_lab, mono2_probe
+from mazu_tpu_torch.ops import bpos_probe, capacity_probe, gather_lab, mono2_phase2, mono2_probe
 
 EIGHT_BYTE_INTS = {"int64_t", "uint64_t"}
 
@@ -61,6 +63,9 @@ KERNELS = {
     "bpos_probe": (bpos_probe,
                    {"kTile": "TILE", "kMaxPlim": "MAX_PLIM", "kRecWords": "REC_WORDS"}),
     "capacity_probe": (capacity_probe, {"kTile": "TILE", "kMaxLevels": "MAX_LEVELS"}),
+    "mono2_phase2": (mono2_phase2, {"kTile": "TILE", "kSlotWords": "SW", "kRowWords": "ROW_WORDS",
+                                    "kSideRowWords": "SIDE_ROW_WORDS",
+                                    "kMaxOccsLimit": "MAX_OCCS_LIMIT"}),
 }
 
 

@@ -5,8 +5,8 @@ as it was; ``enable()`` alone keeps host spans and counters with the same
 graphs; only ``enable(stages=True)`` adds the stage flag to a graph's key
 and the phase-2 sums to its output. On a small synthetic index, the
 ``phase2.*`` counters of ``OneGraphIndexQuery`` and ``RunServePass`` equal
-counts worked out from ``get_ref_pos_compact(merge=False)`` chunk by
-chunk, and the passes' results are the same with tracing on and off.
+counts worked out from ``get_ref_pos_compact(merge=False)`` and the main
+probe chunk by chunk, and the passes' results are the same with tracing on and off.
 Under a CPU ``torch.profiler`` the program's ``mazu.`` ranges nest inside
 the caller's. Device stages are settled from stand-in events."""
 
@@ -25,7 +25,7 @@ from mazu_tpu_torch.index.modindex import QueryIndex, get_ref_pos_compact
 from mazu_tpu_torch.index.pipeline import OneGraphIndexQuery, RunServePass
 from mazu_tpu_torch.index.pseudoalign import color_bitsets
 from mazu_tpu_torch.io.reads import kmerize_device, pack_reads, pad_reads
-from mazu_tpu_torch.kphf.kcdict import KCDict
+from mazu_tpu_torch.kphf.kcdict import KCDict, kcdict_k2u
 from mazu_tpu_torch.synth import READ_LEN
 
 from torch_fixtures import tensor
@@ -193,12 +193,14 @@ def test_ranges_nest_in_the_callers_range(small):
 
 
 def _phase2_by_hand(qi, chunks, m2):
-    """(lanes sent to phase 2, phase-2 slots holding an occurrence) of
-    ``chunks`` through ``get_ref_pos_compact(merge=False)``: the first
-    ``n_ovf`` slots (at most ``m2``) are real, and each real slot's valid
-    columns are its occurrences."""
+    """(lanes sent to phase 2, phase-2 slots holding an occurrence, real
+    lanes sent on to the side table) of ``chunks`` through
+    ``get_ref_pos_compact(merge=False)``: the first ``n_ovf`` slots (at most
+    ``m2``) are real, each real slot's valid columns are its occurrences,
+    and a real lane goes on to the side table where the main table does not
+    hold its key."""
     arrays = qi.arrays()
-    lanes = occs = 0
+    lanes = occs = side = 0
     for chunk in chunks:
         out = get_ref_pos_compact(arrays, chunk, qi.max_occs, merge=False, m2=m2, probe_limit=2)
         n = int(out["n_ovf"])
@@ -208,7 +210,10 @@ def _phase2_by_hand(qi, chunks, m2):
         lanes += n
         occs += int(valid[: min(n, m2)].sum())
         assert occs > 0
-    return lanes, occs
+        main = kcdict_k2u(arrays["k2u"], chunk[out["lanes"][: min(n, m2)]], mode="main")
+        side += int(main["unresolved"].sum())
+    assert side > 0
+    return lanes, occs, side
 
 
 def test_phase2_counters_of_the_query(small):
@@ -217,10 +222,10 @@ def test_phase2_counters_of_the_query(small):
     trace.enable(stages=True)
     on = _query(qi).checksum_pass(stack)
     assert on == off
-    lanes, occs = _phase2_by_hand(qi, stack, N)
+    lanes, occs, side = _phase2_by_hand(qi, stack, N)
     assert trace.snapshot()["counters"] == {
         "passes": 1, "phase2.lanes": lanes, "phase2.occurrences": occs,
-        "phase2.slots": CH * N * qi.max_occs}
+        "phase2.slots": CH * N * qi.max_occs, "phase2.side_probes": side}
     assert 0 < lanes < CH * N
 
 
@@ -235,11 +240,11 @@ def test_phase2_counters_of_the_serve_pass(small):
                               "lengths": torch.from_numpy(padded["lengths"].astype(np.int64)),
                               "bad": torch.from_numpy(padded["bad"].view(np.int64))},
                              ci * N_READS, N_READS)[0].reshape(-1) for ci in range(CH)]
-    lanes, occs = _phase2_by_hand(qi, chunks, M2_SERVE)
+    lanes, occs, side = _phase2_by_hand(qi, chunks, M2_SERVE)
     assert lanes == sum(off[2])
     c = trace.snapshot()["counters"]
     assert c == {"passes": 1, "phase2.lanes": lanes, "phase2.occurrences": occs,
-                 "phase2.slots": CH * M2_SERVE * qi.max_occs}
+                 "phase2.slots": CH * M2_SERVE * qi.max_occs, "phase2.side_probes": side}
 
 
 class _StandIn:
@@ -273,7 +278,7 @@ def test_only_the_stage_flag_joins_the_graph_key(monkeypatch, small):
     assert list(qi.graphs) == keys + [k + ("marked",) for k in keys]
     out = {k: qi.graphs[k].out for k in qi.graphs}
     assert [tuple(out[k].shape) for k in keys] == [(4,), (CH, 3)]
-    assert [tuple(out[k + ("marked",)].shape) for k in keys] == [(6,), (CH, 4)]
+    assert [tuple(out[k + ("marked",)].shape) for k in keys] == [(7,), (CH, 5)]
     qi.graphs.clear()
 
 
