@@ -60,6 +60,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    plain version, alone and inside the compacted query, beside its byte
    bound and its sector floor; then an index with a unitig of 300
    occurrences (more cells than a block's threads), also against the CPU;
+5c. the ragged phase 2 (``ops/occ_csr``, ``csrc/occ_csr.cu``) on a fast32
+   SSHash whose unitig 0 lies on 300 places (so the padded phase 2 would
+   be wider than ``occ_csr.COLUMNS``): the kernel against its plain
+   version (``occ_csr_plain``) on the same card tensors, every per-slot
+   output, the total and every written entry bit-identical: lanes with 0,
+   1, 3 and 300 occurrences, and 245,760 lanes (the benchmark's read
+   chunk) uniform over the index with 5% foreign words, each at an exactly
+   full budget, one short of it, a generous one and 1, and at n_ovf N, 0
+   and N / 2; ``get_ref_pos_compact`` on the card against its CPU oracle,
+   its slots' K2U (the full-depth main probe, the residue's full K2U)
+   against the full K2U of every slot; the kernel and the block's
+   checksum timed at the chunk beside the block's byte bound, and the
+   slots' K2U beside the full K2U of every slot;
 6. the mono2 main path: ``OneGraphIndexQuery.checksum_pass_rolled`` over
    16 rolled chunks of that batch, checked against the port's plain path
    on CPU tensors for chunk 0. Before it, ``TwoPhaseIndexQuery``'s
@@ -359,8 +372,8 @@ from mazu_tpu_torch._words import mask32, umin
 from mazu_tpu_torch.containers.unitig_set import us_get_kmer
 from mazu_tpu_torch.convert import arrays_from_numpy
 from mazu_tpu_torch.index.modindex import (
-    ModIndex, QueryIndex, build_uproj, get_ref_pos_compact, get_ref_pos_csr, get_ref_pos_padded,
-    k2u_batch, merge_compact_k2u,
+    ModIndex, QueryIndex, _ragged_k2u, build_uproj, get_ref_pos_compact, get_ref_pos_csr,
+    get_ref_pos_padded, k2u_batch, merge_compact_k2u,
 )
 from mazu_tpu_torch.index.pipeline import (
     OneGraphIndexQuery, RunServePass, checksum_padded_rolled, padded_checksum, serve_buffer,
@@ -397,7 +410,9 @@ from mazu_tpu_torch.kphf.sshash import (
     TwoPhaseSSHash, _pos_get, _prefix_pair, mphf_lookup, shard_arrays, sshash_k2u,
 )
 from mazu_tpu_torch.labs import cuda_ms, dma_lab, gather_probe
-from mazu_tpu_torch.ops import bpos_probe, capacity_probe, gather_lab, mono2_phase2, mono2_probe
+from mazu_tpu_torch.ops import (
+    bpos_probe, capacity_probe, gather_lab, mono2_phase2, mono2_probe, occ_csr,
+)
 from mazu_tpu_torch.ops.cuda_build import compile_all
 from mazu_tpu_torch import synth
 
@@ -432,6 +447,7 @@ P2_TURNS = 3  # timed turns of the phase-2 kernel and its plain version
 P2_OUT = 7 * 8 + 1  # bytes of a phase-2 slot's K2U fields and count
 P2_CELL = 8 + 8 + 4 + 1  # bytes of a phase-2 output cell: ref_id, ref_pos, orient, valid
 MANY_OCCS = 300  # occurrences of one unitig of phase 5b's many-occurrence index
+SERVE_LANES = synth.SERVE_READS * (synth.READ_LEN - synth.K + 1)  # a read chunk's lanes
 # phase 18 profiles no more eager passes past this many seconds of the run,
 # so that a slow machine still ends inside the 1,200 s limit
 EAGER_PROFILE_UNTIL_S = 1100.0
@@ -856,6 +872,139 @@ def phase2_phase(tag: str, index, host: dict, gpu_index, work: np.ndarray, dev, 
     return out
 
 
+
+def ragged_index(dev, seed: int = 5):
+    """The fast32 SSHash (the MPHF tier's settings) over 64 random unitigs
+    of ``synth.PIECE`` bases, each its own reference; unitig 0 also lies on
+    ``MANY_OCCS`` - 1 other places and unitig 1 on two: (ModIndex, its
+    ``MPHF_LAYOUT`` QueryIndex on ``dev``)."""
+    from mazu_tpu_torch.containers.refseq import RefSeqCollection
+    from mazu_tpu_torch.containers.unitig_set import UnitigSet
+    from mazu_tpu_torch.index.spt import SPT
+    from mazu_tpu_torch.kphf.sshash import SSHash
+
+    rng = np.random.default_rng(seed)
+    n = 64
+    sv = SeqVector.from_codes(rng.integers(0, 4, n * synth.PIECE, dtype=np.uint8))
+    accum = np.arange(n + 1, dtype=np.int64) * synth.PIECE
+    unitigs = UnitigSet(synth.K, sv, accum)
+    names = [f"r{i}" for i in range(n)]
+    extra = np.concatenate([np.zeros(MANY_OCCS - 1, dtype=np.int64), [1, 1]])
+    spt = SPT(unitigs, names, np.concatenate([np.arange(n), extra]),
+              np.concatenate([np.arange(n), rng.integers(0, n, len(extra))]),
+              np.concatenate([np.zeros(n, dtype=np.int64),
+                              rng.integers(0, synth.PIECE, len(extra))]),
+              np.concatenate([np.ones(n, dtype=np.int64), rng.integers(0, 2, len(extra))]),
+              np.full(n, synth.PIECE, dtype=np.int64))
+    ss = SSHash.from_unitig_set(unitigs, w=synth.MPHF_W, skew_param=synth.CAP_SKEW,
+                                gamma=synth.MPHF_GAMMA, engine="fast32", device=dev)
+    index = ModIndex(ss, spt.piscem_table(), RefSeqCollection(sv, accum, names),
+                     index_type="ragged")
+    host = index.device_arrays(**synth.MPHF_LAYOUT)
+    return index, host, QueryIndex(arrays_from_numpy(host, "cpu")).to(dev)
+
+
+def same_ragged(what: str, got: dict, want: dict, budget: int) -> int:
+    """The kernel's ragged phase 2 ``got`` equals the plain version's
+    ``want``: per-slot outputs, the total and the written entries."""
+    total = int(want["total"])
+    live = min(total, budget)
+    if int(got["total"]) != total:
+        raise AssertionError(f"[occ_csr] {what}: total {int(got['total'])} != {total}")
+    for key in ("occ_start", "occ_count"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"[occ_csr] {what}: {key} differs")
+    for key in ("qid", "ref_id", "ref_pos", "orient"):
+        if not torch.equal(got[key][:live], want[key][:live]):
+            raise AssertionError(f"[occ_csr] {what}: {key} differs on the {live} written entries")
+    return total
+
+
+def occ_csr_phase(dev, smi) -> None:
+    """Phase 5c: the ragged phase 2 on the card against its plain version."""
+    t0 = time.perf_counter()
+    index, host, qi = ragged_index(dev)
+    d = qi.arrays()
+    mo = qi.max_occs
+    if not occ_csr.engages(d, mo) or mo != MANY_OCCS:
+        raise AssertionError(f"[occ_csr] the ragged phase does not engage (max_occs {mo})")
+    us = index.k2u.unitigs
+    k = index.k
+
+    def kmers(uid: int, n: int) -> np.ndarray:
+        return us.get_kmer_u64(us.accum[uid] + np.arange(n))
+
+    few = np.concatenate([kmers(0, 3), kmers(1, 3), kmers(2, 3), np.array([5, 6], np.uint64)])
+    counts = [MANY_OCCS] * 3 + [3] * 3 + [1] * 3 + [0] * 2
+    work, _, _ = synth.sample_capacity_queries(us, SERVE_LANES, seed=4)
+    rng = np.random.default_rng(6)
+    foreign = rng.random(SERVE_LANES) < 0.05
+    work[foreign] = rng.integers(0, 1 << 62, int(foreign.sum()), dtype=np.uint64)
+    reset_launches()
+    n_cases = 0
+    for name, words in (("0, 1, 3 and 300 occurrences", few), ("the read chunk", work)):
+        fw = torch.from_numpy(np.ascontiguousarray(words).view(np.int64)).to(dev)
+        r = k2u_batch(d, fw)
+        N = fw.shape[0]
+        for n_ovf in (N, 0, N // 2):
+            nt = torch.tensor(n_ovf, device=dev)
+            total = int(occ_csr.occ_csr_plain(d, r, nt, 1)["total"])
+            for budget in sorted({total, max(total - 1, 0), total + 1000, 1}):
+                want = occ_csr.occ_csr_plain(d, r, nt, budget)
+                same_ragged(f"{name}, n_ovf {n_ovf}, budget {budget}",
+                            occ_csr.occ_csr(d, r, nt, budget), want, budget)
+                n_cases += 1
+        if name.startswith("0,"):
+            got = occ_csr.occ_csr_plain(d, r, torch.tensor(N, device=dev), 1 << 12)
+            if got["occ_count"].tolist() != counts:
+                raise AssertionError(f"[occ_csr] counts {got['occ_count'].tolist()}")
+    # the compacted query on the card against its CPU oracle
+    fw = torch.from_numpy(work.view(np.int64)).to(dev)
+    kw = dict(synth.MPHF_QUERY, probe_limit2=None, merge=False, m2=SERVE_LANES)
+    got = get_ref_pos_compact(d, fw, mo, **kw)
+    cpu = QueryIndex(arrays_from_numpy(host, "cpu"))
+    want = get_ref_pos_compact(cpu.arrays(), fw.cpu(), mo, **kw)
+    budget = want["phase2"]["ref_pos"].shape[0]
+    same_ragged("get_ref_pos_compact against the CPU", {kk: v.cpu() for kk, v in
+                                                        got["phase2"].items()},
+                want["phase2"], budget)
+    if int(got["n_ovf"]) != int(want["n_ovf"]) or not torch.equal(got["lanes"].cpu(),
+                                                                  want["lanes"]):
+        raise AssertionError("[occ_csr] the card's phase-2 lanes differ from the CPU's")
+    chk = int(OneGraphIndexQuery.checksum(got))
+    if chk != int(OneGraphIndexQuery.checksum(want)):
+        raise AssertionError("[occ_csr] the card's checksum differs from the CPU's")
+    launches = occ_csr.LAUNCHES
+    # the slots' K2U: the full-depth main probe and the residue's full K2U
+    # against the full K2U of every slot
+    r = k2u_batch(d, fw[got["lanes"]])
+    real = got["slot_real"]
+    for key in ("unitig_id", "unitig_len", "pos", "mt"):
+        if not torch.equal(torch.where(real, got["phase2"][key], 0), torch.where(real, r[key], 0)):
+            raise AssertionError(f"[occ_csr] the ragged phase's K2U differs in {key}")
+    m_c = SERVE_LANES // 4
+    ragged_k2u_ms = cuda_ms(lambda: _ragged_k2u(d, fw[got["lanes"]], real, m_c), 5)
+    full_k2u_ms = cuda_ms(lambda: k2u_batch(d, fw[got["lanes"]]), 3)
+    n_ovf = got["n_ovf"]
+    total = int(got["phase2"]["total"])
+    out = occ_csr.occ_csr(d, r, n_ovf, total)
+    ms = cuda_ms(lambda: occ_csr.occ_csr(d, r, n_ovf, total), 20)
+    sum_ms = cuda_ms(lambda: occ_csr.occurrence_sum(out, fw[got["lanes"]]), 20)
+    plain_ms = cuda_ms(lambda: occ_csr.occ_csr_plain(d, r, n_ovf, total), 3)
+    lanes = int(n_ovf)
+    n_bytes = 24 * lanes + 25 * total  # the benchmark's occ_csr_bytes count
+    b = bound(n_bytes)
+    log(f"[occ_csr] {n_cases} cases bit-identical to the plain version (0, 1, 3 and "
+        f"{MANY_OCCS} occurrences; {SERVE_LANES} lanes, 5% foreign; budgets full, one short, "
+        f"generous and 1; n_ovf N, 0 and N/2), and get_ref_pos_compact on the card equal to "
+        f"its CPU oracle ({int(n_ovf)} phase-2 lanes, {total} occurrences, checksum {chk}); "
+        f"{launches} calls; at the chunk the kernel {ms:.4f} ms (plain {plain_ms:.4f} ms), "
+        f"the block's checksum {sum_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}: {n_bytes} bytes, "
+        f"kernel at {b[0] / ms:.1%}); the slots' K2U equal to the full K2U's, "
+        f"{ragged_k2u_ms:.4f} ms eager (the full K2U of every slot {full_k2u_ms:.4f} ms); "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    del index, host, qi, d, cpu, r, out, got, want
+
 def card() -> tuple[torch.device, str]:
     """The CUDA device, and its name and power limit as nvidia-smi gives
     them; exits without a card."""
@@ -872,7 +1021,7 @@ def card() -> tuple[torch.device, str]:
 
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a main path)."""
-    for mod in (mono2_probe, bpos_probe, capacity_probe, mono2_phase2):
+    for mod in (mono2_probe, bpos_probe, capacity_probe, mono2_phase2, occ_csr):
         mod.LAUNCHES = 0
     for name in gather_lab.LAUNCHES:
         gather_lab.LAUNCHES[name] = 0
@@ -1016,6 +1165,10 @@ def main():
     mark("5b")
     # 5b. the phase-2 kernel against its plain version
     p2 = phase2_phase("p2", index, host, gpu_index, work, dev, smi, sector_rate)
+
+    mark("5c")
+    # 5c. the ragged phase 2 against its plain version
+    occ_csr_phase(dev, smi)
 
     mark("6")
     # 6. main path

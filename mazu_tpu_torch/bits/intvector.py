@@ -27,6 +27,7 @@ class IntVector:
         self.words = w
         self.length = int(length)
         self.width = int(width)
+        self.values = None  # the unpacked values, where kept (``keep_values``)
 
     @classmethod
     def from_array(cls, values: np.ndarray, width: int | None = None) -> "IntVector":
@@ -73,8 +74,27 @@ class IntVector:
         i = np.asarray(i, dtype=np.int64)
         return read_window(self.words, i * self.width, self.width)
 
-    def to_array(self) -> np.ndarray:
-        return self.get(np.arange(self.length, dtype=np.int64))
+    def to_array(self, chunk: int = 1 << 24) -> np.ndarray:
+        """Every value as u64: the values the vector was packed from where it
+        keeps them (``keep_values``, read-only), else unpacked ``chunk`` at a
+        time (so the unpacking's temporaries stay the size of a chunk)."""
+        if self.values is not None:
+            return self.values
+        out = np.empty(self.length, dtype=np.uint64)
+        for a in range(0, self.length, chunk):
+            out[a : a + chunk] = self.get(np.arange(a, min(a + chunk, self.length), dtype=np.int64))
+        return out
+
+    def keep_values(self, values: np.ndarray) -> "IntVector":
+        """Keep ``values`` (the u64 values this vector packs) for
+        ``to_array``, read-only: a table read whole more than once is then
+        unpacked never."""
+        values = np.asarray(values, dtype=np.uint64)
+        if len(values) != self.length:
+            raise ValueError(f"{len(values)} values for a vector of {self.length}")
+        values.flags.writeable = False
+        self.values = values
+        return self
 
     def __len__(self) -> int:
         return self.length

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import MATCH_IDENTITY, trace
-from ..ops import mono2_phase2
+from ..ops import mono2_phase2, occ_csr
 from ..ops.compact import flagged_lanes, flagged_lanes2
 from ..ops.mono2_probe import card_table
 from ..pytree import meta
@@ -268,6 +268,35 @@ def _compact_split(d, fw, r, p, overflow, m_a, m_b, max_occs, merge, probe_start
     return full
 
 
+def _ragged_k2u(d: dict, fw: torch.Tensor, real: torch.Tensor, m_c: int):
+    """(the exact K2U fields of the phase-2 slots ``fw``, the residue's
+    count) for the ragged phase 2; ``real`` flags the slots that hold a
+    lane. On an SSHash the main probe runs again at full depth with the
+    whole MPHF chain (``twophase._main_probe``: K3 where it fits), and only
+    the real lanes it leaves (heavy buckets, a deferred winner that failed
+    validation) take the full K2U, compacted into ``m_c`` slots: lanes past
+    ``m_c`` stay unresolved, and the count says so. Other dictionaries take
+    the full K2U of every slot (residue 0)."""
+    from .twophase import _main_probe
+
+    m_ = d["k2u"]["meta"]
+    if m_.kind != "sshash":
+        r = k2u_batch(d, fw)
+        return {kk: r[kk] for kk in _K2U_FIELDS}, torch.zeros((), dtype=torch.int64,
+                                                                 device=fw.device)
+    r, _ = _main_probe(d, fw, int(m_.probe_bound), True, None)
+    rest, n_c = flagged_lanes((r["use_skew"] | r["unresolved"]) & real, m_c)
+    full = k2u_batch(d, fw[rest])
+    M = fw.shape[0]
+    safe = torch.where(torch.arange(m_c, device=fw.device) < n_c, rest, M)  # fakes -> dummy row
+    out = {}
+    for kk in _K2U_FIELDS:
+        ext = torch.cat([r[kk], torch.zeros_like(r[kk][:1])])
+        ext[safe] = full[kk]
+        out[kk] = ext[:M]
+    return out, n_c
+
+
 def get_ref_pos_compact(
     d: dict,
     fw: torch.Tensor,
@@ -281,6 +310,7 @@ def get_ref_pos_compact(
     mphf_level_limit: int | None = None,
     probe_limit2: int | None = None,
     m2c: int | None = None,
+    occ_budget: int | None = None,
 ) -> dict:
     """Two-phase exact query with on-device compacted heavy phases.
 
@@ -300,6 +330,19 @@ def get_ref_pos_compact(
     ``probe_limit2``/``m2c`` add its middle phase. Results equal
     ``get_ref_pos_padded``'s unless ``over_budget`` is set: some block got
     more lanes than its capacity, and the lanes past it were not resolved.
+
+    Where ``ops.occ_csr.engages`` (an index whose padded phase 2 would be
+    wider than ``occ_csr.COLUMNS``; never a mono2-occ32 KCDict), the unsplit
+    ``merge=False`` phase 2 is ragged: the slots' exact K2U
+    (``_ragged_k2u``: on an SSHash the main probe again at full depth, then
+    the full K2U of at most ``m2c`` residue lanes, by default ``M // 4``),
+    then ``occ_csr.occ_csr`` (the kernel on CUDA), which writes their
+    occurrences to a flat block of ``occ_csr.budget`` entries (``occ_budget``,
+    by default ``M * occ_csr.COLUMNS``); ``phase2`` then holds the slots'
+    K2U fields and that CSR form (``occ_start``, ``occ_count``, ``total``,
+    ``qid``, ``ref_id``, ``ref_pos``, ``orient``), the result also holds
+    ``fw`` (for its checksum), ``over_budget_c`` tells a residue past
+    ``m2c``, and ``over_budget`` also a total past the budget.
 
     ``merge=False`` returns the pieces (``main``, ``overflow``, ``lanes``,
     ``slot_real``, ``phase2``, ``n_ovf``, ``over_budget``; with ``m2b`` also
@@ -331,7 +374,15 @@ def get_ref_pos_compact(
     side = torch.zeros((), dtype=torch.int64, device=fw.device) if trace.staged() else None
     # these lanes include ones the main probe found (more occurrences than
     # it projects): the re-probe starts at row 0, not at probe_start
-    if mono2_phase2.engages(d, fw.device):
+    budget = None if merge else occ_csr.budget(d, max_occs, M, occ_budget)
+    over_c = None
+    if budget is not None:
+        m_c = int(m2c) if m2c else max(64, M // 4)
+        r2, n_c = _ragged_k2u(d, fw[lanes], slot_real, m_c)
+        out2 = {**r2, **occ_csr.occ_csr(d, r2, n_ovf, budget)}
+        over_c = n_c > m_c
+        over_budget = over_budget | over_c | (out2["total"] > budget)
+    elif mono2_phase2.engages(d, fw.device):
         out2 = mono2_phase2.mono2_phase2(d, fw, lanes, n_ovf, max_occs, side_probes=side)
     else:
         out2 = get_ref_pos_padded(d, fw[lanes], max_occs)
@@ -349,6 +400,8 @@ def get_ref_pos_compact(
         }
         if side is not None:
             out["side_probes"] = side
+        if over_c is not None:
+            out.update(over_budget_c=over_c, fw=fw)
         return out
     full = _merge_compact(p, [(out2, lanes, slot_real)], max_occs)
     full["over_budget"] = over_budget
@@ -364,39 +417,9 @@ def get_ref_pos_csr(d: dict, fw: torch.Tensor, budget: int) -> dict:
     ``orient`` 0); when it exceeds ``budget`` the occurrences past the
     budget are left out, and the caller runs again with a larger one."""
     r = k2u_batch(d, fw)
-    u2 = d["u2pos"]
-    hit = r["mt"] > 0
-    uid = torch.where(hit, r["unitig_id"], 0)
-    start = u2["offsets"][uid]
-    cnt = torch.where(hit, u2["offsets"][uid + 1] - start, 0)
-    occ_start = torch.cumsum(cnt, 0) - cnt
-    n = cnt.shape[0]
-    total = cnt.sum()
-    # flat slot j belongs to query qid[j], the last query starting at or before j
-    j = torch.arange(budget, dtype=start.dtype, device=start.device)
-    qid = torch.clamp(torch.searchsorted(occ_start, j, right=True) - 1, 0, max(n - 1, 0))
-    within = j - occ_start[qid]
-    valid = (j < total) & (within < cnt[qid])
-    occ_idx = torch.clamp(start[qid] + within, 0, max(u2["meta"].n_occs - 1, 0))
-    ref_id, occ_pos, occ_o = decode_occs(u2, occ_idx)
-    k = d["meta"].k
-    kpos = r["pos"][qid]
-    ulen = r["unitig_len"][qid]
-    fwd = occ_o == 1
-    ref_pos = torch.where(fwd, kpos + occ_pos, occ_pos + (ulen - kpos) - k)
-    o_match = (r["mt"][qid] == MATCH_IDENTITY).to(torch.int32)
-    orient = torch.where(fwd, o_match, 1 - o_match)
-    return {
-        **r,
-        "occ_start": occ_start,
-        "occ_count": cnt,
-        "total": total,
-        "qid": qid,
-        "ref_id": torch.where(valid, ref_id, -1),
-        "ref_pos": torch.where(valid, ref_pos, 0),
-        "orient": torch.where(valid, orient, 0),
-        "valid": valid,
-    }
+    out = occ_csr.occ_csr_plain(d, r, torch.tensor(fw.shape[0], device=fw.device), budget)
+    return {**r, **out, "qid": out["qid"].to(torch.int64), "ref_id": out["ref_id"].to(torch.int64),
+            "orient": out["orient"].to(torch.int32)}
 
 
 def index_metadata(refs, decoys: int = 0, have_edge_vec: bool = False,
@@ -591,12 +614,13 @@ class ModIndex:
 
         return qi, query
 
-    def color_classes(self):
+    def color_classes(self, device=None):
         """The color classes (unitig -> its set of references) of this
-        index's occurrence table (``index.colors``)."""
+        index's occurrence table (``index.colors``), built on ``device``
+        where it gives one."""
         from .colors import ColorClasses
 
-        return ColorClasses.from_u2pos(self.u2pos)
+        return ColorClasses.from_u2pos(self.u2pos, device=device)
 
     def unitigs_on_ref(self, ref_id: int) -> dict:
         """Unitig tiling of reference ``ref_id`` from the occurrence table

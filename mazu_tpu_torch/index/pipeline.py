@@ -43,6 +43,7 @@ import torch
 
 from .. import trace
 from ..io.reads import kmerize_device, pad_reads, row_shape
+from ..ops import occ_csr
 from ..ops.compact import flagged_lanes
 from .modindex import QueryIndex, get_ref_pos_compact, get_ref_pos_padded, merge_compact_k2u
 from .pseudoalign import pseudoalign_from_k2u
@@ -160,12 +161,15 @@ def replay_latest(index: QueryIndex, family: tuple, key, x: torch.Tensor, fn) ->
 
 class OneGraphIndexQuery:
     """Exact for every lane unless a chunk overflows a capacity (``m2``,
-    ``m2b``, or the middle phase's residue ``m2c``): then the pass raises,
-    since the lanes past it went unresolved.
+    ``m2b``, the middle phase's residue ``m2c``, or a ragged phase 2's
+    ``occ_budget``): then the pass raises, since the lanes past it went
+    unresolved.
 
     ``probe_limit``, ``m2b``, ``defer_valid``, ``mphf_level_limit``,
     ``probe_limit2`` and ``m2c`` are passed to ``get_ref_pos_compact`` (the
-    SSHash capacity settings); a mono2 KCDict ignores ``probe_limit``.
+    SSHash capacity settings; ``m2c`` also sizes a ragged phase 2's
+    residue, whose budget of occurrences is ``occ_csr.budget``'s default);
+    a mono2 KCDict ignores ``probe_limit``.
     ``graph``: on a CUDA index, replay each pass as one CUDA graph (see the
     module); False runs it eagerly, the oracle."""
 
@@ -189,6 +193,9 @@ class OneGraphIndexQuery:
         self.M2 = int(m2 or max(8192, batch // 16))
         self.M2B = int(m2b) if m2b else None
         self.max_occs = index.max_occs
+        # the ragged phase 2's budget, where it engages (the unsplit phase)
+        self.OCC = (occ_csr.budget(index.arrays(), self.max_occs, self.M2) if self.M2B is None
+                    else None)
         self.query_kw = dict(
             merge=False, m2=self.M2, probe_limit=probe_limit, m2b=self.M2B,
             defer_valid=bool(defer_valid), mphf_level_limit=mphf_level_limit,
@@ -201,7 +208,10 @@ class OneGraphIndexQuery:
         """int64 sum of ref_pos and ref_id over valid occurrences and of
         unitig_id and pos over resolved lanes, across the main and the
         compacted pieces (``phase2``, and ``phase2b`` when type-split) of a
-        ``merge=False`` result."""
+        ``merge=False`` result. With a ragged ``phase2`` each occurrence
+        also adds its orientation and twice its lane's k-mer word, and the
+        phase gives its occurrences' share from its flat block
+        (``occ_csr.occurrence_sum``)."""
         m_, ov = out["main"], out["overflow"]
         s = (
             torch.where(m_["valid"], m_["ref_pos"], 0).sum()
@@ -209,15 +219,21 @@ class OneGraphIndexQuery:
             + torch.where(~ov, m_["unitig_id"], 0).sum()
             + torch.where(~ov, m_["pos"], 0).sum()
         )
+        if "total" in out["phase2"]:
+            s = s + torch.where(m_["valid"], m_["orient"] + 2 * out["fw"][:, None], 0).sum()
         blocks = [("phase2", "slot_real")]
         if "phase2b" in out:
             blocks.append(("phase2b", "slot_real_b"))
         for pk, sk in blocks:
             p2, sr = out[pk], out[sk]
-            v2 = p2["valid"] & sr[:, None]
+            if "total" in p2:
+                occs = occ_csr.occurrence_sum(p2, out["fw"][out["lanes"]])
+            else:
+                v2 = p2["valid"] & sr[:, None]
+                occs = torch.where(v2, p2["ref_pos"], 0).sum() + torch.where(v2, p2["ref_id"],
+                                                                              0).sum()
             s = s + (
-                torch.where(v2, p2["ref_pos"], 0).sum()
-                + torch.where(v2, p2["ref_id"], 0).sum()
+                occs
                 + torch.where(sr, p2["unitig_id"], 0).sum()
                 + torch.where(sr, p2["pos"], 0).sum()
             )
@@ -225,11 +241,13 @@ class OneGraphIndexQuery:
 
     @staticmethod
     def _counts(out: dict) -> torch.Tensor:
-        """(n_ovf, n_ovf_b, residue over m2c) of one chunk, on the device."""
+        """(n_ovf, n_ovf_b, residue over m2c, a ragged phase 2's occurrence
+        total) of one chunk, on the device; 0 where a piece is absent."""
         n = out["n_ovf"]
         zero = torch.zeros_like(n)
         return torch.stack([
-            n, out.get("n_ovf_b", zero), out.get("over_budget_c", zero > 0).to(n.dtype)
+            n, out.get("n_ovf_b", zero), out.get("over_budget_c", zero > 0).to(n.dtype),
+            out["phase2"].get("total", zero),
         ])
 
     @staticmethod
@@ -237,10 +255,12 @@ class OneGraphIndexQuery:
         """int64 [3] of a ``merge=False`` result, on the device: the lanes
         sent to phase 2 (``n_ovf``, plus ``n_ovf_b`` when type-split), the
         phase-2 slots that hold a real occurrence (``valid`` of a real
-        slot), and the real lanes sent on to the side table
-        (``side_probes``, which a marked pass's result holds; else 0)."""
+        slot; a ragged phase 2's ``total``), and the real lanes sent on to
+        the side table (``side_probes``, which a marked pass's result
+        holds; else 0)."""
         lanes = out["n_ovf"].to(torch.int64)
-        occs = (out["phase2"]["valid"] & out["slot_real"][:, None]).sum()
+        p2 = out["phase2"]
+        occs = p2["total"] if "total" in p2 else (p2["valid"] & out["slot_real"][:, None]).sum()
         if "phase2b" in out:
             lanes = lanes + out["n_ovf_b"]
             occs = occs + (out["phase2b"]["valid"] & out["slot_real_b"][:, None]).sum()
@@ -248,8 +268,8 @@ class OneGraphIndexQuery:
         return torch.stack([lanes, occs, side])
 
     def _run(self, chunks) -> torch.Tensor:
-        """int64 [4] on the device: the pass checksum and the worst
-        (n_ovf, n_ovf_b, residue over m2c) over ``chunks``; a marked pass
+        """int64 [5] on the device: the pass checksum and the worst
+        ``_counts`` over ``chunks``; a marked pass
         (``trace.staged``) adds ``phase2_counts`` summed over them."""
         arrays = self.index.arrays()
         staged = trace.staged()
@@ -290,10 +310,17 @@ class OneGraphIndexQuery:
     def _finish(self, res: torch.Tensor):
         vals = res.tolist()
         trace.settle()
-        tot, wa, wb, wc = vals[:4]
-        if len(vals) > 4:
-            slots = self.CH * (self.M2 + (self.M2B or 0)) * self.max_occs
-            count_phase2(vals[4], vals[5], slots, vals[6])
+        budget = self.OCC
+        tot, wa, wb, wc, wo = vals[:5]
+        if len(vals) > 5:
+            slots = (self.CH * budget if budget
+                     else self.CH * (self.M2 + (self.M2B or 0)) * self.max_occs)
+            count_phase2(vals[5], vals[6], slots, vals[7])
+        if budget and wo > budget:
+            raise RuntimeError(
+                f"occurrence budget exceeded: {wo} occurrences in a chunk (occ_budget={budget}); "
+                "the occurrences past it were not written"
+            )
         if wc:
             raise RuntimeError(
                 "middle-phase residue capacity (m2c) exceeded: results for the lanes past "
@@ -444,29 +471,33 @@ def _unserve(flat: torch.Tensor, m) -> dict:
 
 
 def serve_chunk(arrays: dict, cb: dict, packed: dict, row_start: int, rows: int, max_occs: int,
-                m2: int, probe_limit: int | None = 2) -> torch.Tensor:
-    """int64 [3] (map_chk, pa_chk, n_ovf) of reads ``row_start`` ..
-    ``row_start + rows`` of a packed batch on ``arrays``' device, as
+                m2: int, probe_limit: int | None = 2, query: dict | None = None) -> torch.Tensor:
+    """int64 [6] of reads ``row_start`` .. ``row_start + rows`` of a packed
+    batch on ``arrays``' device: map_chk, pa_chk, then
+    ``OneGraphIndexQuery._counts`` (n_ovf, 0, 1 where a ragged phase 2's
+    residue passed its capacity, its occurrence total), as
     ``bench.py::run_serve`` computes a chunk: ``kmerize_device``,
-    ``get_ref_pos_compact(merge=False)``, ``OneGraphIndexQuery.checksum``,
+    ``get_ref_pos_compact(merge=False)`` at ``probe_limit`` and the other
+    settings in ``query`` (``defer_valid``, ``mphf_level_limit``,
+    ``occ_budget``: the MPHF path's), ``OneGraphIndexQuery.checksum``,
     ``merge_compact_k2u`` and the intersecting ``pseudoalign_from_k2u``
     over the color bitsets ``cb``. pa_chk sums the bitset words' int64 bit
     patterns, which wraps as the reference's u64 sum cast to int64 does,
-    plus the reads' hit counts. A marked pass (``trace.staged``) adds a
-    fourth and a fifth: the phase-2 slots that hold a real occurrence and
-    the phase-2 lanes sent on to the side table."""
+    plus the reads' hit counts. A marked pass (``trace.staged``) adds two
+    more: the phase-2 slots that hold a real occurrence (a ragged phase
+    2's total) and the phase-2 lanes sent on to the side table."""
     trace.mark("kmerize", packed["words"])
     km, v = kmerize_device(packed, row_start, rows)
     out = get_ref_pos_compact(arrays, km.reshape(-1), max_occs, merge=False, m2=m2,
-                              probe_limit=probe_limit)
+                              probe_limit=probe_limit, **(query or {}))
     trace.mark("pseudoalign", km)
     bits, n_hit, _ = pseudoalign_from_k2u(cb, merge_compact_k2u(out), v)
     trace.mark("reduce", km)
-    res = [OneGraphIndexQuery.checksum(out), bits.sum() + n_hit.sum(),
-           out["n_ovf"].to(torch.int64)]
+    res = [OneGraphIndexQuery.checksum(out).reshape(1), (bits.sum() + n_hit.sum()).reshape(1),
+           OneGraphIndexQuery._counts(out).to(torch.int64)]
     if trace.staged():
-        res.extend(OneGraphIndexQuery.phase2_counts(out)[1:].unbind())
-    return torch.stack(res)
+        res.append(OneGraphIndexQuery.phase2_counts(out)[1:])
+    return torch.cat(res)
 
 
 def _drop_graphs(index: QueryIndex, token, kind: str = "serve") -> None:
@@ -479,9 +510,14 @@ class RunServePass:
     """``bench.py::run_serve``'s device pass over one packed batch of
     ``n_chunks * n_reads`` reads: ``serve_chunk`` on each chunk of
     ``n_reads``, on ``index`` (a mono2 KCDict or an SSHash, queried at
-    ``probe_limit``) and the color bitsets ``bitsets`` (tensors on the
-    index's device). Exact unless a chunk overflows ``m2``: then the pass
-    raises.
+    ``probe_limit`` with ``defer_valid`` and ``mphf_level_limit``, as
+    ``get_ref_pos_compact`` takes them) and the color bitsets ``bitsets``
+    (tensors on the index's device). Exact unless a chunk overflows ``m2``
+    or, where phase 2 is ragged (``ops.occ_csr.engages``), its residue
+    (``m2 // 4`` lanes) or its budget of ``occ_budget`` occurrences
+    (``occ_csr.budget``'s): then the pass raises. ``occ_totals`` holds the
+    last pass's occurrence total of each chunk (0 each where phase 2 is
+    padded).
 
     Every batch is laid out for reads of ``read_len`` bases (``pad_reads``:
     run_serve's reads have a fixed length), so its shape is fixed and only
@@ -494,12 +530,19 @@ class RunServePass:
     runs it eagerly, the oracle."""
 
     def __init__(self, index: QueryIndex, bitsets: dict, n_reads: int, n_chunks: int, m2: int,
-                 read_len: int, probe_limit: int | None = 2, graph: bool = True):
+                 read_len: int, probe_limit: int | None = 2, graph: bool = True,
+                 defer_valid: bool = False, mphf_level_limit: int | None = None,
+                 occ_budget: int | None = None):
         self.index, self.cb = index, bitsets
         self.n_reads, self.CH, self.M2 = int(n_reads), int(n_chunks), int(m2)
         self.read_len = int(read_len)
         self.probe_limit = probe_limit
         self.graph = bool(graph)
+        self.occ_budget = occ_csr.budget(index.arrays(), index.max_occs, self.M2, occ_budget)
+        self.ragged = self.occ_budget is not None
+        self.query = {"defer_valid": bool(defer_valid), "mphf_level_limit": mphf_level_limit,
+                      "occ_budget": self.occ_budget}
+        self.occ_totals = []
         self._key = object()  # a graph of this pass reads these bitsets
         weakref.finalize(self, _drop_graphs, index, self._key)
 
@@ -508,16 +551,16 @@ class RunServePass:
         arrays = self.index.arrays()
         return torch.stack([
             serve_chunk(arrays, self.cb, packed, ci * self.n_reads, self.n_reads,
-                        self.index.max_occs, self.M2, self.probe_limit)
+                        self.index.max_occs, self.M2, self.probe_limit, self.query)
             for ci in range(self.CH)
         ])
 
     def device_pass(self, flat: torch.Tensor, m) -> torch.Tensor:
-        """int64 [CH, 3] (map_chk, pa_chk, n_ovf) of a batch with Meta ``m``
-        (``pad_reads``'s, to ``read_len``) already on the device as one
-        ``serve_buffer``, with no host read; on a CUDA index the graph's
-        output, which the next replay overwrites. A marked pass
-        (``trace.staged``) gives [CH, 5]: ``serve_chunk``'s fourth and fifth columns."""
+        """int64 [CH, 6] (``serve_chunk``'s columns; [CH, 8] in a marked
+        pass) of a batch with Meta ``m`` (``pad_reads``'s, to ``read_len``)
+        already on the device as one ``serve_buffer``, with no host read; on
+        a CUDA index the graph's output, which the next replay
+        overwrites."""
         if m.R != self.n_reads * self.CH:
             raise ValueError(f"{m.R} reads; the pass takes {self.CH} x {self.n_reads}")
         if (m.stride, m.L) != row_shape(self.read_len, m.k):
@@ -527,13 +570,14 @@ class RunServePass:
         def run(x: torch.Tensor) -> torch.Tensor:
             return self._run(m, x)
 
-        key = ("serve", self._key, m, self.CH, self.M2, self.probe_limit)
+        key = ("serve", self._key, m, self.CH, self.M2, self.probe_limit,
+               tuple(sorted(self.query.items())))
         return _run_pass(self.index, key, flat, run, self.graph)
 
     def __call__(self, packed: dict):
         """(map_chk, pa_chk, n_ovf) lists, one entry a chunk, of a
         ``pack_reads`` dict: padded to ``read_len``, uploaded as one buffer,
-        one host read."""
+        one host read (which also sets ``occ_totals``)."""
         with trace.pass_span("serve.pass"):
             with trace.span("serve.pad"):
                 packed = pad_reads(packed, self.read_len)
@@ -546,12 +590,19 @@ class RunServePass:
             with trace.span("serve.readback"):
                 cols = res.T.tolist()
                 trace.settle()
-                maps, pas, n_ovf = cols[:3]
-                if len(cols) > 3:
-                    count_phase2(sum(n_ovf), sum(cols[3]),
-                                 self.CH * self.M2 * self.index.max_occs, sum(cols[4]))
+                maps, pas, n_ovf, _, over_c, self.occ_totals = cols[:6]
+                if len(cols) > 6:
+                    slots = self.occ_budget if self.ragged else self.M2 * self.index.max_occs
+                    count_phase2(sum(n_ovf), sum(cols[6]), self.CH * slots, sum(cols[7]))
                 if max(n_ovf) > self.M2:
                     raise RuntimeError(f"phase-2 capacity exceeded: {max(n_ovf)} overflow lanes "
                                        f"in a chunk (m2={self.M2}); results for the lanes past "
                                        f"it are unresolved")
+                if max(over_c):
+                    raise RuntimeError("ragged phase-2 residue capacity (a quarter of m2) "
+                                       "exceeded: results for the lanes past it are unresolved")
+                if self.ragged and max(self.occ_totals) > self.occ_budget:
+                    raise RuntimeError(f"occurrence budget exceeded: {max(self.occ_totals)} "
+                                       f"occurrences in a chunk (occ_budget={self.occ_budget}); "
+                                       "the occurrences past it were not written")
         return maps, pas, n_ovf

@@ -10,6 +10,7 @@ unitig.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..bits.intvector import IntVector
 from ..containers.refseq import RefSeqCollection
@@ -24,11 +25,16 @@ class SPT:
         self.unitigs = unitigs
         self.ref_names = list(ref_names)
         # occurrences grouped by unitig id, in tiling order within a unitig
-        order = np.argsort(occ_uid, kind="stable")
-        self.occ_uid = occ_uid[order]
-        self.occ_ref = occ_ref[order]
-        self.occ_pos = occ_pos[order]
-        self.occ_o = occ_o[order]
+        # (arrays already so grouped are kept as they are, not copied)
+        occ_uid = np.asarray(occ_uid)
+        if len(occ_uid) and not (occ_uid[1:] >= occ_uid[:-1]).all():
+            order = np.argsort(occ_uid, kind="stable")
+            occ_uid, occ_ref, occ_pos, occ_o = (np.asarray(a)[order]
+                                                for a in (occ_uid, occ_ref, occ_pos, occ_o))
+        self.occ_uid = occ_uid
+        self.occ_ref = np.asarray(occ_ref)
+        self.occ_pos = np.asarray(occ_pos)
+        self.occ_o = np.asarray(occ_o)
         self.ref_lens = np.asarray(ref_lens, dtype=np.int64)
         self.offsets = np.concatenate(
             [[0], np.cumsum(np.bincount(occ_uid, minlength=unitigs.n_unitigs))]
@@ -90,14 +96,27 @@ class SPT:
         ctable = encode_pf1(self.occ_ref, self.occ_pos, self.occ_o)
         return DenseUnitigTable(ctable, self.offsets, self.ref_names)
 
-    def piscem_table(self) -> PiscemUnitigTable:
-        """Minimal-width packed occurrence table."""
+    def piscem_table(self, device=None) -> PiscemUnitigTable:
+        """Minimal-width packed occurrence table, which keeps its words
+        unpacked too (``IntVector.keep_values``: the projection records,
+        pair rows and colour classes each read every word). With
+        ``device`` the words are encoded and packed there."""
         max_ref_len = int(self.ref_lens.max()) if len(self.ref_lens) else 1
         pos_bits, _ref_bits, total = required_num_bits(max_ref_len, self.num_refs)
         ref_shift = pos_bits + 1
-        words = encode_piscem(self.occ_ref, self.occ_pos, self.occ_o, ref_shift)
+        if device is None:
+            words = encode_piscem(self.occ_ref, self.occ_pos, self.occ_o, ref_shift)
+            iv = IntVector.from_array(words, width=total)
+        else:
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
+
+            w = (t(self.occ_ref) << ref_shift) | (t(self.occ_pos) << 1) | t(self.occ_o)
+            iv = IntVector.from_tensor(w, width=total)
+            words = w.cpu().numpy().view(np.uint64)
+            del w
         return PiscemUnitigTable(
-            IntVector.from_array(words, width=total),
+            iv.keep_values(words),
             self.offsets,
             ref_shift,
             (1 << pos_bits) - 1,

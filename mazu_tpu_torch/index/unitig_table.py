@@ -63,9 +63,11 @@ def decode_pf1(word: torch.Tensor):
 def _pair_rows(words: np.ndarray) -> np.ndarray:
     """``ctable2[i]`` = (word i, word i+1) as four u32: one row per pair of
     occurrences on the query path."""
-    c = np.concatenate([np.asarray(words, dtype=np.uint64), np.zeros(1, dtype=np.uint64)])
-    pair = np.ascontiguousarray(np.stack([c[:-1], c[1:]], axis=1))
-    return pair.view(np.uint32).reshape(len(c) - 1, 4)
+    c = np.asarray(words, dtype=np.uint64)
+    pair = np.zeros((len(c), 2), dtype=np.uint64)
+    pair[:, 0] = c
+    pair[:-1, 1] = c[1:]
+    return pair.view(np.uint32).reshape(len(c), 4)
 
 
 class DenseUnitigTable:

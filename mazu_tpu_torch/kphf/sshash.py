@@ -47,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from .. import trace
 from .._words import M32, from_numpy, mask32, srl, srl_var
 from ..bits.elias_fano import EFVector, ef_get
 from ..bits.intvector import IntVector, iv_get
@@ -77,6 +78,69 @@ def expand_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
     offsets = np.concatenate([[0], np.cumsum(counts)])
     idx = np.repeat(np.arange(len(counts)), counts)
     return starts[idx] + (np.arange(offsets[-1]) - offsets[:-1][idx])
+
+
+def _groups_overflow(prefix: torch.Tensor) -> bool:
+    """Whether a 1024-bucket group of this bucket prefix spans 2^16
+    occurrences or more (``_group_deltas`` would raise)."""
+    g = torch.arange(0, prefix.shape[0], 1024, device=prefix.device)
+    last = torch.clamp(g + 1023, max=prefix.shape[0] - 1)
+    return bool(((prefix[last] - prefix[g]) >= (1 << 16)).any())
+
+
+def _capped_buckets(posv: torch.Tensor, prefix: torch.Tensor, cap: int, width: int):
+    """(IntVector at ``width``, int64 NumPy prefix) of the positions
+    ``posv`` grouped by the bucket bounds ``prefix``, each bucket cut to its
+    first ``cap`` positions. A probe reads a bucket's count only to tell a
+    heavy one (more than ``cap - 1`` positions: its k-mers go to the skew
+    MPHF), and reads no row of it past ``cap - 1``, so every query's answer
+    is the same on the cut buckets; their group totals stay below 2^16,
+    which the grouped16 bounds need."""
+    cnt = torch.clamp(prefix[1:] - prefix[:-1], max=cap)
+    cut = torch.zeros_like(prefix)
+    torch.cumsum(cnt, 0, out=cut[1:])
+    n = int(cut[-1])
+    out = torch.empty(n, dtype=posv.dtype, device=posv.device)
+    step = 1 << 24
+    for a in range(0, n, step):
+        t = torch.arange(a, min(a + step, n), dtype=torch.int64, device=posv.device)
+        b = torch.searchsorted(cut, t, right=True) - 1
+        out[a : a + step] = posv[prefix[b] + (t - cut[b])]
+    return IntVector.from_tensor(out, width=width), cut.cpu().numpy()
+
+
+def _skew_kmers(unitigs, mm_positions: torch.Tensor, w: int, chunk: int, device):
+    """The skew part's k-mers, on ``device``: every valid k-mer window that
+    holds one of the heavy minimizer occurrences ``mm_positions`` (starts
+    ``max(p - (k - w), 0)`` to that plus ``k - w``, in occurrence order),
+    as (sorted distinct canonical words, the first window of each in that
+    order): NumPy's ``np.unique(..., return_index=True)`` over the windows.
+    Windows go ``chunk`` at a time; each step keeps its first window of each
+    word, and a stable sort of the steps' survivors keeps the first of all."""
+    k = unitigs.k
+    span = k - w + 1
+    words = from_numpy(unitigs.useq.words, device)
+    accum = from_numpy(unitigs.accum, device)
+    off = torch.arange(span, dtype=torch.int64, device=device)
+    step = max(1, int(chunk) // span)
+    keys, firsts = [], []
+    for a in range(0, mm_positions.shape[0], step):
+        cand = (torch.clamp(mm_positions[a : a + step] - (k - w), min=0)[:, None]
+                + off).reshape(-1)
+        u = torch.searchsorted(accum, cand, right=True) - 1
+        cand = cand[(cand + k <= accum[u.clamp(max=accum.shape[0] - 2) + 1])
+                    & (cand <= int(accum[-1]) - k)]
+        fw = sv_get_kmer(words, cand, k)
+        c, order = torch.sort(torch.minimum(fw, revcomp(fw, k)), stable=True)
+        lead = torch.ones_like(c, dtype=torch.bool)
+        lead[1:] = c[1:] != c[:-1]
+        keys.append(c[lead])
+        firsts.append(cand[order[lead]])
+    c, order = torch.sort(torch.cat(keys), stable=True)
+    pos = torch.cat(firsts)[order]
+    lead = torch.ones_like(c, dtype=torch.bool)
+    lead[1:] = c[1:] != c[:-1]
+    return c[lead], pos[lead]
 
 
 class _Laps:
@@ -119,6 +183,10 @@ class SSHash:
         self.skew_pos = skew_pos
         self.ordering = ordering  # minimizer ordering: mix32, or parity's mix64/wyhash
         self.build_seconds = {}  # seconds by stage of an MPHF engine's build
+        # (IntVector, prefix) with each heavy bucket cut to skew_param + 1
+        # positions: the packed layout's grouped bounds where a group of the
+        # whole buckets would overflow (``_capped_buckets``)
+        self.capped = None
 
     @property
     def hash32(self) -> bool:
@@ -356,8 +424,20 @@ class SSHash:
 
         On ``device``: the minimizer occurrences, BooPHF32's level loop (the
         64-bit BooPHF builds on the host), the MPHF lookup of every
-        minimizer, the bucket prefix, the position scatter and its pack.
-        The skew part runs on the host over the heavy minimizers' k-mers."""
+        minimizer, the bucket prefix, the position scatter and its pack,
+        and the skew part (``_skew_kmers``, the skew MPHF's build and lookup,
+        the skew positions' pack)."""
+        with trace.span("sshash.build", engine="fast32" if ordering == "mix32" else "parity",
+                        kmers=int(unitigs.n_kmers)) as sp:
+            out = cls._build_mphf(unitigs, w, skew_param, seed, gamma, chunk, device, ordering)
+            if sp is not None:
+                sp.set(**out.build_seconds)
+        return out
+
+    @classmethod
+    def _build_mphf(cls, unitigs, w, skew_param, seed, gamma, chunk, device, ordering):
+        """``_from_unitig_set_mphf``'s stages, their seconds in
+        ``build_seconds``."""
         from ..convert import arrays_from_numpy
 
         k = unitigs.k
@@ -393,9 +473,12 @@ class SSHash:
             run = torch.searchsorted(ranges_start, t, right=True) - 1
             posv[t + shift[run]] = mps[a : a + chunk]
         del shift
-        prefix = prefix.cpu().numpy()
         laps.lap("scatter")
         pos_iv = IntVector.from_tensor(posv)
+        capped = None
+        if skew_param is not None and _groups_overflow(prefix):
+            capped = _capped_buckets(posv, prefix, int(skew_param) + 1, pos_iv.width)
+        prefix = prefix.cpu().numpy()
         del posv
         laps.lap("pack")
 
@@ -407,18 +490,17 @@ class SSHash:
                 first = torch.cumsum(cnt, 0) - cnt
                 occ = torch.repeat_interleave(ranges_start[heavy] - first, cnt)
                 occ += torch.arange(occ.shape[0], dtype=torch.int64, device=device)
-                mm_positions = mps[occ].cpu().numpy()
-                span = k - w + 1
-                starts = np.maximum(mm_positions - (k - w), 0)
-                cand = (starts[:, None] + np.arange(span)[None, :]).reshape(-1)
-                cand = cand[unitigs.is_valid_useq_pos(cand)]
-                words = unitigs.get_kmer_u64(cand)
-                cwords = np.minimum(words, revcomp_np(words, k))
-                cw_sorted, first_idx = np.unique(cwords, return_index=True)
+                cw_sorted, kept = _skew_kmers(unitigs, mps[occ], w, chunk, device)
+                del occ
                 skew_mphf = build_mphf(cw_sorted)
-                sp = np.zeros(len(cw_sorted), dtype=np.uint64)
-                sp[skew_mphf.lookup(cw_sorted, device=device)] = cand[first_idx].astype(np.uint64)
-                skew_pos = IntVector.from_array(sp)
+                sd = arrays_from_numpy(skew_mphf.device_arrays(), device)
+                sp = torch.zeros_like(kept)
+                for a in range(0, kept.shape[0], LOOKUP_CHUNK):
+                    b = a + LOOKUP_CHUNK
+                    sp[mphf_lookup(sd, cw_sorted[a:b])] = kept[a:b]
+                del sd, cw_sorted, kept
+                skew_pos = IntVector.from_tensor(sp)
+                del sp
             else:
                 skew_mphf = build_mphf(np.zeros(1, dtype=np.uint64))
                 skew_pos = IntVector.from_array(np.zeros(1, dtype=np.uint64))
@@ -428,6 +510,7 @@ class SSHash:
             int(mm_occs.max()) if mm_occs.shape[0] else 0, mphf=mphf, prefix=prefix,
             skew_mphf=skew_mphf, skew_pos=skew_pos, ordering=ordering,
         )
+        out.capped = capped
         out.build_seconds.update(laps.seconds)
         return out
 
@@ -575,7 +658,11 @@ class SSHash:
         if self.skew_mphf is not None:
             d["skew_mphf"] = self.skew_mphf.device_arrays()
             d["skew_pos"] = self.skew_pos.device_arrays()
-        n_pos = len(self.pos)
+        pos_iv, p = self.pos, self.occs_prefix_sum
+        if (self.capped is not None and pos_kind == "packed"
+                and prefix_kind in ("grouped16", "grouped32")):
+            pos_iv, p = self.capped  # whole buckets would overflow the grouped bounds
+        n_pos = len(pos_iv)
         if pos_kind in ("fixedcap", "fixedcap2"):
             rows, cap = self._fixedcap_rows(pos_kind == "fixedcap2")
             d["pos"] = {"inline": rows, "meta": meta(length=rows.shape[0])}
@@ -595,8 +682,7 @@ class SSHash:
         elif pos_kind == "flat32":
             d["pos"] = {"flat": self.pos.to_array().astype(np.int32), "meta": meta(length=n_pos)}
         else:
-            d["pos"] = self.pos.device_arrays()
-        p = self.occs_prefix_sum
+            d["pos"] = pos_iv.device_arrays()
         if prefix_kind == "ef":
             d["prefix"] = EFVector.from_array(p.astype(np.uint64)).device_arrays()
         elif prefix_kind == "grouped16":
@@ -620,7 +706,7 @@ class SSHash:
         if bucket_inline:
             if us.total_len >= (1 << 31):
                 raise AssertionError("bucket_inline positions ride in u32")
-            posv = self.pos.to_array()
+            posv = pos_iv.to_array()
             cnt = p[1:] - p[:-1]
             hi = max(len(posv) - 1, 0)
             bp = np.zeros((len(cnt), 4), dtype=np.uint32)

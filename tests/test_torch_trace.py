@@ -277,8 +277,8 @@ def test_only_the_stage_flag_joins_the_graph_key(monkeypatch, small):
     assert (q.checksum_pass(stack), s(packed)) == want
     assert list(qi.graphs) == keys + [k + ("marked",) for k in keys]
     out = {k: qi.graphs[k].out for k in qi.graphs}
-    assert [tuple(out[k].shape) for k in keys] == [(4,), (CH, 3)]
-    assert [tuple(out[k + ("marked",)].shape) for k in keys] == [(7,), (CH, 5)]
+    assert [tuple(out[k].shape) for k in keys] == [(5,), (CH, 6)]
+    assert [tuple(out[k + ("marked",)].shape) for k in keys] == [(8,), (CH, 8)]
     qi.graphs.clear()
 
 
