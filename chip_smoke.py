@@ -72,7 +72,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    its slots' K2U (the full-depth main probe, the residue's full K2U)
    against the full K2U of every slot; the kernel and the block's
    checksum timed at the chunk beside the block's byte bound, and the
-   slots' K2U beside the full K2U of every slot;
+   slots' K2U beside the full K2U of every slot. Then the residue K2U
+   (``ops/residue_k2u``, ``csrc/residue_k2u.cu``) on the benchmark's
+   GRCh38-shaped genome at ``RESIDUE_SCALE``: ``_ragged_k2u`` with the
+   kernel against the same with the plain residue K2U, every slot's K2U
+   fields and the residue's count bit-identical, on ``residue_cases`` (a
+   read chunk of the benchmark's mix, its heavy-bucket lanes alone,
+   deferred winners that fail validation alone, foreign k-mers in heavy
+   buckets), each at a residue capacity above, equal to and half of its
+   count and with no real slot; the kernel timed at the chunk beside the
+   plain residue K2U and its sector floor;
 6. the mono2 main path: ``OneGraphIndexQuery.checksum_pass_rolled`` over
    16 rolled chunks of that batch, checked against the port's plain path
    on CPU tensors for chunk 0. Before it, ``TwoPhaseIndexQuery``'s
@@ -373,7 +382,7 @@ from mazu_tpu_torch.containers.unitig_set import us_get_kmer
 from mazu_tpu_torch.convert import arrays_from_numpy
 from mazu_tpu_torch.index.modindex import (
     ModIndex, QueryIndex, _ragged_k2u, build_uproj, get_ref_pos_compact, get_ref_pos_csr,
-    get_ref_pos_padded, k2u_batch, merge_compact_k2u,
+    get_ref_pos_padded, k2u_batch, merge_compact_k2u, residue_full_k2u,
 )
 from mazu_tpu_torch.index.pipeline import (
     OneGraphIndexQuery, RunServePass, checksum_padded_rolled, padded_checksum, serve_buffer,
@@ -394,7 +403,7 @@ from mazu_tpu_torch.io.fasta import open_binary
 from mazu_tpu_torch.io.fastq import read_fastq
 from mazu_tpu_torch.io.native import fastq_pack, kmerize_batch
 from mazu_tpu_torch.io.reads import kmerize_device, pack_fastq, pack_reads, pad_reads
-from mazu_tpu_torch.index.twophase import ReadBatchQuery, TwoPhaseIndexQuery, _host
+from mazu_tpu_torch.index.twophase import ReadBatchQuery, TwoPhaseIndexQuery, _host, _main_probe
 from mazu_tpu_torch.bits.seqvector import SeqVector
 from mazu_tpu_torch.bits.wm import WaveletMatrix, wm_access, wm_rank, wm_select
 from mazu_tpu_torch.index.unitig_table import WMUnitigTable
@@ -411,8 +420,9 @@ from mazu_tpu_torch.kphf.sshash import (
 )
 from mazu_tpu_torch.labs import cuda_ms, dma_lab, gather_probe
 from mazu_tpu_torch.ops import (
-    bpos_probe, capacity_probe, gather_lab, mono2_phase2, mono2_probe, occ_csr,
+    bpos_probe, capacity_probe, gather_lab, mono2_phase2, mono2_probe, occ_csr, residue_k2u,
 )
+from mazu_tpu_torch.ops.compact import flagged_lanes
 from mazu_tpu_torch.ops.cuda_build import compile_all
 from mazu_tpu_torch import synth
 
@@ -448,6 +458,12 @@ P2_OUT = 7 * 8 + 1  # bytes of a phase-2 slot's K2U fields and count
 P2_CELL = 8 + 8 + 4 + 1  # bytes of a phase-2 output cell: ref_id, ref_pos, orient, valid
 MANY_OCCS = 300  # occurrences of one unitig of phase 5b's many-occurrence index
 SERVE_LANES = synth.SERVE_READS * (synth.READ_LEN - synth.K + 1)  # a read chunk's lanes
+# phase 5c's residue K2U: the benchmark's GRCh38-shaped genome at this share
+# of its lengths and copy counts (154 Mbp), and a chunk of its read traffic
+RESIDUE_SCALE = 0.05
+RESIDUE_CONFIG = "portbench/configs/hg-scale-fast32.json"
+RESIDUE_TRAFFIC = "portbench/traffic/genome-reads-16k.json"
+RESIDUE_OUT = 3 * 8 + 1  # bytes of a residue slot's K2U fields
 # phase 18 profiles no more eager passes past this many seconds of the run,
 # so that a slow machine still ends inside the 1,200 s limit
 EAGER_PROFILE_UNTIL_S = 1100.0
@@ -1005,6 +1021,197 @@ def occ_csr_phase(dev, smi) -> None:
         f"{time.perf_counter() - t0:.1f} s ({smi})")
     del index, host, qi, d, cpu, r, out, got, want
 
+
+@contextlib.contextmanager
+def plain_residue():
+    """``_ragged_k2u`` with the plain residue K2U where it would launch
+    the kernel."""
+    engages = residue_k2u.engages
+    residue_k2u.engages = lambda d, device: False
+    try:
+        yield
+    finally:
+        residue_k2u.engages = engages
+
+
+def residue_genome(dev, scale: float = RESIDUE_SCALE, n_reads: int | None = None,
+                   seed: int = 2**33 + 7):
+    """(fast32 ModIndex, its arrays on ``dev``, a read chunk's k-mer
+    words): the benchmark's GRCh38-shaped genome at ``scale`` of its
+    lengths and copy counts (its repeats put k-mers in heavy buckets), its
+    fast32 index, and ``n_reads`` reads (by default a chunk of the hg
+    cell: 2,048 reads, 245,760 lanes) of the benchmark's read mix."""
+    from portbench import genome as G
+    from portbench.builds import fast32
+    from portbench.reference.checksums import read_lanes
+    from portbench.traffic.reads import sample_codes
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, RESIDUE_CONFIG)) as f:
+        cfg = dict(json.load(f), scale=scale)
+    with open(os.path.join(root, RESIDUE_TRAFFIC)) as f:
+        mix = json.load(f)
+    g = G.make(cfg, seed, dev)
+    index, qi = fast32.build(g, cfg, dev)
+    n = int(mix["reads_per_chunk"]) if n_reads is None else n_reads
+    codes = sample_codes(g, n, mix, np.random.default_rng(seed))
+    chunk = read_lanes(torch.from_numpy(codes).to(dev), g.k)[0].reshape(-1).contiguous()
+    return index, qi.arrays(), chunk
+
+
+def residue_probe(d: dict, fw: torch.Tensor) -> dict:
+    """The ragged phase 2's full-depth main probe of ``fw`` (K3 on the
+    card), whose heavy-bucket and unresolved lanes are the residue."""
+    return _main_probe(d, fw, int(d["k2u"]["meta"].probe_bound), True, None)[0]
+
+
+def residue_cases(d: dict, chunk: torch.Tensor, n_max: int = 1 << 15, seed: int = 9) -> dict:
+    """Batches for the residue K2U on the fast32 arrays ``d`` (name -> k-mer
+    words on ``chunk``'s device): a read chunk; its heavy-bucket (skew)
+    lanes alone; deferred winners that fail validation alone (k-mers
+    spelled across a unitig boundary and the chunk's own, kept where the
+    full-depth probe leaves them unresolved outside a heavy bucket); and
+    foreign k-mers in heavy buckets (skew lanes with one base changed that
+    still land in a heavy bucket). At most ``n_max`` lanes each but the
+    chunk."""
+    k2u = d["k2u"]
+    us = k2u["us"]
+    k = k2u["meta"].k
+    dev = chunk.device
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    r = residue_probe(d, chunk)
+    skew = chunk[r["use_skew"]][:n_max]
+    starts = us["accum2"][1:, 0]
+    pick = torch.randint(0, starts.shape[0], (n_max // (k - 1) + 1,), generator=gen).to(dev)
+    pos = torch.clamp(starts[pick][:, None] - torch.arange(1, k, device=dev), min=0)
+    failed = torch.cat([us_get_kmer(us, pos.reshape(-1)),
+                        chunk[r["unresolved"] & ~r["use_skew"]]])
+    rf = residue_probe(d, failed)
+    failed = failed[rf["unresolved"] & ~rf["use_skew"]][:n_max]
+    j = torch.randint(0, k, skew.shape, generator=gen).to(dev)
+    c = torch.randint(1, 4, skew.shape, generator=gen).to(dev)
+    mutant = skew ^ (c << (2 * j))
+    foreign = mutant[residue_probe(d, mutant)["use_skew"]]
+    return {"the read chunk": chunk, "skew lanes": skew, "failed deferred winners": failed,
+            "foreign k-mers in heavy buckets": foreign}
+
+
+def compare_residue(d: dict, fw: torch.Tensor, real: torch.Tensor, m_c: int, what: str) -> int:
+    """``_ragged_k2u`` with the kernel against the same with the plain
+    residue K2U, on the same card tensors: every slot's K2U fields and the
+    residue's count bit-identical. Returns the count."""
+    got, n_got = _ragged_k2u(d, fw, real, m_c)
+    with plain_residue():
+        want, n_want = _ragged_k2u(d, fw, real, m_c)
+    if int(n_got) != int(n_want):
+        raise AssertionError(f"[residue] {what}: count {int(n_got)} != {int(n_want)}")
+    for key in residue_k2u.FIELDS:
+        if got[key].dtype != want[key].dtype or not torch.equal(got[key], want[key]):
+            bad = int((got[key].to(torch.int64) != want[key].to(torch.int64)).sum())
+            raise AssertionError(f"[residue] {what}: {key} differs in {bad} slots")
+    return int(n_want)
+
+
+def residue_sectors(d: dict, fw: torch.Tensor, r: dict, rest: torch.Tensor,
+                    n_c: torch.Tensor, out: dict) -> int:
+    """The 32-byte sectors of the random reads that the residue K2U's real
+    slots need, each read once (the slot stream left out): a lane's word
+    and heavy flag; one per MPHF level its key tests up to its hit, plus
+    the hit's rank (the block words before the hit share its sector), or
+    the final table's binary search; for a heavy-bucket lane (the skew
+    MPHF over the canonical k-mer) its skew_pos entry and k-mer row, and
+    for a hit its wb2 row and extent; for another lane (the minimizer
+    MPHF) its two bucket deltas and group base, and for a hit the winning
+    row's position, words2 row, wb2 row and uproj row, for a miss each
+    row's position and words2 row. ``r`` is the full-depth probe of the
+    slots ``fw``, ``out`` their K2U fields with the residue's resolved. A
+    floor: the kernel reads the rows of a warp's lane 32 at a time."""
+    k2u = d["k2u"]
+    m = k2u["meta"]
+    n = int(torch.clamp(n_c, max=rest.shape[0]))
+    s = rest[:n]
+    x = fw[s]
+    skew = r["use_skew"][s]
+    mm, _, _, canon = canonical_minimizer_batch(x, m.k, m.w, m.seed, ordering=m.ordering)
+
+    def chain(mp, keys):
+        mmeta = mp["meta"]
+        n_lv = len(mmeta.n_bits)
+        s0, s1 = key_fold32(keys)
+        hit = torch.full_like(keys, -1)
+        for li in range(n_lv):
+            h, s0, s1 = chain_next(s0, s1)
+            p = h & (mmeta.n_bits[li] - 1)
+            bit = ((mask32(mp["words"][mmeta.word_offsets[li] + (p >> 5)]) >> (p & 31)) & 1) != 0
+            hit = torch.where(bit & (hit < 0), li, hit)
+        search = n_lv + int(mp["fh_keys"].shape[0]).bit_length() + 1
+        return torch.where(hit >= 0, hit + 2, search)
+
+    key_sectors = torch.where(skew, chain(k2u["skew_mphf"], canon), chain(k2u["mphf"], mm))
+    hit = out["mt"][s] > 0
+    hc = torch.clamp(mphf_lookup(k2u["mphf"], mm).to(torch.int64), min=0)
+    ps, pe = _prefix_pair(k2u, hc)
+    depth = torch.clamp(pe - ps, max=int(m.probe_bound))
+    skew_sectors = 2 + torch.where(hit, 2, 0)
+    row_sectors = 2 + torch.where(hit, 4, 2 * depth)
+    return int((2 + key_sectors + torch.where(skew, skew_sectors, row_sectors)).sum())
+
+
+def residue_phase(dev, smi, sector_rate: float) -> None:
+    """Phase 5c's residue K2U: the kernel (``ops/residue_k2u``) against the
+    plain residue K2U inside ``_ragged_k2u`` on ``residue_cases``, each
+    at a residue capacity m_c above its count, equal to it and at half of
+    it, and with no real slot; then timed at the chunk (m_c a quarter of
+    its lanes, as the benchmark's) beside the plain version and its floor
+    (``residue_sectors`` at ``sector_rate`` and its output bytes at
+    3.35 TB/s)."""
+    t0 = time.perf_counter()
+    _, d, chunk = residue_genome(dev, RESIDUE_SCALE)
+    build_s = time.perf_counter() - t0
+    if not residue_k2u.engages(d, dev):
+        raise AssertionError("[residue] the kernel does not engage on the fast32 index")
+    residue_k2u.LAUNCHES = 0
+    cases = residue_cases(d, chunk)
+    notes = []
+    for name, fw in cases.items():
+        r = residue_probe(d, fw)
+        n = int((r["use_skew"] | r["unresolved"]).sum())
+        if n == 0:
+            raise AssertionError(f"[residue] {name}: no residue")
+        real = torch.ones(fw.shape[0], dtype=torch.bool, device=dev)
+        for m_c in sorted({n + 37, n, max(n // 2, 1)}):
+            compare_residue(d, fw, real, m_c, f"{name}, m_c {m_c}")
+        compare_residue(d, fw, torch.zeros_like(real), 64, f"{name}, no real slot")
+        hits = int((k2u_batch(d, fw[(r["use_skew"] | r["unresolved"])])["mt"] > 0).sum())
+        notes.append(f"{name}: {fw.shape[0]} lanes, residue {n} "
+                     f"({int(r['use_skew'].sum())} heavy-bucket, {hits} hits)")
+    launches = residue_k2u.LAUNCHES
+    # the benchmark's shape: m_c a quarter of the chunk's slots
+    r = residue_probe(d, chunk)
+    m_c = chunk.shape[0] // 4
+    rest, n_c = flagged_lanes(r["use_skew"] | r["unresolved"], m_c)
+    want = residue_full_k2u(d, chunk, r, rest, n_c)
+    got = residue_k2u.residue_k2u(d, chunk, r, rest, n_c)
+    for key in residue_k2u.FIELDS:
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"[residue] the timed chunk: {key} differs")
+    ms = cuda_ms(lambda: residue_k2u.residue_k2u(d, chunk, r, rest, n_c), 20)
+    plain_ms = cuda_ms(lambda: residue_full_k2u(d, chunk, r, rest, n_c), 3)
+    n = int(torch.clamp(n_c, max=m_c))
+    sectors = residue_sectors(d, chunk, r, rest, n_c, want)
+    floor = (sectors / sector_rate + RESIDUE_OUT * n / HBM_BPS) * 1e3
+    log(f"[residue] {'; '.join(notes)}: the kernel bit-identical to the plain residue K2U inside "
+        f"_ragged_k2u on every slot at m_c above, equal to and half of the residue, and with no "
+        f"real slot ({launches} launches)")
+    log(f"[residue] at the chunk ({chunk.shape[0]} slots, m_c {m_c}, {n} residue lanes): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms; floor {floor:.4f} ms ({sectors} sectors at "
+        f"{sector_rate / 1e9:.3f} G/s, {RESIDUE_OUT * n} output bytes at {HBM_BPS / 1e12:.2f} "
+        f"TB/s; kernel at {floor / ms:.1%}); genome and index {build_s:.1f} s, "
+        f"{time.perf_counter() - t0:.1f} s in all ({smi})")
+    del d, chunk, cases, r, rest, got, want
+
+
 def card() -> tuple[torch.device, str]:
     """The CUDA device, and its name and power limit as nvidia-smi gives
     them; exits without a card."""
@@ -1021,7 +1228,7 @@ def card() -> tuple[torch.device, str]:
 
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a main path)."""
-    for mod in (mono2_probe, bpos_probe, capacity_probe, mono2_phase2, occ_csr):
+    for mod in (mono2_probe, bpos_probe, capacity_probe, mono2_phase2, occ_csr, residue_k2u):
         mod.LAUNCHES = 0
     for name in gather_lab.LAUNCHES:
         gather_lab.LAUNCHES[name] = 0
@@ -1081,12 +1288,13 @@ def main():
     mark("2")
     # 2. kernel builds, one nvcc per source, together
     t0 = time.perf_counter()
-    (lib, ptxas), (lib2, ptxas2), (lib3, ptxas3), (lib4, ptxas4), (lib5, _), (lib6, ptxas6) = \
-        compile_all([mono2_probe.SOURCE, bpos_probe.SOURCE, capacity_probe.SOURCE,
-                     gather_lab.SOURCE, k3_plain_reads_source(), mono2_phase2.SOURCE])
-    log(f"[build] {lib.name}, {lib2.name}, {lib3.name}, {lib4.name}, {lib5.name} and {lib6.name} "
-        f"in {time.perf_counter() - t0:.2f} s")
-    for line in ptxas_lines(ptxas) + ptxas_lines(ptxas6):
+    ((lib, ptxas), (lib2, ptxas2), (lib3, ptxas3), (lib4, ptxas4), (lib5, _), (lib6, ptxas6),
+     (lib7, ptxas7)) = compile_all([mono2_probe.SOURCE, bpos_probe.SOURCE, capacity_probe.SOURCE,
+                                    gather_lab.SOURCE, k3_plain_reads_source(),
+                                    mono2_phase2.SOURCE, residue_k2u.SOURCE])
+    log(f"[build] {lib.name}, {lib2.name}, {lib3.name}, {lib4.name}, {lib5.name}, {lib6.name} "
+        f"and {lib7.name} in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_lines(ptxas) + ptxas_lines(ptxas6) + ptxas_lines(ptxas7):
         log(f"[build] {line}")
 
     mark("3")
@@ -1167,8 +1375,9 @@ def main():
     p2 = phase2_phase("p2", index, host, gpu_index, work, dev, smi, sector_rate)
 
     mark("5c")
-    # 5c. the ragged phase 2 against its plain version
+    # 5c. the ragged phase 2 and its residue K2U against their plain versions
     occ_csr_phase(dev, smi)
+    residue_phase(dev, smi, sector_rate)
 
     mark("6")
     # 6. main path

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import MATCH_IDENTITY, trace
-from ..ops import mono2_phase2, occ_csr
+from ..ops import mono2_phase2, occ_csr, residue_k2u
 from ..ops.compact import flagged_lanes, flagged_lanes2
 from ..ops.mono2_probe import card_table
 from ..pytree import meta
@@ -268,6 +268,23 @@ def _compact_split(d, fw, r, p, overflow, m_a, m_b, max_occs, merge, probe_start
     return full
 
 
+def residue_full_k2u(d: dict, fw: torch.Tensor, r: dict, rest: torch.Tensor,
+                     n_c: torch.Tensor) -> dict:
+    """``r``'s K2U fields with each real residue slot ``rest[i]`` (``i <
+    min(n_c, len(rest))``) replaced by its full K2U: the plain residue K2U
+    of ``_ragged_k2u``, and the CPU path and oracle of ``ops.residue_k2u``."""
+    full = k2u_batch(d, fw[rest])
+    M = fw.shape[0]
+    m_c = rest.shape[0]
+    safe = torch.where(torch.arange(m_c, device=fw.device) < n_c, rest, M)  # fakes -> dummy row
+    out = {}
+    for kk in _K2U_FIELDS:
+        ext = torch.cat([r[kk], torch.zeros_like(r[kk][:1])])
+        ext[safe] = full[kk]
+        out[kk] = ext[:M]
+    return out
+
+
 def _ragged_k2u(d: dict, fw: torch.Tensor, real: torch.Tensor, m_c: int):
     """(the exact K2U fields of the phase-2 slots ``fw``, the residue's
     count) for the ragged phase 2; ``real`` flags the slots that hold a
@@ -275,8 +292,11 @@ def _ragged_k2u(d: dict, fw: torch.Tensor, real: torch.Tensor, m_c: int):
     whole MPHF chain (``twophase._main_probe``: K3 where it fits), and only
     the real lanes it leaves (heavy buckets, a deferred winner that failed
     validation) take the full K2U, compacted into ``m_c`` slots: lanes past
-    ``m_c`` stay unresolved, and the count says so. Other dictionaries take
-    the full K2U of every slot (residue 0)."""
+    ``m_c`` stay unresolved, and the count says so. Where
+    ``ops.residue_k2u.engages`` (a fast32 SSHash in K3's layout with a lean
+    skew MPHF, on the card) that K2U is the kernel's, else the plain
+    ``residue_full_k2u``. Other dictionaries take the full K2U of every
+    slot (residue 0)."""
     from .twophase import _main_probe
 
     m_ = d["k2u"]["meta"]
@@ -286,15 +306,9 @@ def _ragged_k2u(d: dict, fw: torch.Tensor, real: torch.Tensor, m_c: int):
                                                                  device=fw.device)
     r, _ = _main_probe(d, fw, int(m_.probe_bound), True, None)
     rest, n_c = flagged_lanes((r["use_skew"] | r["unresolved"]) & real, m_c)
-    full = k2u_batch(d, fw[rest])
-    M = fw.shape[0]
-    safe = torch.where(torch.arange(m_c, device=fw.device) < n_c, rest, M)  # fakes -> dummy row
-    out = {}
-    for kk in _K2U_FIELDS:
-        ext = torch.cat([r[kk], torch.zeros_like(r[kk][:1])])
-        ext[safe] = full[kk]
-        out[kk] = ext[:M]
-    return out, n_c
+    if residue_k2u.engages(d, fw.device):
+        return residue_k2u.residue_k2u(d, fw, r, rest, n_c), n_c
+    return residue_full_k2u(d, fw, r, rest, n_c), n_c
 
 
 def get_ref_pos_compact(
@@ -351,7 +365,8 @@ def get_ref_pos_compact(
     [N, max_occs] tensors. In a marked pass (``trace.staged``) an unsplit
     result also holds ``side_probes``: the real phase-2 lanes whose key the
     main table did not hold, sent on to a mono or mono2 KCDict's side table
-    (0 on other dictionaries)."""
+    (0 on other dictionaries), and ``residue``: the real residue lanes that
+    a ragged phase 2's full K2U resolved (at most ``m2c``; 0 elsewhere)."""
     from .twophase import _main_probe, _project_main
 
     N = fw.shape[0]
@@ -370,8 +385,10 @@ def get_ref_pos_compact(
     lanes, n_ovf = flagged_lanes(overflow, M)
     over_budget = n_ovf > M
     slot_real = torch.arange(M, device=fw.device) < torch.clamp(n_ovf, max=M)
-    # a marked pass counts the real lanes sent on to the side table
+    # a marked pass counts the real lanes sent on to the side table and
+    # the residue lanes that the full K2U resolved
     side = torch.zeros((), dtype=torch.int64, device=fw.device) if trace.staged() else None
+    residue = None
     # these lanes include ones the main probe found (more occurrences than
     # it projects): the re-probe starts at row 0, not at probe_start
     budget = None if merge else occ_csr.budget(d, max_occs, M, occ_budget)
@@ -382,6 +399,8 @@ def get_ref_pos_compact(
         out2 = {**r2, **occ_csr.occ_csr(d, r2, n_ovf, budget)}
         over_c = n_c > m_c
         over_budget = over_budget | over_c | (out2["total"] > budget)
+        if side is not None:
+            residue = torch.clamp(n_c, max=m_c)
     elif mono2_phase2.engages(d, fw.device):
         out2 = mono2_phase2.mono2_phase2(d, fw, lanes, n_ovf, max_occs, side_probes=side)
     else:
@@ -399,7 +418,8 @@ def get_ref_pos_compact(
             "over_budget": over_budget,
         }
         if side is not None:
-            out["side_probes"] = side
+            out.update(side_probes=side,
+                       residue=torch.zeros_like(side) if residue is None else residue)
         if over_c is not None:
             out.update(over_budget_c=over_c, fw=fw)
         return out

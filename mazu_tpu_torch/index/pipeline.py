@@ -252,20 +252,21 @@ class OneGraphIndexQuery:
 
     @staticmethod
     def phase2_counts(out: dict) -> torch.Tensor:
-        """int64 [3] of a ``merge=False`` result, on the device: the lanes
+        """int64 [4] of a ``merge=False`` result, on the device: the lanes
         sent to phase 2 (``n_ovf``, plus ``n_ovf_b`` when type-split), the
         phase-2 slots that hold a real occurrence (``valid`` of a real
-        slot; a ragged phase 2's ``total``), and the real lanes sent on to
-        the side table (``side_probes``, which a marked pass's result
-        holds; else 0)."""
+        slot; a ragged phase 2's ``total``), the real lanes sent on to the
+        side table (``side_probes``) and the real residue lanes of a ragged
+        phase 2 (``residue``); the last two where a marked pass's result
+        holds them, else 0."""
         lanes = out["n_ovf"].to(torch.int64)
         p2 = out["phase2"]
         occs = p2["total"] if "total" in p2 else (p2["valid"] & out["slot_real"][:, None]).sum()
         if "phase2b" in out:
             lanes = lanes + out["n_ovf_b"]
             occs = occs + (out["phase2b"]["valid"] & out["slot_real_b"][:, None]).sum()
-        side = out.get("side_probes", torch.zeros_like(lanes))
-        return torch.stack([lanes, occs, side])
+        zero = torch.zeros_like(lanes)
+        return torch.stack([lanes, occs, out.get("side_probes", zero), out.get("residue", zero)])
 
     def _run(self, chunks) -> torch.Tensor:
         """int64 [5] on the device: the pass checksum and the worst
@@ -315,7 +316,7 @@ class OneGraphIndexQuery:
         if len(vals) > 5:
             slots = (self.CH * budget if budget
                      else self.CH * (self.M2 + (self.M2B or 0)) * self.max_occs)
-            count_phase2(vals[5], vals[6], slots, vals[7])
+            count_phase2(vals[5], vals[6], slots, vals[7], vals[8])
         if budget and wo > budget:
             raise RuntimeError(
                 f"occurrence budget exceeded: {wo} occurrences in a chunk (occ_budget={budget}); "
@@ -348,12 +349,14 @@ class OneGraphIndexQuery:
         return tot
 
 
-def count_phase2(lanes: int, occurrences: int, slots: int, side_probes: int) -> None:
+def count_phase2(lanes: int, occurrences: int, slots: int, side_probes: int,
+                 residue: int) -> None:
     """The ``phase2.*`` counters of one marked pass."""
     trace.count("phase2.lanes", lanes)
     trace.count("phase2.occurrences", occurrences)
     trace.count("phase2.slots", slots)
     trace.count("phase2.side_probes", side_probes)
+    trace.count("phase2.residue", residue)
 
 
 def padded_checksum(out: dict) -> torch.Tensor:
@@ -483,9 +486,10 @@ def serve_chunk(arrays: dict, cb: dict, packed: dict, row_start: int, rows: int,
     ``merge_compact_k2u`` and the intersecting ``pseudoalign_from_k2u``
     over the color bitsets ``cb``. pa_chk sums the bitset words' int64 bit
     patterns, which wraps as the reference's u64 sum cast to int64 does,
-    plus the reads' hit counts. A marked pass (``trace.staged``) adds two
+    plus the reads' hit counts. A marked pass (``trace.staged``) adds three
     more: the phase-2 slots that hold a real occurrence (a ragged phase
-    2's total) and the phase-2 lanes sent on to the side table."""
+    2's total), the phase-2 lanes sent on to the side table and a ragged
+    phase 2's real residue lanes."""
     trace.mark("kmerize", packed["words"])
     km, v = kmerize_device(packed, row_start, rows)
     out = get_ref_pos_compact(arrays, km.reshape(-1), max_occs, merge=False, m2=m2,
@@ -556,7 +560,7 @@ class RunServePass:
         ])
 
     def device_pass(self, flat: torch.Tensor, m) -> torch.Tensor:
-        """int64 [CH, 6] (``serve_chunk``'s columns; [CH, 8] in a marked
+        """int64 [CH, 6] (``serve_chunk``'s columns; [CH, 9] in a marked
         pass) of a batch with Meta ``m`` (``pad_reads``'s, to ``read_len``)
         already on the device as one ``serve_buffer``, with no host read; on
         a CUDA index the graph's output, which the next replay
@@ -593,7 +597,8 @@ class RunServePass:
                 maps, pas, n_ovf, _, over_c, self.occ_totals = cols[:6]
                 if len(cols) > 6:
                     slots = self.occ_budget if self.ragged else self.M2 * self.index.max_occs
-                    count_phase2(sum(n_ovf), sum(cols[6]), self.CH * slots, sum(cols[7]))
+                    count_phase2(sum(n_ovf), sum(cols[6]), self.CH * slots, sum(cols[7]),
+                                 sum(cols[8]))
                 if max(n_ovf) > self.M2:
                     raise RuntimeError(f"phase-2 capacity exceeded: {max(n_ovf)} overflow lanes "
                                        f"in a chunk (m2={self.M2}); results for the lanes past "

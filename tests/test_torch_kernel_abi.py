@@ -1,10 +1,11 @@
 """The argument blocks of the CUDA kernels K1 (``csrc/mono2_probe.cu``), K2
 (``csrc/bpos_probe.cu``), K3 (``csrc/capacity_probe.cu``), the mono2
-phase 2 (``csrc/mono2_phase2.cu``) and the ragged phase 2
-(``csrc/occ_csr.cu``) against their ctypes mirrors
-(``ops/mono2_probe._Args``, ``ops/bpos_probe._Args``,
-``ops/capacity_probe._Args``, ``ops/mono2_phase2._Args``,
-``ops/occ_csr._Args``), and the C
+phase 2 (``csrc/mono2_phase2.cu``), the ragged phase 2
+(``csrc/occ_csr.cu``) and its residue K2U (``csrc/residue_k2u.cu``)
+against their ctypes mirrors (``ops/mono2_probe._Args``,
+``ops/bpos_probe._Args``, ``ops/capacity_probe._Args``,
+``ops/mono2_phase2._Args``, ``ops/occ_csr._Args``,
+``ops/residue_k2u._Args``), and the C
 entries of the lab kernels
 (``csrc/gather_lab.cu``) against ``ops/gather_lab.ARGTYPES``.
 
@@ -23,7 +24,7 @@ import re
 import pytest
 
 from mazu_tpu_torch.ops import (
-    bpos_probe, capacity_probe, gather_lab, mono2_phase2, mono2_probe, occ_csr,
+    bpos_probe, capacity_probe, gather_lab, mono2_phase2, mono2_probe, occ_csr, residue_k2u,
 )
 
 EIGHT_BYTE_INTS = {"int64_t", "uint64_t"}
@@ -71,6 +72,7 @@ KERNELS = {
                                     "kSideRowWords": "SIDE_ROW_WORDS",
                                     "kMaxOccsLimit": "MAX_OCCS_LIMIT"}),
     "occ_csr": (occ_csr, {"kTile": "TILE", "kOccTile": "OCC_TILE"}),
+    "residue_k2u": (residue_k2u, {"kTile": "TILE", "kMaxLevels": "MAX_LEVELS"}),
 }
 
 

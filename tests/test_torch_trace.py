@@ -225,7 +225,8 @@ def test_phase2_counters_of_the_query(small):
     lanes, occs, side = _phase2_by_hand(qi, stack, N)
     assert trace.snapshot()["counters"] == {
         "passes": 1, "phase2.lanes": lanes, "phase2.occurrences": occs,
-        "phase2.slots": CH * N * qi.max_occs, "phase2.side_probes": side}
+        "phase2.slots": CH * N * qi.max_occs, "phase2.side_probes": side,
+        "phase2.residue": 0}
     assert 0 < lanes < CH * N
 
 
@@ -244,7 +245,8 @@ def test_phase2_counters_of_the_serve_pass(small):
     assert lanes == sum(off[2])
     c = trace.snapshot()["counters"]
     assert c == {"passes": 1, "phase2.lanes": lanes, "phase2.occurrences": occs,
-                 "phase2.slots": CH * M2_SERVE * qi.max_occs, "phase2.side_probes": side}
+                 "phase2.slots": CH * M2_SERVE * qi.max_occs, "phase2.side_probes": side,
+                 "phase2.residue": 0}
 
 
 class _StandIn:
@@ -278,7 +280,7 @@ def test_only_the_stage_flag_joins_the_graph_key(monkeypatch, small):
     assert list(qi.graphs) == keys + [k + ("marked",) for k in keys]
     out = {k: qi.graphs[k].out for k in qi.graphs}
     assert [tuple(out[k].shape) for k in keys] == [(5,), (CH, 6)]
-    assert [tuple(out[k + ("marked",)].shape) for k in keys] == [(8,), (CH, 8)]
+    assert [tuple(out[k + ("marked",)].shape) for k in keys] == [(9,), (CH, 9)]
     qi.graphs.clear()
 
 
